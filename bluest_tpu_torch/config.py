@@ -1,0 +1,38 @@
+"""Numerical and device policy for bluest_tpu_torch.
+
+The allocation optimization (cone solver, corner search, estimator
+assembly) runs in float64 to reach the ~1e-8 agreement targets of the
+reference; the Monte Carlo model evaluations run in the model's own dtype
+and the sample sums always accumulate in float64.
+
+Nothing here picks a device on its own: a problem names its sampling
+device explicitly (``device=`` on the constructor), and the allocation
+runs on :func:`allocation_device`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+REAL = np.float64
+INDEX = np.int32
+
+# Threshold below which a correlation is treated as "uncorrelated"
+# (reference: blue_models.py:344, blue_models.py:413).
+UNCORRELATED_RHO_TOL = 1.0e-7
+
+# Eigenvalue clip used when projecting covariances onto the SPD cone
+# (reference: spg_default_params["spd_threshold"], blue_models.py:13).
+SPD_THRESHOLD = 5.0e-14
+
+
+def allocation_device() -> torch.device:
+    """Device the allocation optimization runs on.
+
+    The MLBLUE allocation problems are tiny (a few hundred variables,
+    PSD blocks of size M+1) and their interior-point iterations are a
+    Python loop of small f64 factorizations, so they run on the host
+    CPU, as in the JAX package.  Whether the card's hardware f64 beats
+    the host here is an open measurement, not a decided one."""
+    return torch.device("cpu")

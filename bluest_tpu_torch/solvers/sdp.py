@@ -1,0 +1,737 @@
+"""Homogeneous self-dual interior-point solver for cone programs with a
+nonnegative-orthant block and dense PSD blocks, over torch f64 tensors.
+
+Port of ``bluest_tpu/solvers/sdp.py``.  Solves
+
+    minimize    c^T x
+    subject to  Gl x <= hl                           (componentwise)
+                sum_i x_i * As[b, i]  <=  Hs[b]      (PSD order, per block b)
+
+via the homogeneous self-dual (HSD) embedding with Nesterov-Todd scaling
+and a Mehrotra predictor-corrector (see the JAX module's docstring for
+the derivation).  The iteration is the JAX package's, step for step; what
+differs is the loop around it: the fused ``lax.while_loop`` program becomes
+a Python loop over eager torch operations on ``allocation_device()``, so
+there is no trace, compile or crash-isolation worker.  Not ported: the
+warm-start cache and the IPM prewarm (both exist to avoid XLA retraces
+and recompiles), and the opt-in Gondzio correctors and f32-GEMM /
+zero-padding knobs of the Woodbury path (all off by default there).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..config import allocation_device
+
+__all__ = ["ConeLPResult", "solve_cone_lp"]
+
+F64 = torch.float64
+_WOOD_REFINE = 4      # Woodbury refinement steps (JAX package default)
+
+
+class ConeLPResult(NamedTuple):
+    x: np.ndarray
+    status: str          # "optimal" | "inaccurate" | "max_iter" |
+                         # "failed" | "infeasible" | "unbounded"
+    iterations: int
+    gap: float
+    pres: float
+    dres: float
+    pobj: float
+    dims: Optional[dict] = None   # {nx, p, nb, n, rank, woodbury, wall_s}
+
+
+def _sym(A):
+    return (A + A.transpose(-1, -2)) / 2
+
+
+def _chol_factor(H, jitter=1e-14):
+    """Equilibrated Cholesky factor of an SPD matrix (unit-diagonal
+    scaling first, so the 1e-14 ridge is scale-invariant)."""
+    n = H.shape[0]
+    d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-150))
+    Hs = H / d[:, None] / d[None, :]
+    L = torch.linalg.cholesky(Hs + jitter * torch.eye(n, dtype=H.dtype,
+                                                      device=H.device))
+    return H, L, d
+
+
+def _chol_apply(fac, RHS):
+    """Solve with a _chol_factor result (+ one refinement step)."""
+    H, L, d = fac
+    one_d = RHS.dim() == 1
+    B = RHS[:, None] if one_d else RHS
+
+    def solve(b):
+        bs = b / d[:, None]
+        y = torch.linalg.solve_triangular(L, bs, upper=False)
+        return torch.linalg.solve_triangular(L.T, y, upper=True) / d[:, None]
+
+    X = solve(B)
+    X = X + solve(B - H @ X)  # one step of iterative refinement
+    return X[:, 0] if one_d else X
+
+
+def _psd_lowrank_factor(Ms):
+    """(nb, nx, n, n) symmetric slabs -> W (nx, nb*n(n+1)/2) with
+    (W W^T)[i,k] = sum_b <Ms[b,i], Ms[b,k]>_F (symmetric vectorization,
+    off-diagonals weighted by sqrt(2))."""
+    nb, nx, n, _ = Ms.shape
+    iu0, iu1 = np.triu_indices(n)
+    wts = torch.as_tensor(np.where(iu0 == iu1, 1.0, np.sqrt(2.0)),
+                          dtype=Ms.dtype, device=Ms.device)
+    V = Ms[:, :, iu0, iu1] * wts                   # (nb, nx, ns)
+    return V.permute(1, 0, 2).reshape(nx, nb * iu0.shape[0])
+
+
+def _wood_factor(d0, W, jitter=1e-14):
+    """Factor H = diag(d0) + W W^T via the capacitance matrix
+    C = I + W^T diag(1/d0) W (equilibrated Cholesky)."""
+    r = W.shape[1]
+    Wd = W / d0[:, None]
+    C = torch.eye(r, dtype=W.dtype, device=W.device) + W.T @ Wd
+    return d0, W, Wd, _chol_factor(C, jitter=jitter)
+
+
+def _wood_apply(fac, RHS):
+    """Woodbury solve with _WOOD_REFINE steps of iterative refinement
+    against the exact implicit matvec (see the JAX module: fewer steps
+    stall the endgame on large instances)."""
+    d0, W, Wd, Cfac = fac
+    one_d = RHS.dim() == 1
+    B = RHS[:, None] if one_d else RHS
+
+    def solve(b):
+        t = b / d0[:, None]
+        return t - Wd @ _chol_apply(Cfac, W.T @ t)
+
+    def matvec(x):
+        return d0[:, None] * x + W @ (W.T @ x)
+
+    X = solve(B)
+    for _ in range(_WOOD_REFINE):
+        X = X + solve(B - matvec(X))
+    return X[:, 0] if one_d else X
+
+
+# --------------------- batched PSD cone primitives ----------------------- #
+
+def _nt_scaling(S, Z):
+    """Batched NT scaling (Todd-Toh-Tutuncu): returns (Tinv, R, Rinv, lam)
+    with T = R R^T the metric geometric mean (T Z T = S)."""
+    Ls = torch.linalg.cholesky(S)
+    Lz = torch.linalg.cholesky(Z)
+    M = Ls.transpose(-1, -2) @ Lz
+    U, sig, Vt = torch.linalg.svd(M)
+    sig = torch.clamp(sig, min=1e-150)
+    R = (Ls @ U) / torch.sqrt(sig)[:, None, :]
+    LsTinvU = torch.linalg.solve_triangular(Ls.transpose(-1, -2), U,
+                                            upper=True)
+    Rinv = torch.sqrt(sig)[:, :, None] * LsTinvU.transpose(-1, -2)
+    Tinv = Rinv.transpose(-1, -2) @ Rinv
+    return _sym(Tinv), R, Rinv, sig
+
+
+def _max_step_psd(S, dS):
+    """Batched sup {a : S + a dS >= 0} (min over blocks)."""
+    L = torch.linalg.cholesky(S)
+    M1 = torch.linalg.solve_triangular(L, dS, upper=False)
+    M2 = torch.linalg.solve_triangular(L, M1.transpose(-1, -2), upper=False)
+    lam_min = float(torch.min(torch.linalg.eigvalsh(_sym(M2))[:, 0]))
+    return np.inf if lam_min >= 0 else -1.0 / min(lam_min, -1e-150)
+
+
+def _max_step_lp(s, ds):
+    if s.shape[0] == 0:
+        return np.inf
+    neg = ds < 0
+    if not bool(neg.any()):
+        return np.inf
+    return float(torch.min(-s[neg] / ds[neg]))
+
+
+def _max_step_scalar(t, dt):
+    return -t / dt if dt < 0 else np.inf
+
+
+def _dual_polish(GT, Gall_mul, gsolve, p, nb, n, cj, z_lp, Z, tau, beta):
+    """Minimum-norm dual correction restoring G^T z + c tau = 0,
+    cone-limited so z stays strictly interior; ``beta`` is the initial
+    step fraction (0.0 or 1.0)."""
+    rd = cj * tau + GT(z_lp, Z)
+    delta = -Gall_mul(gsolve(rd))
+    if p:
+        beta = min(beta, 0.99 * _max_step_lp(z_lp, delta[:p]))
+    if nb:
+        dZc = _sym(delta[p:].reshape(nb, n, n))
+        beta = min(beta, 0.99 * _max_step_psd(Z, dZc))
+    beta = max(beta, 0.0)
+    z_lp = z_lp + beta * delta[:p]
+    if nb:
+        Z = _sym(Z + beta * dZc)
+    return z_lp, Z
+
+
+# ---------------------- one HSD predictor-corrector step ------------------ #
+
+def _iteration_core(cj, Glj, hlj, Aj, Hj, g_ops, gsolve, cnorm, step_frac,
+                    gl_diag, Rj, woodbury, x, s_lp, S, z_lp, Z, tau, kappa):
+    """One NT-scaled Mehrotra step on the HSD embedding (JAX
+    ``_iteration_core`` without the opt-in Gondzio correctors).
+
+    Returns (step, gap_cones, pres_r, dres_r): the residual metrics of
+    the current iterate, and ``step`` = (x, s_lp, S, z_lp, Z, tau, kappa,
+    a) of the next one, or None when a factorization broke down."""
+    p = hlj.shape[0]
+    nb, nx, n, _ = Aj.shape
+    nu = p + nb * n + 1
+    Gl_mul, GlT_mul, Gall_mul = g_ops
+    dev = cj.device
+
+    def Gx(v):
+        lp = Gl_mul(v) if p else torch.zeros(0, dtype=v.dtype, device=dev)
+        psd = torch.einsum('i,binm->bnm', v, Aj) if nb else None
+        return lp, psd
+
+    def GT(u_lp, U_psd):
+        out = GlT_mul(u_lp) if p else torch.zeros(nx, dtype=F64, device=dev)
+        if nb:
+            out = out + torch.einsum('binm,bnm->i', Aj, U_psd)
+        return out
+
+    Ax_lp, Ax_psd = Gx(x)
+    rd = GT(z_lp, Z) + cj * tau
+    rp_lp = hlj * tau - Ax_lp - s_lp if p else s_lp[:0]
+    Rp = (Hj * tau - Ax_psd - S) if nb else Hj
+    hz = (float(hlj @ z_lp) if p else 0.0) + (float(torch.sum(Hj * Z))
+                                              if nb else 0.0)
+    rg = -float(cj @ x) - hz - kappa
+
+    gap_cones = float(s_lp @ z_lp) if p else 0.0
+    if nb:
+        gap_cones = gap_cones + float(torch.sum(S * Z))
+    pres_r = float(torch.linalg.norm(
+        torch.cat([rp_lp, Rp.reshape(-1)]) if nb else rp_lp))
+    dres_r = float(torch.linalg.norm(rd))
+    try:
+        step = _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve,
+                         cnorm, step_frac, gl_diag, Rj, woodbury, x, s_lp,
+                         S, z_lp, Z, tau, kappa, rd, rp_lp, Rp, rg,
+                         gap_cones, nu)
+    except torch.linalg.LinAlgError:
+        # a factorization broke down (the JAX program's NaN step): the
+        # pre-step metrics still count, the iterate is not advanced
+        step = None
+    return step, gap_cones, pres_r, dres_r
+
+
+def _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve, cnorm,
+              step_frac, gl_diag, Rj, woodbury, x, s_lp, S, z_lp, Z, tau,
+              kappa, rd, rp_lp, Rp, rg, gap_cones, nu):
+    """Newton directions, step length and dual polish of one iteration."""
+    p = hlj.shape[0]
+    nb, nx, n, _ = Aj.shape
+    mu = (gap_cones + tau * kappa) / nu
+
+    d_lp = z_lp / s_lp if p else s_lp
+    structured = gl_diag.shape[0] == nx
+
+    def hmat_lp():
+        if not structured:
+            return (Glj.T * d_lp) @ Glj
+        H = torch.diag(d_lp[:nx] * gl_diag ** 2)
+        if Rj.shape[0]:
+            H = H + torch.einsum('ri,r,rj->ij', Rj, d_lp[nx:], Rj)
+        return H
+
+    if nb:
+        Tinv, Rnt, Rinv, lam = _nt_scaling(S, Z)
+        Zinv = _sym(torch.einsum('bij,bj,bkj->bik', Rnt, 1.0 / lam, Rnt))
+        TinvH = _sym(torch.einsum('bij,bjl,blm->bim', Tinv, Hj, Tinv))
+        if not woodbury:
+            Y = torch.einsum('bij,bkjl,blm->bkim', Tinv, Aj, Tinv)
+            Hmat = torch.einsum('binm,bknm->ik', Aj, Y)
+            if p:
+                Hmat = Hmat + hmat_lp()
+    else:
+        TinvH = Hj
+        if not woodbury:
+            Hmat = hmat_lp()
+
+    if woodbury:
+        # Hmat = diag(d0) + W W^T, never materialized
+        d0 = d_lp[:nx] * gl_diag ** 2
+        parts = [Rj.T * torch.sqrt(d_lp[nx:])[None, :]]
+        if nb:
+            Mb = torch.einsum('baj,bijl,bcl->biac', Rinv, Aj, Rinv)
+            parts.append(_psd_lowrank_factor(Mb))
+        W = torch.cat(parts, dim=1)
+        Hfac = _wood_factor(d0, W)
+        hsolve = lambda r: _wood_apply(Hfac, r)
+    else:
+        Hfac = _chol_factor(Hmat)
+        hsolve = lambda r: _chol_apply(Hfac, r)
+
+    def Winv2(u_lp, U_psd):
+        """(W^T W)^{-1} applied blockwise."""
+        lp = d_lp * u_lp if p else u_lp
+        psd = _sym(torch.einsum('bij,bjl,blm->bim', Tinv, U_psd, Tinv)) \
+            if nb else U_psd
+        return lp, psd
+
+    q = GT(d_lp * hlj if p else hlj[:0], TinvH if nb else None)
+    hWh = float(hlj @ (d_lp * hlj)) if p else 0.0
+    if nb:
+        hWh = hWh + float(torch.sum(Hj * TinvH))
+
+    v1 = hsolve(cj - q)
+    denom = float((cj + q) @ v1) + hWh + kappa / tau
+
+    def direction(fr, bs_lp, Bs_psd, bk):
+        bx = fr * rd
+        bz_lp = fr * rp_lp
+        Bz_psd = fr * Rp if nb else Rp
+        bt = fr * rg
+        wb_lp, Wb_psd = Winv2(bz_lp + bs_lp,
+                              (Bz_psd + Bs_psd) if nb else Bs_psd)
+        rx = -bx + GT(wb_lp, Wb_psd)
+        v2 = hsolve(rx)
+        rt = (-bt - bk / tau
+              - (float(hlj @ wb_lp) if p else 0.0)
+              - (float(torch.sum(Hj * Wb_psd)) if nb else 0.0))
+        dtau = (rt + float((cj + q) @ v2)) / denom
+        dx = v2 - dtau * v1
+        Adx_lp, Adx_psd = Gx(dx)
+        dz_lp, dZ = Winv2(
+            (Adx_lp - hlj * dtau - bz_lp - bs_lp) if p else bz_lp,
+            (Adx_psd - Hj * dtau - Bz_psd - Bs_psd) if nb else Bs_psd)
+        ds_lp = (bz_lp + hlj * dtau - Adx_lp) if p else bz_lp
+        dS = (Bz_psd + Hj * dtau - Adx_psd) if nb else Bs_psd
+        dkappa = (-bk - kappa * dtau) / tau
+        return dx, ds_lp, dS, dz_lp, dZ, dtau, dkappa
+
+    def max_steps(ds_lp, dS, dz_lp, dZ, dtau, dkappa):
+        a = min(_max_step_scalar(tau, dtau), _max_step_scalar(kappa, dkappa))
+        if p:
+            a = min(a, _max_step_lp(s_lp, ds_lp))
+            a = min(a, _max_step_lp(z_lp, dz_lp))
+        if nb:
+            a = min(a, _max_step_psd(S, dS))
+            a = min(a, _max_step_psd(Z, dZ))
+        return a
+
+    zero_psd = torch.zeros_like(S) if nb else S
+    zero_lp = torch.zeros_like(s_lp)
+
+    # predictor (affine scaling)
+    aff = direction(1.0, s_lp, S if nb else zero_psd, tau * kappa)
+    dxa, dsa_lp, dSa, dza_lp, dZa, dtaua, dkappaa = aff
+    a_aff = min(1.0, max_steps(dsa_lp, dSa, dza_lp, dZa, dtaua, dkappaa))
+
+    gap_aff = (float((s_lp + a_aff * dsa_lp) @ (z_lp + a_aff * dza_lp))
+               if p else 0.0)
+    if nb:
+        gap_aff = gap_aff + float(torch.sum((S + a_aff * dSa)
+                                            * (Z + a_aff * dZa)))
+    gap_aff = gap_aff + (tau + a_aff * dtaua) * (kappa + a_aff * dkappaa)
+    gap_tot = gap_cones + tau * kappa
+    sigma = float(np.clip((gap_aff / gap_tot) ** 3, 1e-8, 1.0))
+
+    # Mehrotra second-order corrections
+    corr_lp = dsa_lp * dza_lp / z_lp if p else zero_lp
+    if nb:
+        dSs = Rinv @ dSa @ Rinv.transpose(-1, -2)       # W^{-T} dS
+        dZs = Rnt.transpose(-1, -2) @ dZa @ Rnt          # W dZ
+        Q = _sym(dSs @ dZs)
+        denom_l = (lam[:, :, None] + lam[:, None, :]) / 2.0
+        corr_psd = _sym(Rnt @ (Q / denom_l) @ Rnt.transpose(-1, -2))
+    else:
+        corr_psd = zero_psd
+
+    smu = sigma * mu
+    comb = direction(1.0 - sigma,
+                     (s_lp - smu / z_lp + corr_lp) if p else zero_lp,
+                     (S - smu * Zinv + corr_psd) if nb else zero_psd,
+                     tau * kappa - smu + dtaua * dkappaa)
+    a_comb = max_steps(*comb[1:])
+
+    # Mehrotra safeguard: fall back to the pure centering direction when
+    # the second-order correction collapses the step
+    if a_comb < 0.2 * a_aff:
+        smu2 = max(sigma, 0.5) * mu
+        cent = direction(1.0 - max(sigma, 0.5),
+                         (s_lp - smu2 / z_lp) if p else zero_lp,
+                         (S - smu2 * Zinv) if nb else zero_psd,
+                         tau * kappa - smu2)
+        dx, ds_lp, dS, dz_lp, dZ, dtau, dkappa = cent
+        a_max = max_steps(*cent[1:])
+    else:
+        dx, ds_lp, dS, dz_lp, dZ, dtau, dkappa = comb
+        a_max = a_comb
+
+    a = min(1.0, step_frac * a_max)
+
+    x_n = x + a * dx
+    s_lp_n = s_lp + a * ds_lp
+    z_lp_n = z_lp + a * dz_lp
+    S_n = _sym(S + a * dS) if nb else S
+    Z_n = _sym(Z + a * dZ) if nb else Z
+    tau_n = tau + a * dtau
+    kappa_n = kappa + a * dkappa
+
+    # dual polish, gated on a small dual residual (see the JAX module)
+    rd_n = cj * tau_n + GT(z_lp_n, Z_n)
+    gate = 1.0 if float(torch.linalg.norm(rd_n)) < 1e-2 * cnorm * tau_n \
+        else 0.0
+    z_lp_n, Z_n = _dual_polish(GT, Gall_mul, gsolve, p, nb, n, cj,
+                               z_lp_n, Z_n, tau_n, gate)
+    return x_n, s_lp_n, S_n, z_lp_n, Z_n, tau_n, kappa_n, a
+
+
+# ------------------------------ full solve -------------------------------- #
+
+def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
+               step_frac, tol, feastol, max_iter, verbose=False,
+               woodbury=False):
+    """Full HSD-IPM solve: least-squares start, predictor-corrector loop
+    with stall / best-iterate / convergence bookkeeping, final dual
+    polish and (in)feasibility certificate data.
+
+    done codes: 0 running, 1 converged, 2 non-finite, 3 stall/tiny-step,
+    4 tau collapse (infeasible or numerically dead embedding)."""
+    p = hlj.shape[0]
+    nb, nx, n, _ = Aj.shape
+    dev = cj.device
+    eye_n = torch.eye(n, dtype=F64, device=dev)
+
+    if woodbury:
+        def Gl_mul(v):
+            return torch.cat([gl_diag * v, Rj @ v])
+
+        def GlT_mul(u):
+            return gl_diag * u[:nx] + Rj.T @ u[nx:]
+
+        def Gall_mul(v):
+            parts = [Gl_mul(v)]
+            if nb:
+                parts.append(torch.einsum('binm,i->bnm', Aj,
+                                          v).reshape(nb * n * n))
+            return torch.cat(parts)
+
+        def GallT_mul(u):
+            out = GlT_mul(u[:p])
+            if nb:
+                out = out + torch.einsum(
+                    'binm,bnm->i', Aj, u[p:].reshape(nb, n, n))
+            return out
+    else:
+        def Gl_mul(v):
+            return Glj @ v
+
+        def GlT_mul(u):
+            return Glj.T @ u
+
+        def Gall_mul(v):
+            return Gall @ v
+
+        def GallT_mul(u):
+            return Gall.T @ u
+
+    # ----- initialization: least-squares primal/dual start at tau = 1 -----
+    hall = torch.cat([hlj, Hj.reshape(nb * n * n)]) if nb else hlj
+    if woodbury:
+        parts0 = [Rj.T]
+        if nb:
+            parts0.append(_psd_lowrank_factor(Aj))
+        Gfac = _wood_factor(gl_diag ** 2, torch.cat(parts0, dim=1))
+        gsolve = lambda r: _wood_apply(Gfac, r)
+    else:
+        Gfac = _chol_factor(GtG)
+        gsolve = lambda r: _chol_apply(Gfac, r)
+    x = gsolve(GallT_mul(hall))
+    z_all = Gall_mul(gsolve(-cj))
+    s_lp = hlj - Gl_mul(x)
+    S = Hj - torch.einsum('i,binm->bnm', x, Aj) if nb else Hj
+    z_lp = z_all[:p]
+    Z = _sym(z_all[p:].reshape(nb, n, n)) if nb else Hj
+
+    # shift initial points into the cone interior (cvxopt-style)
+    def shift_lp(v):
+        if p == 0:
+            return v
+        m = float(torch.min(v))
+        return v + max(0.0, -m) + 1.0 if m < 1e-8 else v
+
+    def shift_psd(V):
+        if nb == 0:
+            return V
+        lam = float(torch.min(torch.linalg.eigvalsh(V)))
+        return V + (1.0 - min(lam, 0.0)) * eye_n[None] if lam < 1e-8 else V
+
+    s_lp = shift_lp(s_lp)
+    z_lp = shift_lp(z_lp)
+    S = shift_psd(S)
+    Z = shift_psd(Z)
+    tau, kappa = np.float64(1.0), np.float64(1.0)
+
+    g_ops = (Gl_mul, GlT_mul, Gall_mul)
+    best = dict(merit=np.inf, x=x, gap=np.inf, pres=np.inf, dres=np.inf,
+                pobj=np.nan)
+    stall = 0
+    done = 0
+    it = 0
+    while it < max_iter and done == 0:
+        step, gap_r, pres_r, dres_r = _iteration_core(
+            cj, Glj, hlj, Aj, Hj, g_ops, gsolve, cnorm, step_frac, gl_diag,
+            Rj, woodbury, x, s_lp, S, z_lp, Z, tau, kappa)
+        it += 1
+        if step is None:
+            step = (None,) * 5 + (np.float64(np.nan),) * 2 + (0.0,)
+        x_n, s_n, S_n, z_n, Z_n, tau_n, kappa_n, a = step
+        # de-homogenized metrics of the pre-step iterate
+        gap = gap_r / tau ** 2
+        pres = pres_r / tau / hnorm
+        dres = dres_r / tau / cnorm
+        pobj = float(cj @ x) / tau
+        finite = bool(np.isfinite(gap) and np.isfinite(pres)
+                      and np.isfinite(dres) and np.isfinite(pobj))
+        relgap = gap / max(1.0, abs(pobj)) if finite else np.nan
+        merit = (max(relgap * (feastol / tol), max(pres, dres)) if finite
+                 else np.nan)
+        improved = finite and merit < best["merit"]
+        if verbose:
+            print("ipm %d: gap=%.2e pres=%.2e dres=%.2e tau=%.2e kappa=%.2e "
+                  "step=%.3f" % (it, relgap, pres, dres, tau, kappa, a))
+        converged = finite and pres < feastol and dres < feastol \
+            and relgap < tol
+        stall = 0 if improved else stall + 1
+        stall_limit = 30 if (finite and pres < 1e-6 and dres < 1e-6) else 60
+        endgame = best["merit"] < 1e2 * tol and stall >= 4
+        stalled = stall >= stall_limit or a < 1e-10 or endgame
+        tau_dead = tau_n < 1e-12
+        if not finite or x_n is None:
+            done = 2
+        elif converged:
+            done = 1
+        elif tau_dead:
+            done = 4
+        elif stalled:
+            done = 3
+        if improved:
+            best = dict(merit=merit, x=x / tau, gap=gap, pres=pres,
+                        dres=dres, pobj=pobj)
+        if finite and x_n is not None:
+            x, s_lp, S, z_lp, Z, tau, kappa = (x_n, s_n, S_n, z_n, Z_n,
+                                               tau_n, kappa_n)
+
+    # fold in the final iterate, after an unconditional dual polish
+    def GT_f(zl, Zm):
+        out = GlT_mul(zl) if p else torch.zeros(nx, dtype=F64, device=dev)
+        if nb:
+            out = out + torch.einsum('binm,bnm->i', Aj, Zm)
+        return out
+
+    try:
+        z_lp_f, Z_f = _dual_polish(GT_f, Gall_mul, gsolve, p, nb, n, cj,
+                                   z_lp, Z, tau, 1.0)
+    except torch.linalg.LinAlgError:
+        z_lp_f = None           # no polished point to fold in
+    if z_lp_f is not None:
+        rd = cj * tau + GT_f(z_lp_f, Z_f)
+        rp_lp = hlj * tau - Gl_mul(x) - s_lp if p else s_lp[:0]
+        parts = [rp_lp]
+        if nb:
+            Rp = Hj * tau - torch.einsum('i,binm->bnm', x, Aj) - S
+            parts.append(Rp.reshape(-1))
+        gap_f = ((float(s_lp @ z_lp_f) if p else 0.0)
+                 + (float(torch.sum(S * Z_f)) if nb else 0.0)) / tau ** 2
+        pres_f = float(torch.linalg.norm(torch.cat(parts))) / tau / hnorm
+        dres_f = float(torch.linalg.norm(rd)) / tau / cnorm
+        pobj_f = float(cj @ x) / tau
+        relgap_f = gap_f / max(1.0, abs(pobj_f))
+        merit_f = max(relgap_f * (feastol / tol), max(pres_f, dres_f))
+        if np.isfinite(merit_f) and tau > 1e-12 and merit_f < best["merit"]:
+            best = dict(merit=merit_f, x=x / tau, gap=gap_f, pres=pres_f,
+                        dres=dres_f, pobj=pobj_f)
+
+    # (in)feasibility certificate data at the final (un-normalized) iterate
+    uz = torch.cat([z_lp, Z.reshape(-1)]) if nb else z_lp
+    s_all = torch.cat([s_lp, S.reshape(-1)]) if nb else s_lp
+    z_nrm = max(float(torch.linalg.norm(uz)), 1e-300)
+    x_nrm = max(float(torch.linalg.norm(x)), 1e-300)
+    htz_rel = ((float(hlj @ z_lp) if p else 0.0)
+               + (float(torch.sum(Hj * Z)) if nb else 0.0)) / z_nrm
+    zres_rel = float(torch.linalg.norm(GallT_mul(uz))) / z_nrm
+    xres_rel = float(torch.linalg.norm(Gall_mul(x) + s_all)) / x_nrm
+    ctx_rel = float(cj @ x) / x_nrm
+    kap_rel = kappa / max(1.0, max(z_nrm, x_nrm))
+    return best, it, done, (kap_rel, htz_rel, zres_rel, ctx_rel, xres_rel)
+
+
+def solve_cone_lp(c: np.ndarray,
+                  Gl: Optional[np.ndarray],
+                  hl: Optional[np.ndarray],
+                  As: Optional[np.ndarray] = None,
+                  Hs: Optional[np.ndarray] = None,
+                  tol: float = 1.0e-8,
+                  feastol: float = 1.0e-8,
+                  max_iter: int = 200,
+                  step_frac: float = 0.99,
+                  equilibrate: bool = True,
+                  verbose: bool = False,
+                  woodbury: Optional[bool] = None) -> ConeLPResult:
+    """Solve  min c^T x  s.t.  Gl x <= hl,  sum_i x_i As[b,i] <= Hs[b].
+
+    ``As``: (nb, nx, n, n) symmetric coefficient slices; ``Hs``: (nb, n, n).
+    Host numpy in, host numpy out; the iteration runs on
+    ``allocation_device()`` in float64."""
+    c_np = np.asarray(c, dtype=np.float64)
+    nx = c_np.shape[0]
+    if Gl is None:
+        Gl = np.zeros((0, nx))
+        hl = np.zeros((0,))
+    Gl_np = np.asarray(Gl, dtype=np.float64).reshape(-1, nx)
+    hl_np = np.asarray(hl, dtype=np.float64).ravel()
+    p = Gl_np.shape[0]
+    if As is None:
+        As = np.zeros((0, nx, 1, 1))
+        Hs = np.zeros((0, 1, 1))
+    As_np = np.asarray(As, dtype=np.float64)
+    As_np = (As_np + np.swapaxes(As_np, -1, -2)) / 2
+    Hs_np = np.asarray(Hs, dtype=np.float64)
+    Hs_np = (Hs_np + np.swapaxes(Hs_np, -1, -2)) / 2
+    nb, _, n, _ = As_np.shape
+
+    # column (variable) equilibration: x = colscale * x_tilde
+    colscale = np.ones(nx)
+    if equilibrate:
+        norms = np.sqrt((Gl_np ** 2).sum(axis=0)
+                        + (As_np ** 2).sum(axis=(0, 2, 3)))
+        colscale = np.where(norms > 1e-150, 1.0 / np.maximum(norms, 1e-150),
+                            1.0)
+        Gl_np = Gl_np * colscale[None, :]
+        As_np = As_np * colscale[None, :, None, None]
+        c_np = c_np * colscale
+    if p + nb * n == 0:
+        raise ValueError("empty cone")
+
+    hnorm = max(1.0, float(np.linalg.norm(hl_np)) + float(np.linalg.norm(Hs_np)))
+    cnorm = max(1.0, float(np.linalg.norm(c_np)))
+
+    # structured-Gl detection: MLBLUE programs are [-diag; few rows]
+    if p >= nx and np.count_nonzero(
+            Gl_np[:nx] - np.diag(np.diag(Gl_np[:nx]))) == 0:
+        gl_diag = np.diag(Gl_np[:nx]).copy()
+        R_np = Gl_np[nx:]
+    else:
+        gl_diag = np.zeros(0)
+        R_np = np.zeros((0, nx))
+    diag_ok = gl_diag.shape[0] == nx and bool(np.all(gl_diag != 0))
+
+    # Woodbury fast path: normal matrix = diag + rank-r with structured Gl
+    rank_lr = (p - nx) + nb * (n * (n + 1)) // 2
+    if woodbury is None:
+        woodbury = (diag_ok and nx >= 256
+                    and 2 * nx >= 3 * rank_lr)
+    elif woodbury and not diag_ok:
+        raise ValueError("woodbury=True requires the structured "
+                         "[-diag; rows] Gl form with a fully nonzero "
+                         "diagonal")
+
+    dev = allocation_device()
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=F64,
+                                  device=dev)
+    if woodbury:
+        Gall = GtG = None
+    else:
+        if nb:
+            Gall_np = np.concatenate(
+                [Gl_np, As_np.reshape(nb, nx, n * n).transpose(0, 2, 1)
+                 .reshape(nb * n * n, nx)], axis=0)
+        else:
+            Gall_np = Gl_np
+        Gall = T(Gall_np)
+        GtG = T(Gall_np.T @ Gall_np)
+    arrays = (T(c_np), T(Gl_np), T(hl_np), T(As_np), T(Hs_np), Gall, GtG,
+              T(gl_diag), T(R_np))
+    dims_rec = {"nx": int(nx), "p": int(p), "nb": int(nb), "n": int(n),
+                "rank": int(max(rank_lr, 0)), "woodbury": bool(woodbury)}
+
+    def _attempt(frac):
+        try:
+            best, it, done, cert = _ipm_solve(
+                *arrays, cnorm, hnorm, frac, tol, feastol, max_iter,
+                verbose=verbose, woodbury=bool(woodbury))
+        except torch.linalg.LinAlgError:
+            # a factorization broke down on the cold start (the fused JAX
+            # program reports this as a non-finite, failed solve)
+            best, it, done, cert = dict(merit=np.inf), 0, 2, None
+        if not np.isfinite(best["merit"]):
+            return ConeLPResult(x=np.full(nx, np.nan), status="failed",
+                                iterations=it, gap=np.inf, pres=np.inf,
+                                dres=np.inf, pobj=np.nan, dims=dims_rec)
+        kap_rel, htz_rel, zres_rel, ctx_rel, xres_rel = cert
+        gap_f, pres_f, dres_f = best["gap"], best["pres"], best["dres"]
+        pobj_f = best["pobj"]
+        xb = best["x"].cpu().numpy() * colscale
+        relgap = gap_f / max(1.0, abs(pobj_f))
+        if pres_f < feastol and dres_f < feastol and relgap < tol:
+            status = "optimal"
+        elif (pres_f < 1e3 * feastol and dres_f < 1e4 * feastol
+              and relgap < 1e4 * tol):
+            # degenerate optimal faces: f64 gap floor above the nominal
+            # tol with feasibility at machine precision (see JAX module)
+            status = "inaccurate"
+        elif (pres_f < 1e2 * feastol and dres_f < 1e5 * feastol
+              and relgap < 1e4 * tol):
+            # dres-only overshoot on a primal-excellent iterate
+            status = "inaccurate"
+        elif done == 4:
+            # tau collapse: discriminate by the final iterate's ray
+            z_cert = htz_rel < -1e-9 and zres_rel < 1e-6
+            x_cert = ctx_rel < -1e-9 and xres_rel < 1e-6
+            if kap_rel < 1e-12 and not (z_cert or x_cert):
+                status = "failed"
+            elif x_cert and not z_cert:
+                status = "unbounded"
+            else:
+                status = "infeasible"
+        elif it >= max_iter:
+            status = "max_iter"
+        else:
+            status = "failed"
+        return ConeLPResult(x=xb, status=status, iterations=it, gap=gap_f,
+                            pres=pres_f, dres=dres_f, pobj=pobj_f,
+                            dims=dims_rec)
+
+    t0 = time.perf_counter()
+    res = _attempt(step_frac)
+    dims_rec["wall_attempt_s"] = time.perf_counter() - t0
+    dims_rec["retried"] = False
+    if res.status == "failed" and step_frac > 0.92:
+        # a 0.99 fraction-to-boundary can wedge the iterate off-center
+        # near the PSD boundary on generic cone programs: retry once at
+        # 0.85 and keep the better-ranked result
+        t1 = time.perf_counter()
+        res2 = _attempt(0.85)
+        t_second = time.perf_counter() - t1
+        dims_rec["retried"] = True
+        rank = {"optimal": 0, "inaccurate": 1, "infeasible": 2,
+                "unbounded": 2, "max_iter": 3, "failed": 4}
+
+        def _worst(r):
+            rg = r.gap / max(1.0, abs(r.pobj)) if np.isfinite(r.pobj) \
+                else r.gap
+            return max(r.pres, r.dres, rg)
+
+        if rank.get(res2.status, 4) < rank.get(res.status, 4) or (
+                res2.status == res.status and _worst(res2) < _worst(res)):
+            res = res2
+            dims_rec["wall_attempt_s"] = t_second
+    dims_rec["wall_s"] = time.perf_counter() - t0
+    return res

@@ -1,0 +1,270 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases (any failure raises, so the exit code is non-zero):
+  1. device: require a CUDA card; print its name and power limit;
+  2. build K1 (bluest_tpu_torch/csrc/diffusion.cu) with nvcc;
+  3. hold K1 against its plain PyTorch version on the card, for
+     n in {1, 2, 8, 64, 100, 256, 1024}, B in {1, 77, 8192}, f32 and f64,
+     and time both at the flagship shape (n=1024, B=8192, f32);
+  4. drive the flagship end to end on device="cuda": pilot (4096
+     samples) + SPD projection, setup_solver(K=4) with the budget
+     calibrated to ~1e6 samples, solve(); check the certificate, the
+     estimates and that the model evaluations went through K1.
+The second-to-last line is the kernel report as JSON; the last line is
+{"ok": true, "device": {...}}.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+GRIDS = (1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
+N_KL = 32
+SIGMA = 1.0
+NU = 0.6
+K = 4
+PILOT = 4096
+BATCH = 8192
+TARGET_SAMPLES = 1_000_000
+K1_SOURCE = "bluest_tpu_torch/csrc/diffusion.cu"
+K1_REPLACES = "bluest_tpu/ops/pallas_diffusion.py:151"
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def phase_device():
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py runs on the card "
+                           "only")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    log("device:", name, "| count:", torch.cuda.device_count())
+    log(smi)
+    log("torch", torch.__version__, "cuda", torch.version.cuda,
+        "python", sys.version.split()[0])
+    return name
+
+
+def phase_build():
+    from bluest_tpu_torch.ops import diffusion as k1
+    t0 = time.perf_counter()
+    k1.build_library()
+    dt = time.perf_counter() - t0
+    log("K1 build: %.2f s" % dt)
+    for line in k1.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log("  nvcc:", line.strip())
+    return dt
+
+
+def _time_ms(fn, reps):
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_kernel_check():
+    """K1 against the plain version on the same card and inputs."""
+    import numpy as np
+    import torch
+    from bluest_tpu_torch.ops.diffusion import (diffusion_outputs,
+                                                diffusion_outputs_plain)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    worst = 0.0
+    max_abs = 0.0          # kernel vs plain, same dtype and inputs
+    for n in (1, 2, 8, 64, 100, 256, 1024):
+        for B in (1, 77, 8192):
+            xi64 = torch.as_tensor(rng.standard_normal((B, N_KL)),
+                                   dtype=torch.float64, device=dev)
+            ref64 = diffusion_outputs_plain(xi64, n, SIGMA, NU)
+            got64 = diffusion_outputs(xi64, n, SIGMA, NU)
+            xi32 = xi64.to(torch.float32)
+            got32 = diffusion_outputs(xi32, n, SIGMA, NU)
+            pl32 = diffusion_outputs_plain(xi32, n, SIGMA, NU)
+            torch.cuda.synchronize()
+            r = ref64.cpu().numpy()
+            denom = np.abs(r) + 1e-9
+            e64 = np.abs(got64.cpu().numpy() - r) / denom
+            e32 = np.abs(got32.double().cpu().numpy() - r) / denom
+            eref = np.abs(pl32.double().cpu().numpy() - r) / denom
+            if got64.shape != (B, 3) or got32.shape != (B, 3):
+                raise AssertionError("K1 output shape at n=%d B=%d" % (n, B))
+            if not (np.isfinite(got64.cpu().numpy()).all()
+                    and np.isfinite(got32.cpu().numpy()).all()):
+                raise AssertionError("K1 non-finite at n=%d B=%d" % (n, B))
+            if n == 1 and (np.abs(got64.cpu().numpy()).max() != 0
+                           or np.abs(got32.cpu().numpy()).max() != 0):
+                raise AssertionError("K1 n=1 must give zeros")
+            if e64.max() > 1e-10:
+                raise AssertionError(
+                    "K1 f64 vs plain f64: max rel err %.3e > 1e-10 at n=%d "
+                    "B=%d" % (e64.max(), n, B))
+            if not (np.median(e32) <= 10 * np.median(eref) + 1e-6
+                    and e32.max() <= 10 * eref.max() + 1e-5):
+                raise AssertionError(
+                    "K1 f32 outside the f32 error class at n=%d B=%d: "
+                    "median %.3e (plain %.3e), max %.3e (plain %.3e)"
+                    % (n, B, np.median(e32), np.median(eref), e32.max(),
+                       eref.max()))
+            log("K1 n=%4d B=%4d  f64 max rel %.2e | f32 median %.2e max "
+                "%.2e (plain f32 %.2e / %.2e)"
+                % (n, B, e64.max(), np.median(e32), e32.max(),
+                   np.median(eref), eref.max()))
+            worst = max(worst, float(e64.max()))
+            max_abs = max(max_abs, float((got64 - ref64).abs().max()),
+                          float((got32 - pl32).abs().max()))
+    # timing at the flagship shape, f32, CUDA events after warm-up
+    xi = torch.as_tensor(rng.standard_normal((BATCH, N_KL)),
+                         dtype=torch.float32, device=dev)
+    n = GRIDS[0]
+    ms = _time_ms(lambda: diffusion_outputs(xi, n, SIGMA, NU), 20)
+    plain_ms = _time_ms(lambda: diffusion_outputs_plain(xi, n, SIGMA, NU), 3)
+    log("K1 timing n=%d B=%d f32: kernel %.4f ms, plain %.4f ms"
+        % (n, BATCH, ms, plain_ms))
+    log("K1 vs plain, same dtype: max abs err %.3e; f64 max rel err %.3e"
+        % (max_abs, worst))
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+
+
+def _total_samples(problem):
+    return int(sum(int(n) for n in problem.MOSAP_output["samples"]))
+
+
+def phase_flagship():
+    """The bench.py flagship through the port's public entry points."""
+    import math
+    import numpy as np
+    import torch
+    from bluest_tpu_torch.models.diffusion import (DiffusionProblem,
+                                                   solve_diffusion_outputs)
+    from bluest_tpu_torch.ops import diffusion as k1
+
+    t0 = time.perf_counter()
+    problem = DiffusionProblem(
+        grids=GRIDS, n_kl=N_KL, sigma=SIGMA, nu=NU, multi_output=True,
+        covariance_estimation_samples=PILOT, dtype=torch.float32,
+        device="cuda", device_batch_size=BATCH, verbose=False)
+    torch.cuda.synchronize()
+    log("pilot (%d samples x %d models) + SPD projection: %.3f s"
+        % (PILOT, len(GRIDS), time.perf_counter() - t0))
+
+    # the problem's model path (mask + K1, f32) against the model-level
+    # reference formulation on a small input, in the f32 error class of
+    # the reference's own f32 run (these launches are not the main path's)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xi = problem.sample_inputs(gen, 256)
+    for l in range(len(GRIDS)):
+        got = problem.evaluate_model(l, xi).double()
+        mask = (torch.arange(N_KL, device="cuda") < problem.n_modes[l])
+        xm = xi * mask
+        ref = solve_diffusion_outputs(xm.double(), GRIDS[l], SIGMA, NU)
+        inc = solve_diffusion_outputs(xm, GRIDS[l], SIGMA, NU).double()
+        rel = ((got - ref).abs() / (ref.abs() + 1e-9)).cpu().numpy()
+        rel_inc = ((inc - ref).abs() / (ref.abs() + 1e-9)).cpu().numpy()
+        if not (got.shape == (256, 3)
+                and np.median(rel) <= 10 * np.median(rel_inc) + 1e-6
+                and rel.max() <= 10 * rel_inc.max() + 1e-5):
+            raise AssertionError(
+                "model %d vs the f64 reference: median %.3e max %.3e "
+                "(f32 reference %.3e / %.3e)" % (l, np.median(rel), rel.max(),
+                                                  np.median(rel_inc),
+                                                  rel_inc.max()))
+    log("model path (mask + K1, f32) within the f32 error class of the "
+        "f64 reference for all %d models" % len(GRIDS))
+
+    # allocation, budget calibrated to ~1e6 samples as bench.py:211-231
+    t0 = time.perf_counter()
+    budget = 2.0e4
+    problem.setup_solver(K=K, budget=budget, continuous_relaxation=True)
+    for _ in range(3):
+        n0 = _total_samples(problem)
+        if 0.85 <= n0 / TARGET_SAMPLES <= 1.15:
+            break
+        budget = budget * TARGET_SAMPLES / max(n0, 1)
+        problem.setup_solver(K=K, budget=budget, continuous_relaxation=True)
+    problem.setup_solver(K=K, budget=budget)
+    alloc_s = time.perf_counter() - t0
+    L = problem.MOSAP.L
+    certs = problem.MOSAP_output["certificates"]
+    log("allocation: L=%d, budget %.6g, %d samples, %.3f s, certificates %s"
+        % (L, budget, _total_samples(problem), alloc_s,
+           [(c["form"], c["status"], c["iterations"]) for c in certs]))
+    if L != 385:
+        raise AssertionError("expected L=385 groups, got %d" % L)
+    if not certs or any(c["status"] not in ("optimal", "inaccurate")
+                        for c in certs):
+        raise AssertionError("IPM certificate not ok: %s" % certs)
+
+    # estimation: every model evaluation must go through K1
+    out = problem.MOSAP_output
+    active = [(g, int(n)) for g, n in zip(out["flattened_groups"],
+                                          out["samples"]) if n > 0]
+    chunk_evals = sum(len(g) * math.ceil(n / BATCH) for g, n in active)
+    n_evals = sum(len(g) * n for g, n in active)
+    k1.diffusion_outputs.launches = 0
+    t0 = time.perf_counter()
+    mus, errs, cost = problem.solve(K=K, budget=budget)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches = k1.diffusion_outputs.launches
+    mus = np.asarray(mus, dtype=float)
+    errs = np.asarray(errs, dtype=float)
+    rel_err = float(np.max(errs) / abs(mus[0]))
+    log("estimation: %d active groups, %d samples, %d model evaluations in "
+        "%.3f s = %.0f evals/s; K1 launches %d (chunk evaluations %d)"
+        % (len(active), sum(n for _, n in active), n_evals, sample_s,
+           n_evals / sample_s, launches, chunk_evals))
+    log("mus", mus.tolist(), "errs", errs.tolist(), "max_rel_err %.4g"
+        % rel_err)
+    if not (np.all(np.isfinite(mus)) and np.all(np.isfinite(errs))):
+        raise AssertionError("non-finite estimates")
+    if not rel_err < 0.01:
+        raise AssertionError("max(errs)/|mus[0]| = %.4g >= 0.01" % rel_err)
+    # q_energy = int a u'^2 = int u = q_int for -(a u')' = 1
+    if not abs(mus[2] - mus[0]) <= 4 * float(np.max(errs)):
+        raise AssertionError("q_energy and q_int estimates disagree")
+    if launches < chunk_evals or launches == 0:
+        raise AssertionError("K1 launched %d times for %d chunk evaluations"
+                             % (launches, chunk_evals))
+    return {"launches": launches, "alloc_s": alloc_s, "sample_s": sample_s,
+            "n_evals": n_evals}
+
+
+def main():
+    import torch
+    name = phase_device()
+    phase_build()
+    k = phase_kernel_check()
+    f = phase_flagship()
+    print(json.dumps({"kernels": [{
+        "name": "diffusion_outputs", "route": "cuda", "source": K1_SOURCE,
+        "replaces": K1_REPLACES, "launches": f["launches"],
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"]}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

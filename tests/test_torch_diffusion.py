@@ -1,0 +1,140 @@
+"""Model level: the port's diffusion model against the JAX package.
+
+The same numpy-seeded KL coefficients go through
+``bluest_tpu.models.diffusion`` (f64 oracle; the Pallas kernel in
+interpret mode) and the port's K1 wrapper, which runs its plain PyTorch
+version for CPU tensors.  Tolerances:
+
+* plain f64 vs the JAX f64 oracle: max relative 1e-9, median 1e-11.  The
+  JAX oracle solves by cyclic reduction at n = 2^p and the port by Thomas;
+  the lognormal coefficient makes the system ill-conditioned, and the two
+  algorithms differ by up to ~2e-10 max / ~5e-12 median at n=1024.
+* f32 vs the f64 oracle: the error-class bound of
+  tests/test_pallas_diffusion.py:34-36 (the f32 JAX path is the incumbent).
+* plain f32 vs the Pallas kernel (interpret mode): rtol 2e-3, atol 1e-6,
+  as tests/test_pallas_diffusion.py:48-49.
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from bluest_tpu.models.diffusion import (DiffusionProblem as JaxDiffusion,
+                                         solve_diffusion_outputs as jax_outputs)
+from bluest_tpu.ops.pallas_diffusion import diffusion_outputs_pallas
+from bluest_tpu_torch.models.diffusion import (DiffusionProblem,
+                                               solve_diffusion_outputs,
+                                               thomas_solve)
+from bluest_tpu_torch.ops import diffusion as k1
+
+torch.set_num_threads(1)
+
+SIGMA, NU = 1.0, 0.6
+
+
+def _jax_ref(xis, n, dtype=jnp.float64):
+    fn = jax.jit(jax.vmap(lambda x: jax_outputs(x, n, SIGMA, NU)))
+    return np.asarray(fn(jnp.asarray(xis, dtype)), np.float64)
+
+
+def _rel(got, ref):
+    return np.abs(np.asarray(got, np.float64) - ref) / (np.abs(ref) + 1e-9)
+
+
+@pytest.mark.parametrize("n", [2, 8, 64, 100, 256, 1024])
+def test_plain_matches_jax(n):
+    """f64 against the f64 oracle; f32 within the f32 error class."""
+    xis = np.random.default_rng(0).standard_normal((200, 32))
+    ref64 = _jax_ref(xis, n)
+    got = k1.diffusion_outputs(torch.as_tensor(xis), n, SIGMA, NU).numpy()
+    err = np.abs(got - ref64) / np.abs(ref64)
+    assert err.max() <= 1e-9
+    assert np.median(err) <= 1e-11
+
+    x32 = xis.astype(np.float32)
+    ref64 = _jax_ref(x32, n)
+    got = k1.diffusion_outputs(torch.as_tensor(x32), n, SIGMA, NU).numpy()
+    err = _rel(got, ref64)
+    err_inc = _rel(_jax_ref(x32, n, jnp.float32), ref64)
+    assert np.median(err) <= 10 * np.median(err_inc) + 1e-6
+    assert err.max() <= 10 * err_inc.max() + 1e-5
+
+
+@pytest.mark.parametrize("n", [16, 64])
+def test_plain_f32_matches_pallas_interpret(n):
+    xis = np.random.default_rng(7).standard_normal((77, 32)).astype(
+        np.float32)
+    ref = np.asarray(diffusion_outputs_pallas(xis, n, SIGMA, NU,
+                                              interpret=True))
+    got = k1.diffusion_outputs(torch.as_tensor(xis), n, SIGMA, NU).numpy()
+    assert got.shape == (77, 3)
+    np.testing.assert_allclose(got, ref, rtol=2e-3, atol=1e-6)
+
+
+def test_edge_cases_plain():
+    """n=1 has no interior unknowns (all QoIs 0); B=0 and B=1 work; the
+    model-level Thomas formulation agrees with K1's loop order."""
+    xi = torch.as_tensor(np.random.default_rng(3).standard_normal((5, 7)))
+    assert torch.equal(k1.diffusion_outputs(xi, 1), torch.zeros(5, 3,
+                                                                dtype=xi.dtype))
+    assert k1.diffusion_outputs(xi[:0], 8).shape == (0, 3)
+    one = k1.diffusion_outputs(xi[:1], 8, SIGMA, NU)
+    np.testing.assert_allclose(one.numpy(),
+                               k1.diffusion_outputs(xi, 8, SIGMA, NU)[:1]
+                               .numpy(), rtol=0, atol=0)
+    for n in (2, 9, 33):
+        np.testing.assert_allclose(
+            solve_diffusion_outputs(xi, n, SIGMA, NU).numpy(),
+            k1.diffusion_outputs(xi, n, SIGMA, NU).numpy(), rtol=1e-11)
+
+
+def test_wrapper_rejects_bad_input():
+    with pytest.raises(TypeError):
+        k1.diffusion_outputs(torch.zeros(4, 3, dtype=torch.int64), 8)
+    with pytest.raises(ValueError):
+        k1.diffusion_outputs(torch.zeros(4, 3, 2), 8)
+    with pytest.raises(ValueError):
+        k1.diffusion_outputs(torch.zeros(3, 4).T, 8)
+    with pytest.raises(ValueError):
+        k1.diffusion_outputs(torch.zeros(4, 3), 0)
+
+
+def test_thomas_solve_matches_numpy():
+    rng = np.random.default_rng(5)
+    n = 12
+    diag = rng.uniform(3, 4, (2, n))
+    lower = rng.uniform(-1, 0, (2, n)); lower[:, 0] = 0
+    upper = rng.uniform(-1, 0, (2, n)); upper[:, -1] = 0
+    rhs = rng.standard_normal((2, n))
+    x = thomas_solve(*(torch.as_tensor(a) for a in (lower, diag, upper, rhs)))
+    for b in range(2):
+        A = np.diag(diag[b]) + np.diag(lower[b, 1:], -1) + np.diag(
+            upper[b, :-1], 1)
+        np.testing.assert_allclose(x[b].numpy(), np.linalg.solve(A, rhs[b]),
+                                   rtol=1e-12)
+
+
+@pytest.mark.parametrize("multi_output", [True, False])
+def test_problem_hooks_match_jax(multi_output):
+    """evaluate_model applies the per-grid mode truncation and returns
+    (B, 3) or (B, 1) like the JAX hook on the same xi (f64)."""
+    grids = (64, 16, 8)
+    No = 3 if multi_output else 1
+    C = [np.eye(3) for _ in range(No)]
+    kw = dict(grids=grids, n_kl=12, sigma=SIGMA, nu=NU,
+              multi_output=multi_output, verbose=False, C=C)
+    pj = JaxDiffusion(**kw)
+    pt = DiffusionProblem(**kw)
+    assert pt.n_modes == pj.n_modes == (12, 4, 2)
+    xis = np.random.default_rng(11).standard_normal((40, 12))
+    for l in range(len(grids)):
+        ref = np.asarray(jax.jit(jax.vmap(lambda t: jnp.asarray(
+            pj.evaluate_model_jax(l, t))))(jnp.asarray(xis)))
+        got = pt.evaluate_model(l, torch.as_tensor(xis)).numpy()
+        assert got.shape == (40, No)
+        np.testing.assert_allclose(got, ref, rtol=1e-9, atol=0)
+    gen = torch.Generator().manual_seed(0)
+    th = pt.sample_inputs(gen, 5)
+    assert th.shape == (5, 12) and th.dtype == torch.float64
