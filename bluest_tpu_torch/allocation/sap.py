@@ -3,9 +3,11 @@
 Port of the per-output part of ``bluest_tpu/allocation/sap.py``: the
 group structure with its per-group inverse covariance blocks, the psi
 matrix, the variance / gradient / Hessian and cleanup-matrix closures
-(``core/psi.py`` in torch f64 on the allocation device) and the BLUE
-estimator assembly.  The single-output solve paths (``SAP.solve`` and its
-families) are not ported yet; MOSAP drives the allocation.
+(``core/psi.py`` in torch f64 on the allocation device), the BLUE
+estimator assembly, and the helpers MOSAP shares with it (the cone
+backend, the budget level bisection, the cap and NLP-point validators).
+The single-output solve paths (``SAP.solve`` and its families) are not
+ported yet (ROADMAP queue 1 item 11); MOSAP drives the allocation.
 """
 
 from __future__ import annotations
@@ -93,6 +95,23 @@ def caps_satisfied(m, es, rhs, slack: float = 1.001,
     candidate survives."""
     return all(float(ee @ m) <= slack * rr + atol
                for ee, rr in zip(es, rhs))
+
+
+def validated_nlp_point(r, feasible):
+    """Validate a trust-constr result before handing it downstream.
+
+    The reference returns ``r.x`` unchecked (sap.py:418, mosap.py:613);
+    here the NLP is also the *fallback for IPM failures*, where a quietly
+    non-converged point matters more.  A point is rejected (-> ``None`` ->
+    ``BLUESTError`` upstream) only when the solver did NOT converge AND
+    the point is infeasible beyond the integer search's slack -- a
+    non-converged but feasible point is still a usable allocation."""
+    x = np.asarray(r.x, dtype=float)
+    if not np.all(np.isfinite(x)):
+        return None
+    if not getattr(r, "success", True) and not feasible(x):
+        return None
+    return x
 
 
 def _f64(m) -> torch.Tensor:

@@ -1,10 +1,13 @@
 """BLUEProblem: the user-facing orchestration class, on PyTorch.
 
-Port of ``bluest_tpu/problem.py`` for the MLBLUE main path (reference API
-blue_models.py:42-978): construction runs pilot covariance estimation
-and the SPD projection, ``setup_solver`` runs the allocation
-optimization, ``solve`` runs the sampling loop and assembles the
-estimators.
+Port of ``bluest_tpu/problem.py`` (reference API blue_models.py:42-978):
+construction runs pilot covariance estimation and the SPD projection,
+``setup_solver`` runs the MLBLUE allocation (budget or target RMSE, with
+optional per-model caps), ``solve`` runs the sampling loop and assembles
+the estimators.  The MLMC (``setup_mlmc``/``solve_mlmc``), MFMC
+(``setup_mfmc``/``solve_mfmc``) and MC (``solve_mc``) estimators and the
+``complexity_test``/``variance_test`` studies sample through the same
+engine.
 
 A model is given in factored form, batched:
 ``sample_inputs(generator, n)`` draws n shared random inputs on
@@ -13,9 +16,9 @@ A model is given in factored form, batched:
 ``device`` parameter -- nothing picks one automatically -- and the
 allocation on ``config.allocation_device()``.
 
-Not ported yet: MLMC / MFMC / MC, the host engine for black-box
-``evaluate``/``sampler`` models, sample snapshots, meshes and the masked
-(SPG) covariance projection.
+Not ported yet: the host engine for black-box ``evaluate``/``sampler``
+models, sample snapshots, meshes and the masked (SPG) covariance
+projection.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import numpy as np
 import torch
 
 from .allocation import MOSAP, BLUESTError
+from .estimators.closed_forms import (mfmc_allocation, mfmc_check,
+                                      mlmc_allocation, mlmc_bounds_batch)
 from .graph import CovarianceGraph, cliques
 from .linalg.spd import project_covariance_full
 from .sampling.engine import SamplingEngine, generator_seed
@@ -249,6 +254,12 @@ class BLUEProblem:
         self.G[n].check(remove_uncorrelated=remove_uncorrelated, warn=warn)
         self.SG[n] = self.G[n].component
 
+    def _intersection_adjacency(self) -> np.ndarray:
+        adj = self.G[0].clique_adjacency().copy()
+        for n in range(1, self.n_outputs):
+            adj &= self.G[n].clique_adjacency()
+        return adj
+
     # ---------------- covariance and cost estimation ------------------- #
 
     def estimate_missing_covariances(self, N: int):
@@ -385,6 +396,12 @@ class BLUEProblem:
             return sumse, sumsc, wall, sumsd1, sumsd2
         return sumse, sumsc, wall
 
+    def _pipelined_sumse(self, group_list, n_list):
+        """Per-(group, N) sumse, None for N == 0: the sum fetch of the
+        MLMC/MFMC estimators (one device -> host copy per group)."""
+        return [self.blue_fn(g, int(n))[0] if n > 0 else None
+                for g, n in zip(group_list, n_list)]
+
     # ----------------------------- solvers ----------------------------- #
 
     def _ensure_mosap(self, K, multi_groups):
@@ -458,7 +475,7 @@ class BLUEProblem:
                      multi_groups=None, solver=None,
                      continuous_relaxation=False, max_model_samples=None,
                      optimization_solver_params=None):
-        """(blue_models.py:448-538); budget mode."""
+        """(blue_models.py:448-538)"""
         if budget is None and eps is None:
             raise ValueError("Need to specify either budget or RMSE tolerance")
         if budget is not None and eps is not None:
@@ -466,6 +483,12 @@ class BLUEProblem:
         if budget is not None and (not np.isfinite(budget) or budget <= 0):
             raise ValueError("budget must be finite and positive, got %s"
                              % budget)
+        if eps is not None and np.isscalar(eps):
+            eps = [float(eps)] * self.n_outputs
+        if eps is not None and any(not np.isfinite(e) or e <= 0
+                                   for e in eps):
+            raise ValueError("eps tolerances must be finite and positive, "
+                             "got %s" % (eps,))
         if multi_groups is None and groups is None and K < 1:
             raise ValueError("K must be >= 1, got %s" % K)
         if solver is None:
@@ -531,7 +554,10 @@ class BLUEProblem:
         if not need_setup:
             if budget is not None and budget != self.MOSAP_output["budget"]:
                 need_setup = True
-            if eps is not None:
+            if eps is not None and not np.all(
+                    np.atleast_1d(eps) == np.atleast_1d(
+                        self.MOSAP_output["eps"] if self.MOSAP_output["eps"]
+                        is not None else np.nan)):
                 need_setup = True
         if need_setup:
             self.setup_solver(K=K, budget=budget, eps=eps, groups=groups,
@@ -539,6 +565,9 @@ class BLUEProblem:
                               continuous_relaxation=continuous_relaxation,
                               max_model_samples=max_model_samples,
                               optimization_solver_params=optimization_solver_params)
+        elif budget is None and eps is None and self.MOSAP_output["cost"] is None:
+            raise ValueError("Need to prescribe either a budget or a "
+                             "tolerance to run the BLUE estimator")
 
         if self.verbose and verbose:
             print("\nSampling BLUE...\n")
@@ -573,3 +602,585 @@ class BLUEProblem:
         mus, Vs = self.MOSAP.compute_BLUE_estimators(sums, sample_list)
         errs = np.sqrt(Vs)
         return mus, errs, self.MOSAP_output["cost"]
+
+    # ------------------------------ MLMC -------------------------------- #
+
+    def _mlmc_level_data(self, group, n):
+        """Telescoped variances/costs for one chain (blue_models.py:688-704)."""
+        C = self.get_covariance(n)
+        w = self.get_costs()
+        subC = C[np.ix_(group, group)]
+        subw = w[list(group)].copy()
+        if len(group) > 1:
+            v = np.diag(subC).copy()
+            corrs = np.diag(subC, 1)
+            v[:-1] += v[1:] - 2 * corrs
+            for i in range(len(group) - 1):
+                ii, jj = min(group[i], group[i + 1]), max(group[i], group[i + 1])
+                check = self.dV[n][ii, jj]
+                if np.isfinite(check):
+                    v[i] = check
+            subw[:-1] += subw[1:]
+        else:
+            v = np.array([subC[0, 0]])
+        return v, subw
+
+    def _mlmc_chains(self, max_chains: int = 1 << 17):
+        """All cost-descending chains through the intersection graph that
+        start at model 0 (blue_models.py:662-670).
+
+        The reference enumerates every subset containing model 0 (2^(M-1)
+        of them) and filters by path feasibility.  A chain is a
+        cost-descending sequence whose consecutive pairs are edges, so the
+        same set falls out of a DFS over descending-cost positions that
+        abandons a prefix as soon as an edge is missing -- exponentially
+        cheaper on sparse coupling graphs, identical output on dense ones.
+
+        Dense graphs past M ~ 17 models would still enumerate 2^(M-1)
+        chains; the count is capped at ``max_chains`` (longest/cheapest
+        prefixes are explored first by the DFS order) with a warning, so
+        setup_mlmc degrades to a wide heuristic search instead of hanging.
+        """
+        lme = len(self.check_costs(warning=True))
+        w = self.get_costs()
+        # stable descending sort: reversing an ascending argsort reverses
+        # tie order too, so a model tying model 0's cost could land first
+        # and trip the assert nondeterministically
+        idx = np.argsort(-w, kind="stable")[lme:]
+        assert idx[0] == 0
+        adj = self._intersection_adjacency()
+        n = len(idx)
+        groups = []
+        stack = [[0]]
+        while stack:
+            path = stack.pop()
+            groups.append([int(idx[p]) for p in path])
+            if len(groups) >= max_chains:
+                if self.verbose:
+                    print("WARNING! MLMC chain enumeration capped at %d "
+                          "chains (M = %d is large for a dense coupling "
+                          "graph); the chain search is now a heuristic."
+                          % (max_chains, self.M))
+                break
+            last = path[-1]
+            for j in range(last + 1, n):
+                if adj[idx[last], idx[j]]:
+                    stack.append(path + [j])
+        return groups
+
+    def _mlmc_level_data_batch(self, G, mask, lengths, n):
+        """Vectorized _mlmc_level_data over a padded chain batch.
+
+        G: (B, Lmax) model indices (padded entries 0); mask: validity;
+        lengths: (B,) chain lengths.  Returns V, W: (B, Lmax) with the
+        same per-level semantics as _mlmc_level_data (pairwise difference
+        variances with dV overrides, pairwise costs, singleton tail)."""
+        C = self.get_covariance(n)
+        w = self.get_costs()
+        dV = self.dV[n]
+        B, Lmax = G.shape
+        Cd = np.diag(C)
+        gi = G
+        gj = np.concatenate([G[:, 1:], G[:, :1]], axis=1)  # next level
+        pair = np.concatenate([mask[:, 1:], np.zeros((B, 1), bool)], axis=1) \
+            & mask                                          # l < len-1
+        lo = np.minimum(gi, gj)
+        hi = np.maximum(gi, gj)
+        v_pair = Cd[gi] + Cd[gj] - 2 * C[gi, gj]
+        dv = dV[lo, hi]
+        v = np.where(np.isfinite(dv), dv, v_pair)
+        V = np.where(pair, v, 0.0)
+        W = np.where(pair, w[gi] + w[gj], 0.0)
+        last = (np.arange(Lmax)[None, :] == (lengths - 1)[:, None])
+        V = np.where(last, Cd[gi], V)
+        W = np.where(last, w[gi], W)
+        return V, W
+
+    def setup_mlmc(self, budget=None, eps=None, continuous_relaxation=False):
+        """(blue_models.py:642-741)"""
+        if budget is None and eps is None:
+            raise ValueError("Need to specify either budget or RMSE tolerance")
+        if budget is not None and eps is not None:
+            eps = None
+        if eps is not None and np.isscalar(eps):
+            eps = [float(eps)] * self.n_outputs
+        if eps is None:
+            eps = [None] * self.n_outputs
+
+        if self.verbose:
+            print("Setting up optimal MLMC estimator...\n")
+        if not any(np.isfinite(dVn).any() for dVn in self.dV):
+            if self.verbose:
+                print("Warning! MLMC variances were not provided nor "
+                      "estimated; the MLMC estimator may be suboptimal.\n")
+
+        w = self.get_costs()
+
+        # Pass 1 -- continuous lower bounds, batched over all chains at
+        # once (padded (n_chains, Lmax) arrays; see mlmc_bounds_batch for
+        # why the eps-mode bound uses the unclamped cost deflated by the
+        # integer slack).  Rank chains by max-over-outputs of the bound and
+        # stop the expensive corner searches of pass 2 once the bound can
+        # no longer beat the incumbent -- exact, not a heuristic.
+        chains = self._mlmc_chains()
+        B = len(chains)
+        Lmax = max(len(g) for g in chains)
+        G = np.zeros((B, Lmax), dtype=np.int64)
+        mask = np.zeros((B, Lmax), dtype=bool)
+        lengths = np.array([len(g) for g in chains])
+        for b, g in enumerate(chains):
+            G[b, :len(g)] = g
+            mask[b, :len(g)] = True
+        Vb, Wb = [], []
+        bound_all = np.zeros(B)
+        feas_all = np.ones(B, dtype=bool)
+        # eps-mode bound must be in the SAME cost units as the pass-2
+        # incumbent objective: the allocation optimizes pair costs (Wb),
+        # but the selection objective and reported total_cost use raw
+        # per-model costs (reference convention, blue_models.py:717/726
+        # -- kept for paper-golden comparability).  Any variance-feasible
+        # schedule's raw cost is bounded below by the raw-cost continuous
+        # optimum, so bounding with W_raw keeps the pruning exact.
+        Wraw = np.where(mask, w[G], 0.0)
+        for n in range(self.n_outputs):
+            Vn, Wn = self._mlmc_level_data_batch(G, mask, lengths, n)
+            Vb.append(Vn)
+            Wb.append(Wn)
+            feas_n, bound_n = mlmc_bounds_batch(
+                Vn, Wn if budget is not None else Wraw, mask,
+                budget=budget, eps=eps[n])
+            feas_all &= feas_n & np.isfinite(bound_n)
+            bound_all = np.maximum(bound_all, bound_n)
+        order = np.argsort(np.where(feas_all, bound_all, np.inf))
+
+        # Pass 2 -- full (integer unless relaxed) allocation in bound order.
+        best_group, best_data = None, None
+        best_obj = np.inf
+        for b in order:
+            if not feas_all[b]:
+                break
+            if bound_all[b] >= best_obj:
+                break
+            group = chains[b]
+            data_list = []
+            feasible = True
+            for n in range(self.n_outputs):
+                v = Vb[n][b, :lengths[b]]
+                subw = Wb[n][b, :lengths[b]]
+                feasible, data = mlmc_allocation(
+                    v, subw, budget=budget, eps=eps[n],
+                    continuous_relaxation=continuous_relaxation)
+                if not feasible:
+                    break
+                data_list.append(data)
+            if not feasible:
+                continue
+            if budget is not None:
+                obj = max(d["error"] for d in data_list)
+            else:
+                obj = np.max(np.vstack([d["samples"] for d in data_list]),
+                             axis=0) @ w[list(group)]
+            if obj < best_obj:
+                best_obj, best_group, best_data = obj, group, data_list
+
+        if best_group is None:
+            raise BLUESTError("No feasible MLMC chain found")
+
+        samples = np.max(np.vstack([d["samples"] for d in best_data]), axis=0)
+        cost = samples @ w[list(best_group)]
+        if budget is not None:
+            # The per-output schedules each fit the budget, but their
+            # element-wise max may not; shrink back onto
+            # {m >= 1, m @ w <= budget} by rescaling the free levels (MLMC
+            # variance is homogeneous of degree -1 in m, so a uniform
+            # rescale degrades every output's error by the same
+            # sqrt(cost/budget) factor).  The reference's single additive
+            # -w step (blue_models.py:735-738) can dump the whole
+            # reduction on a level that is then clamped at 1, leaving the
+            # cost far above budget.
+            wg = w[list(best_group)]
+            m = samples.astype(float)
+            for _ in range(len(m) + 1):
+                if m @ wg <= budget * (1 + 1e-12):
+                    break
+                free = m > 1.0
+                if not free.any():
+                    break
+                fixed = m[~free] @ wg[~free]
+                scale = (budget - fixed) / (m[free] @ wg[free])
+                m[free] = np.maximum(m[free] * max(scale, 0.0), 1.0)
+            samples = np.maximum(np.floor(m).astype(np.int64), 1)
+            cost = samples @ wg
+        errs = [np.sqrt(d["variance"](samples)) for d in best_data]
+        mlmc_data = {"models": best_group, "samples": samples,
+                     "errors": errs, "total_cost": cost}
+        if self.verbose:
+            print("Best MLMC estimator found. Coupled models:", best_group,
+                  " Max error:", max(errs), " Cost:", cost, "\n")
+        return mlmc_data
+
+    def compute_mlmc_data(self, group, samples):
+        """User-prescribed MLMC schedule (blue_models.py:578-639)."""
+        samples = np.asarray(samples)
+        w = self.get_costs()
+        adj = self._intersection_adjacency()
+        if not cliques.has_path_edges(adj, group):
+            raise ValueError("Group given is not compatible with MLMC.")
+        if group[0] != 0:
+            raise ValueError("The high-fidelity model must lead the group")
+        errs = np.zeros(self.n_outputs)
+        mlmc_costs = np.zeros(self.n_outputs)
+        for n in range(self.n_outputs):
+            v, subw = self._mlmc_level_data(group, n)
+            pos = samples > 0
+            # RMSE, matching setup_mlmc's "errors" units.  The reference
+            # returns the VARIANCE here (blue_models.py:633) but the RMSE
+            # from setup_mlmc (blue_models.py:732) -- the same key in two
+            # different units depending on the path (documented
+            # divergence).
+            errs[n] = np.sqrt(np.sum(v[pos] / samples[pos]))
+            # raw per-model costs, matching setup_mlmc's "total_cost"
+            # (the paper-golden convention, blue_models.py:726); the
+            # reference prices THIS path with pair costs subw
+            # (blue_models.py:635) -- same key, different units again.
+            del subw
+            mlmc_costs[n] = samples @ w[list(group)]
+        return {"models": group, "samples": samples, "errors": errs,
+                "total_cost": max(mlmc_costs)}
+
+    def solve_mlmc(self, budget=None, eps=None, mlmc_data=None):
+        """(blue_models.py:743-769)"""
+        if mlmc_data is None:
+            mlmc_data = self.setup_mlmc(budget=budget, eps=eps)
+        best_group = mlmc_data["models"]
+        samples = np.round(mlmc_data["samples"]).astype(np.int64)
+        errs = mlmc_data["errors"]
+        tot_cost = mlmc_data["total_cost"]
+
+        if self.verbose:
+            print("\nSampling optimal MLMC estimator...\n")
+        Lg = len(best_group)
+        groups = [list(pair) for pair in zip(best_group[:-1],
+                                             best_group[1:])]
+        groups += [[best_group[-1]]]
+        mu = [0 for _ in range(self.n_outputs)]
+        n_list = [int(samples[i]) for i in range(Lg)]
+        sumse_list = self._pipelined_sumse(groups, n_list)
+        for i in range(Lg):
+            N, sumse = n_list[i], sumse_list[i]
+            if N == 0:
+                continue
+            for n in range(self.n_outputs):
+                if i < Lg - 1:
+                    mu[n] = mu[n] + (sumse[n][0] - sumse[n][1]) / N
+                else:
+                    mu[n] = mu[n] + sumse[n][0] / N
+        return mu, errs, tot_cost
+
+    # ------------------------------ MFMC -------------------------------- #
+
+    def setup_mfmc(self, budget=None, eps=None, continuous_relaxation=False,
+                   small_budget=False):
+        """(blue_models.py:795-865)"""
+        if budget is None and eps is None:
+            raise ValueError("Need to specify either budget or RMSE tolerance")
+        if budget is not None and eps is not None:
+            eps = None
+        if eps is not None and np.isscalar(eps):
+            eps = [float(eps)] * self.n_outputs
+        if eps is None:
+            eps = [None] * self.n_outputs
+
+        sigmas = [np.sqrt(np.diag(self.get_covariance(n)))
+                  for n in range(self.n_outputs)]
+        rhos = [self.get_correlation(n)[0, :] for n in range(self.n_outputs)]
+        w = self.get_costs()
+        if self.verbose:
+            print("Setting up optimal MFMC estimator...\n")
+
+        adj = self._intersection_adjacency()
+        clique_list = [c for c in cliques.enumerate_cliques(adj, self.M)
+                       if 0 in c]
+        best_group, best_data = None, None
+        min_err, min_cost = np.inf, np.inf
+        for clique in clique_list:
+            clique = sorted(clique)
+            data_list = []
+            feasible = True
+            for n in range(self.n_outputs):
+                feasible, data = mfmc_allocation(
+                    sigmas[n][clique], rhos[n][clique], w[clique],
+                    budget=budget, eps=eps[n],
+                    continuous_relaxation=continuous_relaxation,
+                    small_budget=small_budget)
+                if not feasible:
+                    break
+                data_list.append(data)
+            if not feasible:
+                continue
+            # schedules and alphas live in |rho|-DESCENDING order (the
+            # order MFMC's nesting theory is stated in).  The shared
+            # schedule (element-wise max) is only meaningful when every
+            # output sorts the clique the same way; the reference merges
+            # and prices them in clique order regardless -- silently
+            # assigning counts to the wrong models whenever the orders
+            # differ (reference blue_models.py:849-856).  Here the group
+            # is emitted in a common order: when outputs disagree
+            # (near-ties in |rho|, typically), each output's preferred
+            # order is tried as the FORCED common order -- the MFMC
+            # variance formula is exact for any order, so a forced order
+            # whose schedule passes the exact variance/budget validation
+            # is still a true MFMC estimator.  Only a clique with no
+            # feasible common ordering is skipped.
+            order = data_list[0]["order"]
+            if any(not np.array_equal(d["order"], order)
+                   for d in data_list[1:]):
+                best_alt = None
+                seen = set()
+                for d in data_list:
+                    cand = tuple(int(j) for j in d["order"])
+                    if cand in seen:
+                        continue
+                    seen.add(cand)
+                    alt = []
+                    for n in range(self.n_outputs):
+                        okc, dd = mfmc_allocation(
+                            sigmas[n][clique], rhos[n][clique], w[clique],
+                            budget=budget, eps=eps[n],
+                            continuous_relaxation=continuous_relaxation,
+                            small_budget=small_budget,
+                            order=np.asarray(cand))
+                        if not okc:
+                            alt = None
+                            break
+                        alt.append(dd)
+                    if alt is None:
+                        continue
+                    # validate at the MERGED schedule: under a forced
+                    # order the variance is increasing in any inverted
+                    # coordinate, so the element-wise max can RAISE an
+                    # output's variance above its own schedule's -- a
+                    # candidate is only acceptable if every output's
+                    # tolerance still holds at the merge
+                    m_mg = np.max(np.vstack([dd["samples"]
+                                             for dd in alt]), axis=0)
+                    vs = [dd["variance"](m_mg) for dd in alt]
+                    if budget is not None:
+                        objv = max(np.sqrt(max(v, 0.0)) for v in vs)
+                    else:
+                        if any(v > 1.0001 * eps[n] ** 2
+                               for n, v in enumerate(vs)):
+                            continue
+                        objv = m_mg @ w[[clique[j] for j in cand]]
+                    if best_alt is None or objv < best_alt[0]:
+                        best_alt = (objv, alt, np.asarray(cand))
+                if best_alt is None:
+                    if self.verbose:
+                        print("MFMC: skipping clique %s (no feasible "
+                              "common ordering)" % (clique,))
+                    continue
+                _, data_list, order = best_alt
+            sorted_clique = [clique[j] for j in order]
+            # rank cliques AT THE MERGED SCHEDULE (what solve_mfmc will
+            # actually run).  Per-output own-schedule errors are only an
+            # upper bound for consistent-order cliques (the merge adds
+            # samples, lowering every variance) but UNDERESTIMATE a
+            # rescued clique, where the forced order makes the variance
+            # increasing in inverted coordinates -- ranking by them let
+            # an optimistic rescued clique beat a genuinely better
+            # consistent one.
+            m_mg = np.max(np.vstack([d["samples"] for d in data_list]),
+                          axis=0)
+            if budget is not None:
+                err = max(np.sqrt(max(d["variance"](m_mg), 0.0))
+                          for d in data_list)
+                if err < min_err:
+                    min_err = err
+                    best_group, best_data = sorted_clique, data_list
+            else:
+                cost = m_mg @ w[sorted_clique]
+                if cost < min_cost:
+                    min_cost = cost
+                    best_group, best_data = sorted_clique, data_list
+
+        if best_group is None:
+            raise BLUESTError("No feasible MFMC clique found")
+
+        samples = np.max(np.vstack([d["samples"] for d in best_data]), axis=0)
+        cost = samples @ w[best_group]
+        if budget is not None:
+            wg = w[best_group]
+            samples = np.floor(samples - (max(cost - budget, 0)
+                                          / (wg @ wg)) * wg).astype(np.int64)
+            # the additive correction can floor later entries to zero or
+            # break the m_1 <= m_2 <= ... nesting solve_mfmc divides by;
+            # clamp to one sample and restore monotonicity (the reference
+            # only clamps samples[0], leaving divide-by-zero NaN means)
+            samples = np.maximum.accumulate(np.maximum(samples, 1))
+            cost = samples @ wg
+        errs = [np.sqrt(d["variance"](samples)) for d in best_data]
+        alphas = [d["alphas"] for d in best_data]
+        mfmc_data = {"models": best_group, "samples": samples,
+                     "errors": errs, "total_cost": cost, "alphas": alphas}
+        if self.verbose:
+            print("Best MFMC estimator found. Coupled models:", best_group,
+                  " Max error:", max(errs), " Cost:", cost, "\n")
+        return mfmc_data
+
+    def compute_mfmc_data(self, clique, samples):
+        """(blue_models.py:771-793)"""
+        sigmas = [np.sqrt(np.diag(self.get_covariance(n)))
+                  for n in range(self.n_outputs)]
+        rhos = [self.get_correlation(n)[0, :] for n in range(self.n_outputs)]
+        w = self.get_costs()
+        for n in range(self.n_outputs):
+            if not cliques.is_clique(self.G[n].clique_adjacency(), clique):
+                raise ValueError("Group given is not a clique of the graph")
+        if clique[0] != 0:
+            raise ValueError("The high-fidelity model must lead the group")
+        data_list = []
+        for n in range(self.n_outputs):
+            ok, d = mfmc_check(sigmas[n][clique], rhos[n][clique], w[clique],
+                               samples)
+            if not ok:
+                raise ValueError("Prescribed samples infeasible for MFMC")
+            data_list.append(d)
+        order = data_list[0]["order"]
+        if any(not np.array_equal(d["order"], order)
+               for d in data_list[1:]):
+            raise ValueError("Outputs disagree on the MFMC correlation "
+                             "ordering; a shared schedule is ill-defined")
+        # models/samples/alphas all in the common |rho|-descending order
+        # (what solve_mfmc's nesting consumes; see setup_mfmc)
+        return {"models": [clique[j] for j in order],
+                "samples": np.asarray(samples)[order],
+                "errors": [d["error"] for d in data_list],
+                "total_cost": max(d["total_cost"] for d in data_list),
+                "alphas": [d["alphas"] for d in data_list]}
+
+    def solve_mfmc(self, budget=None, eps=None, mfmc_data=None,
+                   continuous_relaxation=False):
+        """(blue_models.py:867-903)"""
+        if mfmc_data is None:
+            mfmc_data = self.setup_mfmc(budget=budget, eps=eps,
+                                        continuous_relaxation=continuous_relaxation)
+        best_group = list(mfmc_data["models"])
+        samples = np.round(mfmc_data["samples"]).astype(np.int64)
+        errs = mfmc_data["errors"]
+        tot_cost = mfmc_data["total_cost"]
+        alphas = mfmc_data["alphas"]
+
+        if self.verbose:
+            print("\nSampling optimal MFMC estimator...\n")
+        Lg = len(best_group)
+        y = [[0 for _ in range(Lg)] for _ in range(self.n_outputs)]
+        y1 = [[0 for _ in range(Lg - 1)] for _ in range(self.n_outputs)]
+        n_list = [int(samples[i]) - (int(samples[i - 1]) if i else 0)
+                  for i in range(Lg)]
+        sumse_list = self._pipelined_sumse(
+            [best_group[i:] for i in range(Lg)], n_list)
+        for i in range(Lg):
+            N, sumse = n_list[i], sumse_list[i]
+            if N == 0:
+                continue
+            for n in range(self.n_outputs):
+                for j in range(i, Lg):
+                    y[n][j] = y[n][j] + sumse[n][j - i]
+                    if j < Lg - 1:
+                        y1[n][j] = y1[n][j] + sumse[n][j - i + 1]
+        for n in range(self.n_outputs):
+            for i in range(Lg):
+                y[n][i] = y[n][i] / samples[i]
+                if i < Lg - 1:
+                    y1[n][i] = y1[n][i] / samples[i]
+        mu = [y[n][0] + sum(alphas[n][i] * (y[n][i + 1] - y1[n][i])
+                            for i in range(Lg - 1))
+              for n in range(self.n_outputs)]
+        return mu, errs, tot_cost
+
+    # ------------------------------- MC --------------------------------- #
+
+    def solve_mc(self, budget=None, eps=None):
+        """(blue_models.py:905-930)"""
+        if budget is None and eps is None:
+            raise ValueError("Need to specify either budget or RMSE tolerance")
+        if budget is not None and eps is not None:
+            eps = None
+        if eps is not None and np.isscalar(eps):
+            eps = [float(eps)] * self.n_outputs
+
+        Vs = np.array([self.get_covariance(n)[0, 0]
+                       for n in range(self.n_outputs)])
+        cost = self.get_costs()[0]
+        if budget is not None:
+            N_MC = int(np.floor(budget / cost))
+        else:
+            N_MC = max(int(np.ceil(Vs[n] / eps[n] ** 2))
+                       for n in range(self.n_outputs))
+        # at least one sample: a budget below one high-fidelity solve
+        # would otherwise divide the estimator (and errs) by zero
+        N_MC = max(N_MC, 1)
+        tot_cost = N_MC * cost
+        errs = np.sqrt(np.maximum(Vs, 0.0) / N_MC)
+        if self.verbose:
+            print("Standard MC estimator ready. Max error:", max(errs),
+                  "Cost:", tot_cost)
+            print("\nSampling standard MC estimator...\n")
+        sumse, _, _ = self.blue_fn([0], N_MC)
+        mu = [sumse[n][0] / N_MC for n in range(self.n_outputs)]
+        return mu, errs, tot_cost
+
+    # ------------------------- validation tests ------------------------- #
+
+    def complexity_test(self, eps, K=3):
+        """(blue_models.py:932-942)"""
+        if self.verbose:
+            print("Running cost complexity test...")
+        tot_cost = []
+        for e in eps:
+            self.setup_solver(K=K, eps=e)
+            tot_cost.append(self.MOSAP_output["cost"])
+        tot_cost = np.array(tot_cost)
+        rate = np.polyfit(np.arange(len(tot_cost)), np.log2(tot_cost), 1)[0]
+        if self.verbose:
+            print("Total costs   :", tot_cost)
+            print("Estimated rate:", rate)
+        return tot_cost, rate
+
+    def variance_test(self, budget=None, eps=None, K=3, N=50, **kwargs):
+        """Empirical vs predicted estimator error (blue_models.py:944-978)."""
+        if budget is None and eps is None:
+            raise ValueError("Need to specify either budget or RMSE tolerance")
+        if budget is not None and eps is not None:
+            eps = None
+        if eps is not None and np.isscalar(eps):
+            eps = [float(eps)] * self.n_outputs
+
+        if self.verbose:
+            print("Running variance test...", flush=True)
+        # pop BEFORE forwarding: setup_solver takes no verbose kwarg, so
+        # passing it through would crash the very call the pop sanitizes
+        kwargs.pop("verbose", None)
+        self.setup_solver(K=K, budget=budget, eps=eps, **kwargs)
+        err_ex = np.sqrt(np.asarray(self.MOSAP_output["variances"]))
+        err = np.zeros_like(err_ex)
+        inners = self.get_models_inner_products()
+
+        s1 = [0 for _ in range(self.n_outputs)]
+        s2 = np.zeros_like(err_ex)
+        for it in range(1, N + 1):
+            if self.verbose:
+                print("Sampling estimator %d/%d" % (it, N), flush=True)
+            mus, _, _ = self.solve(K=K, budget=budget, eps=eps,
+                                   verbose=False, **kwargs)
+            for n in range(self.n_outputs):
+                s1[n] += mus[n]
+                s2[n] += inners[n](mus[n], mus[n])
+        for n in range(self.n_outputs):
+            s1[n] = inners[n](s1[n], s1[n]) / N ** 2
+            s2[n] /= N
+            err[n] = np.sqrt(max(s2[n] - s1[n], 0.0))
+        if self.verbose:
+            print("Theoretical error: ", err_ex, flush=True)
+            print("Estimated error:   ", err, flush=True)
+        return err_ex, err

@@ -1,7 +1,8 @@
 """Integer rounding of continuous sample allocations (multi-output path).
 
 Port of the parts of ``bluest_tpu/solvers/integer.py`` that
-``best_integer_blue_multi`` runs (misc.py:134-413 of the reference): pick
+``best_integer_blue_multi`` and the MLMC/MFMC closed forms
+(``best_integer_generic``) run (misc.py:134-413 of the reference): pick
 the ~1.2*N largest allocation entries, enumerate all floor/ceil corners
 (2^LL of them), and select the best feasible corner.  The batched
 evaluation -- thousands of (M x M) Hermitian pseudo-inverses -- is one
@@ -14,7 +15,7 @@ limit).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -96,6 +97,33 @@ def _corner_variances(basephi: np.ndarray, psi_idx: np.ndarray,
         phis = (bphi[:, None] + pidx @ chunk).T.reshape(-1, M, M)
         out.append(_chunk_var00(phis).cpu().numpy())
     return np.concatenate(out) if out else np.zeros(0)
+
+
+def best_integer_generic(sol, obj: Callable, constr: Callable, N: int,
+                         e: np.ndarray | None = None):
+    """Generic corner search with Python-callable objective/constraint
+    (reference best_closest_integer_solution, misc.py:384-413).  Used by the
+    MLMC/MFMC closed forms where LL is tiny."""
+    sol = np.asarray(sol, dtype=float)
+    lb, ub, idx = feasible_integer_bounds(sol, N, e=e)
+    LL = len(idx)
+    if LL > 24:
+        raise ValueError("Too many dimensions to brute-force it")
+
+    ms = corner_matrix(lb, ub)  # (LL, 2^LL)
+    val = np.round(sol).astype(np.int64)
+    best_fval = np.inf
+    best = None
+    for i in range(ms.shape[1]):
+        val[idx] = ms[:, i]
+        if constr(val):
+            f = obj(val)
+            if f < best_fval:
+                best_fval = f
+                best = val.copy()
+    if best is None:
+        return None, np.inf
+    return best, best_fval
 
 
 def _batch_variances_multi(vals, psis, mappings):

@@ -12,7 +12,15 @@ Phases (any failure raises, so the exit code is non-zero):
   4. drive the flagship end to end on device="cuda": pilot (4096
      samples) + SPD projection, setup_solver(K=4) with the budget
      calibrated to ~1e6 samples, solve(); check the certificate, the
-     estimates and that the model evaluations went through K1.
+     estimates and that the model evaluations went through K1;
+  5. target RMSE on the same problem, at eps* = the largest error of
+     phase 4's integer budget solve: setup_solver(K=4, eps=eps*) (cost
+     within 2% of phase 4's, tolerance met, no NLP fallback), then
+     MLBLUE, MC, MLMC and MFMC at eps* -- each estimate checked against
+     its error bar and against MLBLUE's, each path's model evaluations
+     counted through K1 -- then complexity_test([2 eps*, eps*, eps*/2])
+     (rate in [1.9, 2.1]) and variance_test(eps=2 eps*, N=20)
+     (err/err_ex in [0.5, 1.6]).
 The second-to-last line is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -247,7 +255,213 @@ def phase_flagship():
         raise AssertionError("K1 launched %d times for %d chunk evaluations"
                              % (launches, chunk_evals))
     return {"launches": launches, "alloc_s": alloc_s, "sample_s": sample_s,
-            "n_evals": n_evals}
+            "n_evals": n_evals, "problem": problem}
+
+
+def _chunk_evals(groups, ns):
+    """K1 launches a path needs at least: one per model per chunk."""
+    import math
+    return sum(len(g) * math.ceil(int(n) / BATCH)
+               for g, n in zip(groups, ns) if int(n) > 0)
+
+
+def _run_path(name, run, groups_of, launches_by_path):
+    """Drive one estimator with K1's count set to 0 just before and read
+    just after; require a launch for every chunk evaluation."""
+    import torch
+    from bluest_tpu_torch.ops import diffusion as k1
+    k1.diffusion_outputs.launches = 0
+    t0 = time.perf_counter()
+    mus, errs, cost = run()
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches = k1.diffusion_outputs.launches
+    groups, ns = groups_of()
+    need = _chunk_evals(groups, ns)
+    launches_by_path[name] = launches
+    if not launches >= need > 0:
+        raise AssertionError("%s: K1 launched %d times for %d chunk "
+                             "evaluations" % (name, launches, need))
+    return mus, errs, cost, sample_s, launches, need
+
+
+def phase_target_rmse(problem, launches_by_path):
+    """Phase 5: the target-RMSE path on phase 4's problem (pilot paid
+    once), at eps* = sqrt(max_n V_n) of phase 4's integer budget solve."""
+    import numpy as np
+
+    budget_cost = float(problem.MOSAP_output["cost"])
+    eps_star = float(np.sqrt(max(problem.MOSAP_output["variances"])))
+    log("target RMSE: eps* = %.10e (phase 4 budget-mode cost %.10g)"
+        % (eps_star, budget_cost))
+
+    # eps-mode MLBLUE allocation
+    t0 = time.perf_counter()
+    problem.setup_solver(K=K, eps=eps_star)
+    alloc_eps_s = time.perf_counter() - t0
+    out = problem.MOSAP_output
+    certs = out["certificates"]
+    ratio = float(max(out["variances"])) / eps_star ** 2
+    eps_cost = float(out["cost"])
+    log("alloc_eps_s %.3f: cost %.10g (budget mode %.10g, rel diff %.3e), "
+        "max V/eps*^2 %.6f, NLP fallbacks %d, certificates %s"
+        % (alloc_eps_s, eps_cost, budget_cost,
+           (eps_cost - budget_cost) / budget_cost, ratio,
+           problem.MOSAP.n_nlp_fallbacks,
+           [(c["form"], c["status"], c["iterations"]) for c in certs]))
+    # candidate (a), the direct eps form, must be certified; candidate (b),
+    # the scaled budget epigraph, runs when (a)'s certificate is loose and
+    # on this problem ends "infeasible"/"failed" in both packages -- a
+    # failed (b) is no candidate, so the allocation is (a)'s point
+    if not (certs and certs[0]["form"] == "direct-eps"
+            and certs[0]["status"] in ("optimal", "inaccurate")):
+        raise AssertionError("eps-mode certificate not ok: %s" % certs)
+    if not ratio <= 1.0001:
+        raise AssertionError("max V/eps*^2 = %.6f > 1.0001" % ratio)
+    if problem.MOSAP.n_nlp_fallbacks != 0:
+        raise AssertionError("eps-mode allocation fell back to the NLP")
+    # min-cost-at-eps and min-variance-at-budget share a Pareto frontier
+    if not abs(eps_cost - budget_cost) <= 0.02 * budget_cost:
+        raise AssertionError("eps-mode cost %.10g not within 2%% of the "
+                             "budget-mode cost %.10g" % (eps_cost, budget_cost))
+
+    w = problem.get_costs()
+    res = {}
+
+    # MLBLUE at eps*: the allocation above must be reused, not rerun
+    mosap = problem.MOSAP
+    real_solve = mosap.solve
+    n_alloc = [0]
+
+    def counted_solve(*a, **k):
+        n_alloc[0] += 1
+        return real_solve(*a, **k)
+
+    mosap.solve = counted_solve
+    try:
+        mus, errs, cost, s, n, need = _run_path(
+            "mlblue_eps", lambda: problem.solve(K=K, eps=eps_star),
+            lambda: (out["flattened_groups"], out["samples"]),
+            launches_by_path)
+    finally:
+        del mosap.solve
+    if n_alloc[0] != 0 or problem.MOSAP is not mosap:
+        raise AssertionError("solve(eps=eps*) reran the allocation")
+    active = [(g, int(m)) for g, m in zip(out["flattened_groups"],
+                                          out["samples"]) if m > 0]
+    res["mlblue"] = (mus, errs, cost)
+    log("MLBLUE @eps*: setup_s %.3f sample_s %.3f | %d groups, %d samples, "
+        "cost %.10g | K1 launches %d (chunk evaluations %d)"
+        % (alloc_eps_s, s, len(active), sum(m for _, m in active), cost, n,
+           need))
+
+    # MC: N = max_n ceil(C_n[0,0]/eps*^2) samples of model 0
+    mc_n = [0]
+
+    def run_mc():
+        r = problem.solve_mc(eps=eps_star)
+        mc_n[0] = int(round(r[2] / w[0]))
+        return r
+
+    mus, errs, cost, s, n, need = _run_path(
+        "mc", run_mc, lambda: ([[0]], [mc_n[0]]), launches_by_path)
+    res["mc"] = (mus, errs, cost)
+    log("MC @eps*: setup_s 0 (closed form inside solve_mc) sample_s %.3f | "
+        "models [0], %d samples, cost %.10g | K1 launches %d (chunk "
+        "evaluations %d)" % (s, mc_n[0], cost, n, need))
+
+    # MLMC: pairs of consecutive chain models plus the last singleton
+    t0 = time.perf_counter()
+    d = problem.setup_mlmc(eps=eps_star)
+    setup_s = time.perf_counter() - t0
+    chain = list(d["models"])
+    mlmc_groups = [list(p) for p in zip(chain[:-1], chain[1:])] + [chain[-1:]]
+    mus, errs, cost, s, n, need = _run_path(
+        "mlmc", lambda: problem.solve_mlmc(mlmc_data=d),
+        lambda: (mlmc_groups, d["samples"]), launches_by_path)
+    res["mlmc"] = (mus, errs, cost)
+    pair_cost = float(sum(int(m) * w[g].sum()
+                          for g, m in zip(mlmc_groups, d["samples"])))
+    log("MLMC @eps*: setup_s %.3f sample_s %.3f | models %s samples %s | "
+        "cost %.10g (raw per-model costs, the reference convention), %.10g "
+        "priced at its group costs | K1 launches %d (chunk evaluations %d)"
+        % (setup_s, s, chain, [int(m) for m in d["samples"]], cost,
+           pair_cost, n, need))
+
+    # MFMC: nested groups models[i:] with the sample increments
+    t0 = time.perf_counter()
+    d = problem.setup_mfmc(eps=eps_star)
+    setup_s = time.perf_counter() - t0
+    order = list(d["models"])
+    samp = [int(m) for m in d["samples"]]
+    incs = [samp[i] - (samp[i - 1] if i else 0) for i in range(len(samp))]
+    mus, errs, cost, s, n, need = _run_path(
+        "mfmc", lambda: problem.solve_mfmc(mfmc_data=d),
+        lambda: ([order[i:] for i in range(len(order))], incs),
+        launches_by_path)
+    res["mfmc"] = (mus, errs, cost)
+    log("MFMC @eps*: setup_s %.3f sample_s %.3f | models %s samples %s | "
+        "cost %.10g | K1 launches %d (chunk evaluations %d)"
+        % (setup_s, s, order, samp, cost, n, need))
+
+    # every estimator: tolerance met, finite, q_energy = q_int, and
+    # consistent with MLBLUE within the combined error bars
+    mu_b = np.asarray(res["mlblue"][0], dtype=float)
+    err_b = np.asarray(res["mlblue"][1], dtype=float)
+    for est, (mus, errs, cost) in res.items():
+        mus = np.asarray(mus, dtype=float)
+        errs = np.asarray(errs, dtype=float)
+        log("  %-6s mus %s errs %s cost %.10g"
+            % (est, mus.tolist(), errs.tolist(), cost))
+        if not np.all(errs <= 1.0001 * eps_star):
+            raise AssertionError("%s: errs %s above eps*" % (est, errs))
+        if not np.all(np.isfinite(mus)):
+            raise AssertionError("%s: non-finite estimate" % est)
+        if not abs(mus[2] - mus[0]) <= 4 * float(np.max(errs)):
+            raise AssertionError("%s: q_energy and q_int disagree" % est)
+        if not np.all(np.abs(mus - mu_b) <= 4 * np.sqrt(errs ** 2
+                                                        + err_b ** 2)):
+            raise AssertionError("%s disagrees with MLBLUE beyond 4 sigma"
+                                 % est)
+    if not res["mlblue"][2] <= res["mc"][2]:
+        raise AssertionError("MLBLUE cost %.10g above MC cost %.10g"
+                             % (res["mlblue"][2], res["mc"][2]))
+
+    # record each eps solve's wall and cone programs (candidate (b) runs
+    # a second IPM whenever (a)'s certificate is loose)
+    solves = []
+
+    def timed_solve(*a, **k):
+        t = time.perf_counter()
+        r = real_solve(*a, **k)
+        solves.append((time.perf_counter() - t,
+                       [(c["form"], c["status"], c["iterations"])
+                        for c in mosap.certificates]))
+        return r
+
+    mosap.solve = timed_solve
+    t0 = time.perf_counter()
+    try:
+        costs, rate = problem.complexity_test([2 * eps_star, eps_star,
+                                               eps_star / 2], K=K)
+    finally:
+        del mosap.solve
+    log("complexity_test: costs %s rate %.4f (%.3f s); per solve %s"
+        % (list(map(float, costs)), rate, time.perf_counter() - t0,
+           ["%.3f s %s" % s for s in solves]))
+    if not 1.9 <= rate <= 2.1:
+        raise AssertionError("complexity rate %.4f outside [1.9, 2.1]" % rate)
+
+    t0 = time.perf_counter()
+    err_ex, err = problem.variance_test(eps=2 * eps_star, K=K, N=20)
+    vt_s = time.perf_counter() - t0
+    vt_ratio = np.asarray(err) / np.asarray(err_ex)
+    log("variance_test(eps=2 eps*, N=20): err_ex %s err %s ratio %s "
+        "(%.3f s)" % (np.asarray(err_ex).tolist(), np.asarray(err).tolist(),
+                      vt_ratio.tolist(), vt_s))
+    if not np.all((0.5 <= vt_ratio) & (vt_ratio <= 1.6)):
+        raise AssertionError("variance_test ratio %s outside [0.5, 1.6]"
+                             % vt_ratio)
 
 
 def main():
@@ -256,9 +470,13 @@ def main():
     phase_build()
     k = phase_kernel_check()
     f = phase_flagship()
+    launches_by_path = {"mlblue_budget": f["launches"]}
+    phase_target_rmse(f["problem"], launches_by_path)
     print(json.dumps({"kernels": [{
         "name": "diffusion_outputs", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": f["launches"],
+        "replaces": K1_REPLACES,
+        "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path,
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ def test_import_leaves_jax_out():
     code = ("import sys\n"
             "import bluest_tpu_torch as bt\n"
             "import bluest_tpu_torch.models, bluest_tpu_torch.sampling\n"
+            "import bluest_tpu_torch.estimators.closed_forms\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert not any(m.startswith('bluest_tpu.') or m == 'bluest_tpu'"
             " for m in sys.modules)\n"
