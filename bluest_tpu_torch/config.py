@@ -5,9 +5,10 @@ assembly) runs in float64 to reach the ~1e-8 agreement targets of the
 reference; the Monte Carlo model evaluations run in the model's own dtype
 and the sample sums always accumulate in float64.
 
-Nothing here picks a device on its own: a problem names its sampling
-device explicitly (``device=`` on the constructor), and the allocation
-runs on :func:`allocation_device`.
+A problem samples on the card (``device="cuda"``, the default of
+``BLUEProblem``) unless the caller passes ``device="cpu"``; nothing falls
+back from one to the other.  The allocation runs on
+:func:`allocation_device`.
 """
 
 from __future__ import annotations

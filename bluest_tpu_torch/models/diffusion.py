@@ -97,8 +97,9 @@ class DiffusionProblem(BLUEProblem):
     Parameters: ``grids`` (cells per fidelity, finest first), ``n_kl``
     Karhunen-Loeve-style modes, field amplitude ``sigma`` and decay ``nu``,
     the model ``dtype`` (``None`` = float64; ``torch.float32`` for the fast
-    path) and the sampling ``device`` (a ``BLUEProblem`` parameter).
-    Costs default to the FD solve's O(n) work.
+    path) and the sampling ``device`` (a ``BLUEProblem`` parameter: the
+    card by default, ``device="cpu"`` for the host).  Costs default to
+    the FD solve's O(n) work.
     """
 
     def __init__(self, grids=(256, 128, 64, 32, 16), n_kl: int = 16,

@@ -8,11 +8,15 @@ three-QoI evaluation of the lognormal diffusion model, ``xis (B, n_kl)``
 * A CUDA tensor launches the hand-written kernel of
   ``bluest_tpu_torch/csrc/diffusion.cu`` (float32 or float64), built with
   nvcc at first use into ``build/bluest_tpu_torch/`` next to the package
-  and loaded through ctypes.  Nothing falls back: a build or launch
-  failure raises.
-* A CPU tensor runs :func:`diffusion_outputs_plain`, the same Thomas loop
-  order over a ``(n, B)`` layout in PyTorch ops.  The tests use it on the
-  CPU, and ``chip_smoke.py`` holds the kernel against it on the card.
+  and loaded through ctypes.  It takes n_cells <= 1025 (a lane keeps its
+  rows in registers); a larger n raises.  Nothing falls back: a build or
+  launch failure raises.
+* A CPU tensor runs :func:`diffusion_outputs_plain`, the kernel's
+  partitioned tridiagonal solve with the same partition of rows among
+  lanes, loop order and reduction trees, in PyTorch ops over
+  ``(B, lanes)``.  The
+  tests use it on the CPU, and ``chip_smoke.py`` holds the kernel
+  against it on the card.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 
 __all__ = ["diffusion_outputs", "diffusion_outputs_plain", "mode_matrix",
-           "build_library"]
+           "lanes_per_sample", "partition", "build_library"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "diffusion.cu")
@@ -38,6 +42,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "bluest_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_NO_TILE = -1              # the launcher's return for a shape it refuses
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -88,8 +93,10 @@ def build_library() -> ctypes.CDLL:
                      "bluest_diffusion_outputs_f64"):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
                 ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
+        lib.bluest_diffusion_max_cells.restype = ctypes.c_int
+        lib.bluest_diffusion_max_cells.argtypes = []
         _lib = lib
         return _lib
 
@@ -122,59 +129,166 @@ def _check(xis: torch.Tensor, n_cells: int):
         raise ValueError("n_cells must be >= 1, got %s" % n_cells)
 
 
+def lanes_per_sample(n_cells: int) -> int:
+    """Lanes that share one sample in K1's solve: the power of two >= n,
+    at most a warp (32)."""
+    lanes = 1
+    while lanes < n_cells and lanes < 32:
+        lanes <<= 1
+    return lanes
+
+
+def partition(n_cells: int, lanes: int):
+    """K1's rows per lane: the m = n-1 unknowns split over P = min(lanes,
+    m) lanes, lane p owning rows [p m // P, (p+1) m // P) (one or more);
+    lanes p >= P own none.  Returns P and the (lanes,) bounds s, e."""
+    m = n_cells - 1
+    P = min(lanes, m)
+    p = torch.arange(lanes)
+    s = torch.where(p < P, p * m // P, torch.full_like(p, m))
+    e = torch.where(p < P, (p + 1) * m // P, torch.full_like(p, m))
+    return P, s, e
+
+
+def _fold(v: torch.Tensor) -> torch.Tensor:
+    """(B, L) -> (B,): the kernel's butterfly sum, as lane 0 sees it (at
+    each level lane j adds lane j + L/2)."""
+    while v.shape[1] > 1:
+        half = v.shape[1] // 2
+        v = v[:, :half] + v[:, half:]
+    return v[:, 0]
+
+
+def _shift(v: torch.Tensor, k: int, fill: float) -> torch.Tensor:
+    """Lane p gets lane p - k (k > 0) or p + |k| (k < 0); `fill` where
+    that lane is outside the group (the kernel's shfl_up / shfl_down)."""
+    out = torch.full_like(v, fill)
+    if k > 0:
+        out[:, k:] = v[:, :-k]
+    else:
+        out[:, :k] = v[:, -k:]
+    return out
+
+
 def diffusion_outputs_plain(xis: torch.Tensor, n_cells: int,
                             sigma: float = 1.0,
                             nu: float = 1.5) -> torch.Tensor:
-    """Plain PyTorch version of K1: the kernel's operations in the
-    kernel's order, vectorized over the batch in a (row, batch) layout."""
+    """Plain PyTorch version of K1: the kernel's partitioned solve with
+    its partition of rows among lanes, loop order and reduction trees,
+    vectorized over (B, lanes).  See csrc/diffusion.cu for the method."""
     _check(xis, n_cells)
     n = int(n_cells)
     dt, dev = xis.dtype, xis.device
     B, n_kl = xis.shape
-    m = n - 1
-    if m <= 0 or B == 0:
+    if n == 1 or B == 0:
         return torch.zeros((B, 3), dtype=dt, device=dev)
-    h = 1.0 / n
-    inv_h2 = torch.tensor(1.0 / h ** 2, dtype=dt, device=dev)
-    h_t = torch.tensor(h, dtype=dt, device=dev)
+    m = n - 1
     mck = mode_matrix(n, n_kl, float(sigma), float(nu), dt, dev)
-    xiT = xis.T
-    log_a = mck[:, 0:1] * xiT[0:1]
+    log_a = xis[:, 0:1] * mck[:, 0]                       # (B, n), k in order
     for k in range(1, n_kl):
-        log_a = log_a + mck[:, k:k + 1] * xiT[k:k + 1]
-    a = torch.exp(log_a)                                   # (n, B)
+        log_a = log_a + xis[:, k:k + 1] * mck[:, k]
+    a = torch.exp(log_a)
 
-    cps = torch.empty((m, B), dtype=dt, device=dev)
-    dps = torch.empty((m, B), dtype=dt, device=dev)
-    cp_prev = torch.zeros(B, dtype=dt, device=dev)
-    dp_prev = torch.zeros(B, dtype=dt, device=dev)
+    L = lanes_per_sample(n)
+    P, s, e = partition(n, L)
+    s, e = s.to(dev), e.to(dev)
+    c = e - s                                  # rows of each lane
+    ni = (c - 1).clamp(min=0)                  # its interior rows
+    lane = torch.arange(L, device=dev)
+    active = lane < P
+    last_lane = lane == P - 1
+    h = 1.0 / n
+    h2 = torch.tensor(h * h, dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
     one = torch.ones((), dtype=dt, device=dev)
-    for i in range(m):
-        ai, ai1 = a[i], a[i + 1]
-        diag = (ai + ai1) * inv_h2
-        low = -(ai * inv_h2)
-        up = -(ai1 * inv_h2)
-        denom = diag - low * cp_prev
-        cp_prev = up / denom
-        dp_prev = (one - low * dp_prev) / denom
-        cps[i] = cp_prev
-        dps[i] = dp_prev
+    Z = torch.zeros((B, L), dtype=dt, device=dev)
 
+    def w(idx):                                # a at cell idx of each lane
+        return a[:, idx.clamp(max=n - 1)]
+
+    # interior rows s .. e-2 of each lane: Thomas down the rows for the
+    # unit load (dpy) and the load w_s at the first row (dpa)
+    CM = int(ni.max())
+    cp, dpy, dpa, dpb = Z, Z, Z, Z
+    CP, DPY, DPA = [], [], []
+    for t in range(CM):
+        act = t < ni
+        wi, wi1 = w(s + t), w(s + t + 1)
+        lo = -wi
+        r = one / ((wi + wi1) - lo * cp)
+        cp = torch.where(act, -wi1 * r, cp)
+        dpy = torch.where(act, (h2 - lo * dpy) * r, dpy)
+        dpa = torch.where(act, ((wi if t == 0 else Z) - lo * dpa) * r, dpa)
+        dpb = torch.where(t == ni - 1, wi1 * r, dpb)
+        CP.append(cp)
+        DPY.append(dpy)
+        DPA.append(dpa)
+    # back up the rows: each row's response to the unit load (Y), to the
+    # left separator (A) and to the lane's own separator (Bt)
+    Yn, An, Bn = Z, Z, Z
+    RESP = [None] * CM
+    for t in range(CM - 1, -1, -1):
+        act = t < ni
+        Yn = torch.where(act, DPY[t] - CP[t] * Yn, Yn)
+        An = torch.where(act, DPA[t] - CP[t] * An, An)
+        Bn = torch.where(act, torch.where(t == ni - 1, dpb, Z) - CP[t] * Bn,
+                         Bn)
+        RESP[t] = (Yn, An, Bn)
+    has = ni > 0
+    yF, aF, bF = (torch.where(has, Yn, Z), torch.where(has, An, Z),
+                  torch.where(has, Bn, one))
+    yL, aL, bL = (torch.where(has, dpy, Z), torch.where(has, dpa, one),
+                  torch.where(has, dpb, Z))
+
+    # the reduced system on the separators (the last row of each lane)
+    wr, wr1 = w(e - 1), w(e)
+    yFn, aFn, bFn = (torch.where(last_lane, Z, _shift(v, -1, 0.0))
+                     for v in (yF, aF, bF))
+    A = torch.where(active & (lane > 0), -(wr * aL), Z)
+    Bd = torch.where(active, ((wr + wr1) - wr * bL) - wr1 * aFn, one)
+    C = torch.where(active, -(wr1 * bFn), Z)
+    R = torch.where(active, (h2 + wr * yL) + wr1 * yFn, Z)
+    d = 1
+    while d < L:                               # parallel cyclic reduction
+        Am, Bm, Cm, Rm = (_shift(v, d, f) for v, f in
+                          ((A, 0.0), (Bd, 1.0), (C, 0.0), (R, 0.0)))
+        Ap, Bp, Cp, Rp = (_shift(v, -d, f) for v, f in
+                          ((A, 0.0), (Bd, 1.0), (C, 0.0), (R, 0.0)))
+        k1, k2 = A / Bm, C / Bp
+        A, Bd, C, R = (-(k1 * Am), (Bd - k1 * Cm) - k2 * Ap, -(k2 * Cp),
+                       (R - k1 * Rm) - k2 * Rp)
+        d *= 2
+    S = R / Bd
+    Sprev = _shift(S, 1, 0.0)
+
+    # each lane's rows in order: the QoI sums
     mid = n // 2 - 1
-    x_next = torch.zeros(B, dtype=dt, device=dev)
-    s_int = torch.zeros(B, dtype=dt, device=dev)
-    energy = torch.zeros(B, dtype=dt, device=dev)
-    x_mid = torch.zeros(B, dtype=dt, device=dev)
-    for i in range(m - 1, -1, -1):
-        x = dps[i] - cps[i] * x_next
-        s_int = s_int + x
-        d = x_next - x
-        energy = energy + (a[i + 1] * d) * d
-        if i == mid:
-            x_mid = x
-        x_next = x
-    energy = energy + (a[0] * x_next) * x_next
-    return torch.stack([h_t * s_int, x_mid, energy / h_t], dim=1)
+    s_int, eng, x_mid, x_prev = Z, Z, Z, Sprev
+    for t in range(int(c.max())):
+        act = t < c
+        x = S
+        if t < CM:
+            Y, Al, Bl = RESP[t]
+            x = torch.where(t < ni, (Y + Sprev * Al) + S * Bl, S)
+        dd = x - x_prev
+        s_int = torch.where(act, s_int + x, s_int)
+        eng = torch.where(act, eng + (w(s + t) * dd) * dd, eng)
+        x_mid = torch.where(act & (s + t == mid), x, x_mid)
+        x_prev = torch.where(act, x, x_prev)
+    dd = zero - x_prev                         # the last cell, to u(1) = 0
+    eng = torch.where(last_lane, eng + (w(torch.full_like(s, m)) * dd) * dd,
+                      eng)
+    h_t = torch.tensor(h, dtype=dt, device=dev)
+    n_t = torch.tensor(float(n), dtype=dt, device=dev)
+    return torch.stack([h_t * _fold(s_int), _fold(x_mid),
+                        n_t * _fold(eng)], dim=1)
+
+
+@functools.lru_cache(maxsize=64)
+def _mode_matrix_t(n_cells: int, n_kl: int, sigma: float, nu: float,
+                   dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """mck transposed, (n_kl, n_cells): the kernel's coalesced layout."""
+    return mode_matrix(n_cells, n_kl, sigma, nu, dtype, device).T.contiguous()
 
 
 def diffusion_outputs(xis: torch.Tensor, n_cells: int, sigma: float = 1.0,
@@ -198,15 +312,20 @@ def diffusion_outputs(xis: torch.Tensor, n_cells: int, sigma: float = 1.0,
     lib = build_library()
     fn = (lib.bluest_diffusion_outputs_f32 if xis.dtype == torch.float32
           else lib.bluest_diffusion_outputs_f64)
-    mck = mode_matrix(n, n_kl, float(sigma), float(nu), xis.dtype,
-                      xis.device)
-    ws = torch.empty((max(3 * n - 2, 1) * B,), dtype=xis.dtype,
-                     device=xis.device)
+    mckT = _mode_matrix_t(n, n_kl, float(sigma), float(nu), xis.dtype,
+                          xis.device)
     h = 1.0 / n
     with torch.cuda.device(xis.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(xis.data_ptr(), mck.data_ptr(), out.data_ptr(),
-                ws.data_ptr(), B, n_kl, n, 1.0 / h ** 2, h, stream)
+        rc = fn(xis.data_ptr(), mckT.data_ptr(), out.data_ptr(), B, n_kl, n,
+                h * h, h, stream)
+    if rc == _NO_TILE:
+        raise ValueError(
+            "diffusion_outputs: K1 has no tile for n_cells=%d, n_kl=%d: a "
+            "lane keeps its rows in registers, so n_cells <= %d, and the "
+            "tile's coefficients and xi must fit one block's shared memory "
+            "(csrc/diffusion.cu)"
+            % (n, n_kl, lib.bluest_diffusion_max_cells()))
     if rc != 0:
         raise RuntimeError("K1 diffusion kernel launch failed: CUDA error "
                            "%d (B=%d, n_kl=%d, n_cells=%d)"

@@ -13,8 +13,11 @@ A model is given in factored form, batched:
 ``sample_inputs(generator, n)`` draws n shared random inputs on
 ``self.device`` and ``evaluate_model(l, inputs)`` returns model l's
 ``(n, n_outputs)`` outputs.  Sampling runs on the device named by the
-``device`` parameter -- nothing picks one automatically -- and the
-allocation on ``config.allocation_device()``.
+``device`` parameter, the card (``"cuda"``) unless the caller says
+``device="cpu"``; on a host without a card the first sampling call
+raises, and nothing falls back to the CPU.  Construction with known
+covariances and costs samples nothing.  The allocation runs on
+``config.allocation_device()``.
 
 Not ported yet: the host engine for black-box ``evaluate``/``sampler``
 models, sample snapshots, meshes and the masked (SPG) covariance
@@ -55,7 +58,7 @@ default_params = {
     "skip_projection": False,
     "spg_params": spg_default_params,
     "seed": 0,
-    "device": "cpu",                   # sampling device, never inferred
+    "device": "cuda",                  # sampling device; "cpu" on request
     "device_batch_size": 4096,
 }
 

@@ -90,6 +90,10 @@ class SamplingEngine:
         self.No = int(No)
         self.batch = int(batch_size)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "sampling device %s: no CUDA card is available; pass "
+                "device=\"cpu\" to sample on the host CPU" % self.device)
 
     def zero_sums(self, k: int, d: int = 1) -> SampleSums:
         z = lambda *s: torch.zeros(s, dtype=F64, device=self.device)

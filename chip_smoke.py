@@ -7,12 +7,15 @@ Phases (any failure raises, so the exit code is non-zero):
   1. device: require a CUDA card; print its name and power limit;
   2. build K1 (bluest_tpu_torch/csrc/diffusion.cu) with nvcc;
   3. hold K1 against its plain PyTorch version on the card, for
-     n in {1, 2, 8, 64, 100, 256, 1024}, B in {1, 77, 8192}, f32 and f64,
-     and time both at the flagship shape (n=1024, B=8192, f32);
-  4. drive the flagship end to end on device="cuda": pilot (4096
-     samples) + SPD projection, setup_solver(K=4) with the budget
-     calibrated to ~1e6 samples, solve(); check the certificate, the
-     estimates and that the model evaluations went through K1;
+     n in {1, 2, 3, 8, 33, 64, 100, 256, 1024}, B in {1, 77, 8192}, f32
+     and f64: bit-equal in each dtype, f64 within 1e-10 and f32 within
+     the f32 error class of the f64 plain version; time both at the
+     flagship shape (n=1024, B=8192, f32) beside K1's bound, then K1 on
+     every flagship grid, over B at n=1024, and in f64;
+  4. drive the flagship end to end on the default device (the card):
+     pilot (4096 samples) + SPD projection, setup_solver(K=4) with the
+     budget calibrated to ~1e6 samples, solve(); check the certificate,
+     the estimates and that the model evaluations went through K1;
   5. target RMSE on the same problem, at eps* = the largest error of
      phase 4's integer budget solve: setup_solver(K=4, eps=eps*) (cost
      within 2% of phase 4's, tolerance met, no NLP fallback), then
@@ -23,6 +26,13 @@ Phases (any failure raises, so the exit code is non-zero):
      (err/err_ex in [0.5, 1.6]).
 The second-to-last line is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.
+
+With --profile, one more budget solve after phase 4 runs under
+torch.profiler and a line gives K1's device time, the device's busy share
+of the solve's wall and the largest device items.  It is the standing
+source of PERF.md's busy-share metric (the sampling layer's), measured
+again after every change to the sampling path or K1; the plain run
+leaves it out, so the profiler's cost never enters its other numbers.
 """
 
 import json
@@ -38,6 +48,16 @@ K = 4
 PILOT = 4096
 BATCH = 8192
 TARGET_SAMPLES = 1_000_000
+CHECK_GRIDS = (1, 2, 3, 8, 33, 64, 100, 256, 1024)
+CHECK_BATCHES = (1, 77, 8192)
+B_SWEEP = (1024, 8192, 65536, 262144)
+# the card's best dense rates by item size, NVIDIA H100 SXM data sheet
+# (700 W): for the mode synthesis product (FP32 outside the tensor cores,
+# which keep only TF32 in f32; FP64 tensor cores in f64), for the rest
+# (FP32, FP64), and HBM bandwidth
+PRODUCT_FLOPS = {4: 67e12, 8: 67e12}
+OTHER_FLOPS = {4: 67e12, 8: 34e12}
+HBM_BYTES_PER_S = 3.35e12
 K1_SOURCE = "bluest_tpu_torch/csrc/diffusion.cu"
 K1_REPLACES = "bluest_tpu/ops/pallas_diffusion.py:151"
 
@@ -70,7 +90,8 @@ def phase_build():
     dt = time.perf_counter() - t0
     log("K1 build: %.2f s" % dt)
     for line in k1.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if ("registers" in line or "spill" in line
+                or "Compiling entry function" in line):
             log("  nvcc:", line.strip())
     return dt
 
@@ -90,8 +111,34 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def k1_work(n, n_kl, B, itemsize):
+    """The least work of the function K1 computes, from its inputs: the
+    mode synthesis product (2 n_kl - 1 flops per cell), then one exp per
+    cell and Thomas's 17 flops per row with the QoIs fused (10 down, 7
+    back); each input read once (xi, mck) and the output written once."""
+    product = B * (2 * n_kl - 1) * n
+    other = B * (n + 17 * (n - 1))
+    nbytes = itemsize * (B * n_kl + n * n_kl + 3 * B)
+    return product, other, nbytes
+
+
+def k1_bound_ms(n, n_kl, B, dtype):
+    """The least time the card could take for K1's work: the larger of
+    the operations over the card's best rate for each (summed) and the
+    bytes over HBM bandwidth (NVIDIA H100 SXM data sheet, 700 W)."""
+    import torch
+    itemsize = 4 if dtype == torch.float32 else 8
+    product, other, nbytes = k1_work(n, n_kl, B, itemsize)
+    t_ops = (product / PRODUCT_FLOPS[itemsize]
+             + other / OTHER_FLOPS[itemsize]) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), product + other, nbytes
+
+
 def phase_kernel_check():
-    """K1 against the plain version on the same card and inputs."""
+    """K1 against the plain version on the same card and inputs, then
+    K1's times (CUDA events after warm-up) at the main path's shapes."""
     import numpy as np
     import torch
     from bluest_tpu_torch.ops.diffusion import (diffusion_outputs,
@@ -99,9 +146,9 @@ def phase_kernel_check():
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     worst = 0.0
-    max_abs = 0.0          # kernel vs plain, same dtype and inputs
-    for n in (1, 2, 8, 64, 100, 256, 1024):
-        for B in (1, 77, 8192):
+    max_abs = {torch.float32: 0.0, torch.float64: 0.0}   # kernel vs plain
+    for n in CHECK_GRIDS:
+        for B in CHECK_BATCHES:
             xi64 = torch.as_tensor(rng.standard_normal((B, N_KL)),
                                    dtype=torch.float64, device=dev)
             ref64 = diffusion_outputs_plain(xi64, n, SIGMA, NU)
@@ -134,24 +181,60 @@ def phase_kernel_check():
                     "median %.3e (plain %.3e), max %.3e (plain %.3e)"
                     % (n, B, np.median(e32), np.median(eref), e32.max(),
                        eref.max()))
-            log("K1 n=%4d B=%4d  f64 max rel %.2e | f32 median %.2e max "
-                "%.2e (plain f32 %.2e / %.2e)"
-                % (n, B, e64.max(), np.median(e32), e32.max(),
-                   np.median(eref), eref.max()))
+            a64 = float((got64 - ref64).abs().max())
+            a32 = float((got32 - pl32).abs().max())
+            if a64 != 0 or a32 != 0:
+                raise AssertionError(
+                    "K1 is not bit-equal to its plain version at n=%d B=%d: "
+                    "max abs err f64 %.3e, f32 %.3e" % (n, B, a64, a32))
+            log("K1 n=%4d B=%4d  f64 max rel %.2e abs %.2e | f32 median "
+                "%.2e max %.2e (plain f32 %.2e / %.2e) abs vs plain f32 %.2e"
+                % (n, B, e64.max(), a64, np.median(e32), e32.max(),
+                   np.median(eref), eref.max(), a32))
             worst = max(worst, float(e64.max()))
-            max_abs = max(max_abs, float((got64 - ref64).abs().max()),
-                          float((got32 - pl32).abs().max()))
-    # timing at the flagship shape, f32, CUDA events after warm-up
-    xi = torch.as_tensor(rng.standard_normal((BATCH, N_KL)),
-                         dtype=torch.float32, device=dev)
+            max_abs[torch.float64] = max(max_abs[torch.float64], a64)
+            max_abs[torch.float32] = max(max_abs[torch.float32], a32)
+    log("K1 vs plain, same dtype: max abs err f32 %.3e, f64 %.3e; f64 max "
+        "rel err %.3e" % (max_abs[torch.float32], max_abs[torch.float64],
+                          worst))
+
+    def normal(B, dtype):
+        return torch.as_tensor(rng.standard_normal((B, N_KL)), dtype=dtype,
+                               device=dev)
+
+    # the flagship shape, f32: plain, kernel, kernel, plain
     n = GRIDS[0]
-    ms = _time_ms(lambda: diffusion_outputs(xi, n, SIGMA, NU), 20)
-    plain_ms = _time_ms(lambda: diffusion_outputs_plain(xi, n, SIGMA, NU), 3)
-    log("K1 timing n=%d B=%d f32: kernel %.4f ms, plain %.4f ms"
-        % (n, BATCH, ms, plain_ms))
-    log("K1 vs plain, same dtype: max abs err %.3e; f64 max rel err %.3e"
-        % (max_abs, worst))
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    xi = normal(BATCH, torch.float32)
+    run_k = lambda: diffusion_outputs(xi, n, SIGMA, NU)
+    run_p = lambda: diffusion_outputs_plain(xi, n, SIGMA, NU)
+    p1 = _time_ms(run_p, 5)
+    k1_ = _time_ms(run_k, 50)
+    k2_ = _time_ms(run_k, 50)
+    p2 = _time_ms(run_p, 5)
+    ms, plain_ms = min(k1_, k2_), min(p1, p2)
+    log("K1 timing n=%d B=%d f32: kernel %.4f / %.4f ms, plain %.4f / %.4f "
+        "ms (plain, kernel, kernel, plain)" % (n, BATCH, k1_, k2_, p1, p2))
+    bound, by, ops, nbytes = k1_bound_ms(n, N_KL, BATCH, torch.float32)
+    log("K1 bound n=%d B=%d f32: %.4g GFLOP, %.4g MB -> %.5f ms (%s-bound); "
+        "kernel %.4f ms = %.1f%% of the bound"
+        % (n, BATCH, ops / 1e9, nbytes / 1e6, bound, by, ms,
+           100 * bound / ms))
+    for g in GRIDS:
+        log("K1 time n=%4d B=%d f32: %.4f ms"
+            % (g, BATCH, _time_ms(lambda: diffusion_outputs(xi, g, SIGMA,
+                                                            NU), 50)))
+    for B in B_SWEEP:
+        xb = normal(B, torch.float32)
+        t = _time_ms(lambda: diffusion_outputs(xb, n, SIGMA, NU), 20)
+        log("K1 time n=%d B=%6d f32: %.4f ms = %.2fM samples/s"
+            % (n, B, t, B / t / 1e3))
+    x64 = normal(BATCH, torch.float64)
+    t64 = _time_ms(lambda: diffusion_outputs(x64, n, SIGMA, NU), 50)
+    b64 = k1_bound_ms(n, N_KL, BATCH, torch.float64)[0]
+    log("K1 time n=%d B=%d f64: %.4f ms (bound %.5f ms, %.1f%%)"
+        % (n, BATCH, t64, b64, 100 * b64 / t64))
+    return {"max_abs_err": max(max_abs.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
 
 
 def _total_samples(problem):
@@ -159,7 +242,8 @@ def _total_samples(problem):
 
 
 def phase_flagship():
-    """The bench.py flagship through the port's public entry points."""
+    """The bench.py flagship through the port's public entry points, on
+    the default sampling device."""
     import math
     import numpy as np
     import torch
@@ -171,8 +255,11 @@ def phase_flagship():
     problem = DiffusionProblem(
         grids=GRIDS, n_kl=N_KL, sigma=SIGMA, nu=NU, multi_output=True,
         covariance_estimation_samples=PILOT, dtype=torch.float32,
-        device="cuda", device_batch_size=BATCH, verbose=False)
+        device_batch_size=BATCH, verbose=False)
     torch.cuda.synchronize()
+    if problem.device.type != "cuda":
+        raise AssertionError("the default sampling device is %s, not the "
+                             "card" % problem.device)
     log("pilot (%d samples x %d models) + SPD projection: %.3f s"
         % (PILOT, len(GRIDS), time.perf_counter() - t0))
 
@@ -464,6 +551,47 @@ def phase_target_rmse(problem, launches_by_path):
                              % vt_ratio)
 
 
+def phase_profile(problem):
+    """One more budget solve of phase 4's problem under torch.profiler:
+    K1's device time and launches, the union of all device activity over
+    the solve's wall (the busy share), and the largest device items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    budget = problem.MOSAP_output["budget"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        problem.solve(K=K, budget=budget)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, k1_us, k1_n, by_name = [], 0.0, 0, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t0_, t1_ = e.time_range.start, e.time_range.end
+        spans.append((t0_, t1_))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (t1_ - t0_)
+        if "diffusion_outputs_kernel" in e.name:
+            k1_us += t1_ - t0_
+            k1_n += 1
+    spans.sort()
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log("profiled solve: wall %.3f ms, device busy %.3f ms (%.1f%%), K1 "
+        "%.3f ms over %d launches (%.1f%% of busy); top device items %s"
+        % (wall_ms, busy / 1e3, 100 * busy / 1e3 / wall_ms, k1_us / 1e3,
+           k1_n, 100 * k1_us / max(busy, 1e-9),
+           ["%s %.3f ms" % (nm[:60], us / 1e3) for nm, us in top]))
+
+
 def main():
     import torch
     name = phase_device()
@@ -471,6 +599,8 @@ def main():
     k = phase_kernel_check()
     f = phase_flagship()
     launches_by_path = {"mlblue_budget": f["launches"]}
+    if "--profile" in sys.argv[1:]:
+        phase_profile(f["problem"])
     phase_target_rmse(f["problem"], launches_by_path)
     print(json.dumps({"kernels": [{
         "name": "diffusion_outputs", "route": "cuda", "source": K1_SOURCE,
@@ -478,7 +608,8 @@ def main():
         "launches": sum(launches_by_path.values()),
         "launches_by_path": launches_by_path,
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-        "plain_ms": k["plain_ms"]}]}), flush=True)
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,9 +6,10 @@ interpret mode) and the port's K1 wrapper, which runs its plain PyTorch
 version for CPU tensors.  Tolerances:
 
 * plain f64 vs the JAX f64 oracle: max relative 1e-9, median 1e-11.  The
-  JAX oracle solves by cyclic reduction at n = 2^p and the port by Thomas;
-  the lognormal coefficient makes the system ill-conditioned, and the two
-  algorithms differ by up to ~2e-10 max / ~5e-12 median at n=1024.
+  JAX oracle solves by cyclic reduction at n = 2^p and by Thomas
+  otherwise, the port by a partitioned Thomas solve (csrc/diffusion.cu);
+  the lognormal coefficient makes the system ill-conditioned, and the
+  two differ by up to ~5e-10 max / ~5e-12 median at n=1024.
 * f32 vs the f64 oracle: the error-class bound of
   tests/test_pallas_diffusion.py:34-36 (the f32 JAX path is the incumbent).
 * plain f32 vs the Pallas kernel (interpret mode): rtol 2e-3, atol 1e-6,
@@ -43,23 +44,35 @@ def _rel(got, ref):
     return np.abs(np.asarray(got, np.float64) - ref) / (np.abs(ref) + 1e-9)
 
 
-@pytest.mark.parametrize("n", [2, 8, 64, 100, 256, 1024])
+@pytest.mark.parametrize("n", [2, 3, 8, 9, 33, 64, 100, 256, 1024])
 def test_plain_matches_jax(n):
-    """f64 against the f64 oracle; f32 within the f32 error class."""
+    """f64 against the f64 oracle at B = 1, 77 and 200 (the oracle is per
+    sample, so its B=200 run is sliced); f32 within the f32 error class,
+    a property of a batch, at B = 77 and 200, and every B's f32 rows
+    bit-equal to the same rows of the B=200 run."""
     xis = np.random.default_rng(0).standard_normal((200, 32))
-    ref64 = _jax_ref(xis, n)
-    got = k1.diffusion_outputs(torch.as_tensor(xis), n, SIGMA, NU).numpy()
-    err = np.abs(got - ref64) / np.abs(ref64)
-    assert err.max() <= 1e-9
-    assert np.median(err) <= 1e-11
-
     x32 = xis.astype(np.float32)
-    ref64 = _jax_ref(x32, n)
-    got = k1.diffusion_outputs(torch.as_tensor(x32), n, SIGMA, NU).numpy()
-    err = _rel(got, ref64)
-    err_inc = _rel(_jax_ref(x32, n, jnp.float32), ref64)
-    assert np.median(err) <= 10 * np.median(err_inc) + 1e-6
-    assert err.max() <= 10 * err_inc.max() + 1e-5
+    ref64 = _jax_ref(xis, n)
+    ref64_32 = _jax_ref(x32, n)
+    inc = _jax_ref(x32, n, jnp.float32)
+    full32 = k1.diffusion_outputs(torch.as_tensor(x32), n, SIGMA, NU).numpy()
+    for B in (1, 77, 200):
+        got = k1.diffusion_outputs(torch.as_tensor(xis[:B]), n, SIGMA,
+                                   NU).numpy()
+        assert got.shape == (B, 3)
+        err = np.abs(got - ref64[:B]) / np.abs(ref64[:B])
+        assert err.max() <= 1e-9
+        assert np.median(err) <= 1e-11
+
+        got = k1.diffusion_outputs(torch.as_tensor(x32[:B]), n, SIGMA,
+                                   NU).numpy()
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, full32[:B])
+        if B > 1:
+            err = _rel(got, ref64_32[:B])
+            err_inc = _rel(inc[:B], ref64_32[:B])
+            assert np.median(err) <= 10 * np.median(err_inc) + 1e-6
+            assert err.max() <= 10 * err_inc.max() + 1e-5
 
 
 @pytest.mark.parametrize("n", [16, 64])
@@ -75,7 +88,7 @@ def test_plain_f32_matches_pallas_interpret(n):
 
 def test_edge_cases_plain():
     """n=1 has no interior unknowns (all QoIs 0); B=0 and B=1 work; the
-    model-level Thomas formulation agrees with K1's loop order."""
+    model-level Thomas formulation agrees with K1's partitioned solve."""
     xi = torch.as_tensor(np.random.default_rng(3).standard_normal((5, 7)))
     assert torch.equal(k1.diffusion_outputs(xi, 1), torch.zeros(5, 3,
                                                                 dtype=xi.dtype))
@@ -84,7 +97,7 @@ def test_edge_cases_plain():
     np.testing.assert_allclose(one.numpy(),
                                k1.diffusion_outputs(xi, 8, SIGMA, NU)[:1]
                                .numpy(), rtol=0, atol=0)
-    for n in (2, 9, 33):
+    for n in (2, 3, 9, 33):
         np.testing.assert_allclose(
             solve_diffusion_outputs(xi, n, SIGMA, NU).numpy(),
             k1.diffusion_outputs(xi, n, SIGMA, NU).numpy(), rtol=1e-11)
@@ -126,7 +139,7 @@ def test_problem_hooks_match_jax(multi_output):
     kw = dict(grids=grids, n_kl=12, sigma=SIGMA, nu=NU,
               multi_output=multi_output, verbose=False, C=C)
     pj = JaxDiffusion(**kw)
-    pt = DiffusionProblem(**kw)
+    pt = DiffusionProblem(device="cpu", **kw)
     assert pt.n_modes == pj.n_modes == (12, 4, 2)
     xis = np.random.default_rng(11).standard_normal((40, 12))
     for l in range(len(grids)):
@@ -138,3 +151,46 @@ def test_problem_hooks_match_jax(multi_output):
     gen = torch.Generator().manual_seed(0)
     th = pt.sample_inputs(gen, 5)
     assert th.shape == (5, 12) and th.dtype == torch.float64
+
+
+@pytest.mark.parametrize("n,lanes", [(1, 1), (2, 2), (3, 4), (8, 8), (9, 16),
+                                     (32, 32), (33, 32), (1024, 32)])
+def test_partition_lanes(n, lanes):
+    """Lanes per sample: the power of two >= n, at most a warp."""
+    assert k1.lanes_per_sample(n) == lanes
+
+
+@pytest.mark.parametrize("n", [3, 9, 100])
+def test_partitioned_solve_solves_the_system(n):
+    """The QoIs are those of the tridiagonal system itself: solve it
+    densely in f64 (numpy) from the same face coefficients."""
+    xis = np.random.default_rng(n).standard_normal((4, 6))
+    got = k1.diffusion_outputs(torch.as_tensor(xis), n, SIGMA, NU).numpy()
+    mck = k1.mode_matrix(n, 6, SIGMA, NU, torch.float64,
+                         torch.device("cpu")).numpy()
+    h = 1.0 / n
+    for b in range(4):
+        a = np.exp(mck @ xis[b])
+        A = (np.diag(a[:-1] + a[1:]) - np.diag(a[1:-1], 1)
+             - np.diag(a[1:-1], -1)) / h ** 2
+        u = np.linalg.solve(A, np.ones(n - 1))
+        uu = np.concatenate([[0.0], u, [0.0]])
+        du = np.diff(uu) / h
+        want = [h * u.sum(), uu[n // 2], h * (a * du * du).sum()]
+        np.testing.assert_allclose(got[b], want, rtol=1e-11)
+
+
+@pytest.mark.parametrize("n", [2, 3, 9, 33, 64, 100, 1024, 1025, 4097])
+def test_partition_covers_every_row(n):
+    """Every lane of the partition below P owns one or more consecutive
+    rows, together exactly the m = n-1 unknowns; a lane owns at most 32
+    rows up to n = 1025, the kernel's limit (the plain version takes any
+    n, and past 1025 a lane owns more)."""
+    L = k1.lanes_per_sample(n)
+    P, s, e = k1.partition(n, L)
+    assert P == min(L, n - 1)
+    assert s[0] == 0 and e[P - 1] == n - 1
+    assert bool((e[:P] - s[:P] >= 1).all())
+    assert bool((s[1:P] == e[:P - 1]).all())
+    assert bool((e[P:] == s[P:]).all())
+    assert int((e - s).max()) <= (32 if n <= 1025 else 128)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from bluest_tpu.models.diffusion import DiffusionProblem as JaxDiffusion
+from bluest_tpu_torch import BLUEProblem
 from bluest_tpu_torch.models.diffusion import DiffusionProblem
 
 torch.set_num_threads(1)
@@ -115,19 +116,20 @@ class _Quadratic:
     b = np.array([0.5, 0.45, 0.2])
 
 
+class Quadratic(BLUEProblem):
+    """The _Quadratic family as a user's factored model."""
+
+    def sample_inputs(self, generator, n):
+        return torch.randn((n, 1), generator=generator,
+                           dtype=torch.float64, device=self.device)
+
+    def evaluate_model(self, l, x):
+        return _Quadratic.a[l] * x + _Quadratic.b[l] * x * x
+
+
 def test_factored_model_api_with_cost_estimation():
     """A user model through sample_inputs / evaluate_model: wall-time cost
     estimation, pilot covariances, allocation and estimate."""
-    from bluest_tpu_torch import BLUEProblem
-
-    class Quadratic(BLUEProblem):
-        def sample_inputs(self, generator, n):
-            return torch.randn((n, 1), generator=generator,
-                               dtype=torch.float64, device=self.device)
-
-        def evaluate_model(self, l, x):
-            return _Quadratic.a[l] * x + _Quadratic.b[l] * x * x
-
     p = Quadratic(3, covariance_estimation_samples=20000, verbose=False,
                   device="cpu", seed=3)
     assert np.all(p.get_costs() > 0)
@@ -139,3 +141,22 @@ def test_factored_model_api_with_cost_estimation():
     assert abs(float(mus[0]) - _Quadratic.b[0]) <= 4 * float(errs[0])
     with pytest.raises(TypeError):
         Quadratic(3, verbose=False, mesh="auto")
+
+
+def test_default_sampling_device_is_the_card():
+    """Without device= a problem samples on the card: construction from
+    known covariances and costs samples nothing, and on a host without a
+    card the first sampling call raises instead of running on the CPU."""
+    C = (np.outer(_Quadratic.a, _Quadratic.a)
+         + 2 * np.outer(_Quadratic.b, _Quadratic.b))
+    p = Quadratic(3, C=C, costs=[3.0, 2.0, 1.0], verbose=False)
+    assert p.device.type == "cuda"
+    p.setup_solver(K=2, budget=100.0)
+    if torch.cuda.is_available():
+        mus, _, _ = p.solve(K=2, budget=100.0)
+        assert np.all(np.isfinite(np.asarray(mus, float)))
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            p.solve(K=2, budget=100.0)
+    d = DiffusionProblem(C=[np.eye(4)] * 3, **KW)
+    assert d.device.type == "cuda"
