@@ -5,7 +5,8 @@ Imports torch, numpy and scipy only -- never jax.
 """
 
 from . import config  # noqa: F401
+from .sampling.host_engine import blue_fn
 from .allocation import SAP, MOSAP, BLUESTError
 from .problem import BLUEProblem
 
-__all__ = ["BLUEProblem", "MOSAP", "SAP", "BLUESTError"]
+__all__ = ["blue_fn", "BLUEProblem", "MOSAP", "SAP", "BLUESTError"]

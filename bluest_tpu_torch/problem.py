@@ -9,23 +9,39 @@ the estimators.  The MLMC (``setup_mlmc``/``solve_mlmc``), MFMC
 ``complexity_test``/``variance_test`` studies sample through the same
 engine.
 
-A model is given in factored form, batched:
-``sample_inputs(generator, n)`` draws n shared random inputs on
-``self.device`` and ``evaluate_model(l, inputs)`` returns model l's
-``(n, n_outputs)`` outputs.  Sampling runs on the device named by the
-``device`` parameter, the card (``"cuda"``) unless the caller says
-``device="cpu"``; on a host without a card the first sampling call
-raises, and nothing falls back to the CPU.  Construction with known
-covariances and costs samples nothing.  The allocation runs on
+A model is given in one of three forms, as in the JAX package:
+
+  * factored, batched torch (``sampling/engine.py``):
+    ``sample_inputs(generator, n)`` draws n shared random inputs on
+    ``self.device`` and ``evaluate_model(l, inputs)`` returns model l's
+    ``(n, n_outputs)`` outputs;
+  * coupled group, batched torch (``sampling/group_engine.py``):
+    ``sample_group(generator, ls, n)`` draws n coupled inputs for the
+    models ``ls`` and ``evaluate_group(ls, inputs)`` returns
+    ``(n, n_outputs, len(ls)[, d])``;
+  * black box, on the host (``sampling/host_engine.py``, numpy):
+    ``sampler(ls, N=1)`` and ``evaluate(ls, samples, N=1)``, the
+    reference API, optionally in a process pool (``host_workers``,
+    ``model_workers`` with ``get_comm``; the problem then implements
+    ``set_worker_id(wid)`` to reseed its generator per worker).
+
+The torch forms sample on the device named by the ``device`` parameter,
+the card (``"cuda"``) unless the caller says ``device="cpu"``; on a host
+without a card their first sampling call raises, and nothing falls back
+to the CPU.  Black-box models run on the host by nature.  Construction
+with known covariances and costs samples nothing.  Covariances with
+unknown or uncouplable entries (NaN / inf sentinels) are projected by
+the masked SPG projection.  ``samplefile`` streams sample snapshots in
+the JAX package's npz format on every path.  The allocation runs on
 ``config.allocation_device()``.
 
-Not ported yet: the host engine for black-box ``evaluate``/``sampler``
-models, sample snapshots, meshes and the masked (SPG) covariance
-projection.
+Not ported yet: meshes and ``profile_dir`` (both raise
+``NotImplementedError``, ROADMAP queue 1 item 14).
 """
 
 from __future__ import annotations
 
+import os
 from time import time
 from typing import Optional
 
@@ -36,8 +52,11 @@ from .allocation import MOSAP, BLUESTError
 from .estimators.closed_forms import (mfmc_allocation, mfmc_check,
                                       mlmc_allocation, mlmc_bounds_batch)
 from .graph import CovarianceGraph, cliques
-from .linalg.spd import project_covariance_full
-from .sampling.engine import SamplingEngine, generator_seed
+from .linalg.spd import (mark_uncorrelated, project_covariance_full,
+                         project_covariance_masked)
+from .sampling import host_engine, snapshots
+from .sampling.engine import SamplingEngine, add_sums, generator_seed
+from .sampling.group_engine import GroupEngine
 
 spg_default_params = {
     "maxit": 10000,
@@ -52,15 +71,36 @@ spg_default_params = {
 
 default_params = {
     "verbose": True,
+    "comm": None,                      # accepted for API compat; unused
     "remove_uncorrelated": True,
     "optimization_solver": "sdp",
     "covariance_estimation_samples": 100,
+    "sample_batch_size": 1,            # black-box models: samples per call
+    "samplefile": None,
+    "outputs_to_save": None,
     "skip_projection": False,
     "spg_params": spg_default_params,
     "seed": 0,
+    "mesh": None,                      # not ported yet (ROADMAP item 14)
     "device": "cuda",                  # sampling device; "cpu" on request
     "device_batch_size": 4096,
+    "max_resample": 64,                # 0 = model guaranteed finite
+    "host_workers": 1,                 # >1: process pool for black-box models
+    "model_workers": 1,                # >1: processes per model evaluation
+    "profile_dir": None,               # not ported yet (ROADMAP item 14)
 }
+
+
+def _holds_torch_state(v) -> bool:
+    """True when ``v`` is, or a dict/list/tuple holds, a torch tensor or
+    generator (what must not travel to a host worker)."""
+    if isinstance(v, (torch.Tensor, torch.Generator)):
+        return True
+    if isinstance(v, dict):
+        return any(_holds_torch_state(x) for x in v.values())
+    if isinstance(v, (list, tuple)):
+        return any(_holds_torch_state(x) for x in v)
+    return False
 
 
 def _dv_fold(D: np.ndarray) -> np.ndarray:
@@ -92,6 +132,11 @@ class BLUEProblem:
         spg_params.update(params.get("spg_params", {}))
         params["spg_params"] = spg_params
         self.params.update(params)
+        for name in ("mesh", "profile_dir"):
+            if self.params[name] is not None:
+                raise NotImplementedError(
+                    "%s: bluest_tpu_torch samples on one device and has no "
+                    "profiler hook yet (ROADMAP queue 1 item 14)" % name)
 
         self.verbose = self.params["verbose"]
         self.device = torch.device(self.params["device"])
@@ -155,6 +200,26 @@ class BLUEProblem:
 
     # ---------------- functions to be overloaded by the user ----------- #
 
+    def evaluate(self, ls, samples, N=1):
+        """Black-box evaluation: returns Ps[n][i] for output n, model ls[i]
+        (reference blue_models.py:108-110).  Runs on the host."""
+        raise NotImplementedError
+
+    def sampler(self, ls, N=1):
+        """Black-box input sampler (reference blue_models.py:113-115)."""
+        raise NotImplementedError
+
+    def sample_group(self, generator: torch.Generator, ls, n: int):
+        """Batched coupled-group sampler: n coupled inputs for the models
+        ``ls`` -- a tensor, or a tuple of tensors, with leading dimension
+        n -- on ``self.device``.  Override together with evaluate_group."""
+        raise NotImplementedError
+
+    def evaluate_group(self, ls, inputs) -> torch.Tensor:
+        """Batched coupled-group evaluation: (n, n_outputs, len(ls)), or
+        (n, n_outputs, len(ls), d) for vector outputs."""
+        raise NotImplementedError
+
     def sample_inputs(self, generator: torch.Generator, n: int):
         """Batched factored sampler: n random inputs (leading dimension n)
         on ``self.device``, shared by every model of a coupled group."""
@@ -168,12 +233,29 @@ class BLUEProblem:
     def get_models_inner_products(self):
         return [lambda a, b: a * b for _ in range(self.n_outputs)]
 
+    def get_comm(self):
+        """Intra-group communicator for internally-parallel black-box
+        models (reference blue_models.py:121-130): with
+        ``params['model_workers'] > 1`` each model evaluation owns a
+        group of processes and this returns its
+        :class:`~bluest_tpu_torch.parallel.hostcomm.HostComm`; ``None``
+        for torch models and single-process sampling."""
+        return getattr(self, "_host_comm", None)
+
     # --------------------------- utilities ----------------------------- #
 
     def _has_factored_model(self) -> bool:
         cls = type(self)
         return (cls.evaluate_model is not BLUEProblem.evaluate_model
                 and cls.sample_inputs is not BLUEProblem.sample_inputs)
+
+    def _has_group_model(self) -> bool:
+        cls = type(self)
+        return (cls.evaluate_group is not BLUEProblem.evaluate_group
+                and cls.sample_group is not BLUEProblem.sample_group)
+
+    def _has_torch_model(self) -> bool:
+        return self._has_factored_model() or self._has_group_model()
 
     def get_costs(self) -> np.ndarray:
         return np.asarray(self.costs, dtype=float)
@@ -219,6 +301,55 @@ class BLUEProblem:
             for j in range(L):
                 out[i, j] = inner(a[i], b[j])
         return out
+
+    def get_model_graph(self, C, costs=None):
+        """Model graph from a (possibly partial) covariance (reference
+        blue_models.py:232-263): a CovarianceGraph with the reference's
+        sentinel semantics (NaN = estimate, inf = never couple,
+        0 = uncorrelated).  The optional ``costs`` are attached to the
+        returned graph, not to the problem."""
+        C = np.array(C, dtype=float)
+        G = CovarianceGraph(C)
+        if costs is not None:
+            costs = np.asarray(costs, dtype=float)
+            if costs.shape != (C.shape[0],):
+                raise ValueError("costs must have one entry per model")
+            G.costs = costs
+        return G
+
+    # ------------------------ graph manipulation ----------------------- #
+
+    def reorder_all_graph_nodes(self, ordering=None):
+        for n in range(self.n_outputs):
+            self.reorder_graph_nodes(n, ordering=ordering,
+                                     _part_of_all=True)
+
+    def reorder_graph_nodes(self, n=0, ordering=None, _part_of_all=False):
+        M = self.M
+        if ordering is None or (isinstance(ordering, str) and "asc" in ordering):
+            p = np.arange(M)
+        elif isinstance(ordering, str) and "desc" in ordering:
+            p = np.arange(M)[::-1]
+        elif isinstance(ordering, (list, np.ndarray)) and len(ordering) == M:
+            p = np.asarray(ordering, dtype=int)
+        else:
+            raise ValueError("ordering must be None, 'asc', 'desc' or a "
+                             "permutation of the model indices")
+        # costs are shared across outputs and permuted once (at n == 0):
+        # only reorder_all_graph_nodes may permute a graph of a
+        # multi-output problem, or one output's graph would desync from
+        # the shared costs
+        if (not _part_of_all and not np.array_equal(p, np.arange(M))
+                and (n != 0 or self.n_outputs > 1)):
+            raise ValueError(
+                "reordering a single output graph (n=%d) would desync the "
+                "shared model costs; use reorder_all_graph_nodes" % n)
+        self.G[n].permute(p)
+        # the clique-enumeration universe follows the relabeling
+        self.SG[n] = list(self.G[n].component)
+        self.dV[n] = _dv_fold(self.dV[n][np.ix_(p, p)])
+        if n == 0:
+            self.costs = self.costs[p]
 
     # ------------------------ graph persistence ------------------------ #
 
@@ -299,23 +430,53 @@ class BLUEProblem:
                         rho = C_hat[n][a, b] / denom if denom > 0 else 0.0
                         g.set_estimated(i, j, C_hat[n][a, b], rho)
 
-    def project_covariances(self):
+    def project_covariances(self, bypass_error_check: bool = False):
         for n in range(self.n_outputs):
-            self.project_covariance(n)
+            self.project_covariance(n, bypass_error_check=bypass_error_check)
 
-    def project_covariance(self, n=0):
-        """SPD projection of a fully known covariance
-        (blue_models.py:385-392).  Partially known covariances need the
-        masked SPG projection, which is not ported yet."""
+    def project_covariance(self, n=0, bypass_error_check: bool = False):
+        """(blue_models.py:348-433): the eigenvalue clip when the
+        covariance is fully known, else the masked SPG projection, which
+        leaves the covariance as it is (and returns its error) when the
+        error is large, unless ``bypass_error_check``, and raises when SPG
+        does not converge.  As in the JAX package the large-error early
+        return is gated only on ``bypass_error_check``."""
+        spg_params = self.params["spg_params"]
+        spd_eps = spg_params["spd_threshold"]
         C = self.get_covariance(n)
-        if not np.isfinite(C).all():
-            raise NotImplementedError(
-                "output %d: the covariance has unknown or uncouplable "
-                "entries; the masked SPG projection is not ported yet" % n)
-        C_new, err = project_covariance_full(
-            C, self.params["spg_params"]["spd_threshold"])
-        if self.verbose:
-            print("Covariance projected to be SPD, error:", err)
+
+        if np.isfinite(C).all():
+            C_new, err = project_covariance_full(C, spd_eps)
+            if self.verbose:
+                print("Covariance projected to be SPD, error:", err)
+        else:
+            if self.verbose:
+                print("Running spectral projected gradient for covariance "
+                      "projection...")
+            mask = (~np.isnan(C)).astype(float)
+            C_new, err, res = project_covariance_masked(
+                C, mask, spd_eps=spd_eps, spg_eps=spg_params["eps"],
+                maxit=spg_params["maxit"],
+                max_fevals=spg_params["max_fevals"],
+                lmbda_min=spg_params["lmbda_min"],
+                lmbda_max=spg_params["lmbda_max"],
+                history=spg_params["linesearch_history_length"])
+            if res.solver_info != 0:
+                raise RuntimeError("Covariance projection did not converge: "
+                                   "%s" % (res,))
+            if self.verbose:
+                print("Covariance projected, projection error:", err)
+            if err > spg_params["eps"] and not bypass_error_check:
+                if self.verbose:
+                    print("\nWARNING! Large covariance projection error."
+                          " Model covariance may be singular; consider "
+                          "removing a model. Leaving covariances as "
+                          "they are (bypass with "
+                          "project_covariances(bypass_error_check="
+                          "True)).\n")
+                return err
+            C_new = mark_uncorrelated(C_new, keep_nan_mask=np.isnan(C))
+
         self.G[n].apply_projection(C_new)
         return err
 
@@ -333,15 +494,35 @@ class BLUEProblem:
 
     # ----------------------------- engine ------------------------------ #
 
-    def _sampling_engine(self) -> SamplingEngine:
+    def __getstate__(self):
+        """State for a spawned host worker (host_engine.blue_fn_parallel):
+        no engine, generator, allocation object or torch tensor travels,
+        so a worker never initialises the card to unpickle a problem that
+        has sampled there (the JAX package drops its device state the same
+        way).  Dict caches that hold tensors arrive empty, any other
+        attribute that holds one arrives as None."""
+        state = self.__dict__.copy()
+        for k in ("_engine", "MOSAP", "MOSAP_output"):
+            state[k] = None
+        for k, v in state.items():
+            if _holds_torch_state(v):
+                state[k] = {} if isinstance(v, dict) else None
+        return state
+
+    def _sampling_engine(self):
+        """The device engine of a torch model: SamplingEngine for a
+        factored model, GroupEngine for a coupled-group one."""
         if self._engine is None:
-            if not self._has_factored_model():
-                raise NotImplementedError(
-                    "bluest_tpu_torch samples factored models only: "
-                    "override sample_inputs and evaluate_model")
-            self._engine = SamplingEngine(
-                self.sample_inputs, self.evaluate_model, self.n_outputs,
-                int(self.params["device_batch_size"]), self.device)
+            batch = int(self.params["device_batch_size"])
+            if self._has_factored_model():
+                self._engine = SamplingEngine(
+                    self.sample_inputs, self.evaluate_model, self.n_outputs,
+                    batch, self.device)
+            else:
+                self._engine = GroupEngine(
+                    self.sample_group, self.evaluate_group, self.n_outputs,
+                    batch, self.device,
+                    max_resample=int(self.params["max_resample"]))
         return self._engine
 
     def _next_seed(self) -> int:
@@ -351,24 +532,39 @@ class BLUEProblem:
 
     def blue_fn(self, ls, N, verbose=True, compute_mlmc_differences=False):
         """Sums over N coupled samples of group ``ls``: (sumse, sumsc,
-        cost[, sumsd1, sumsd2]) in the reference layout (blue_fn.py)."""
+        cost[, sumsd1, sumsd2]) in the reference layout (blue_fn.py).
+        Torch models sample on the device, black-box models on the host."""
+        if not self._has_torch_model():
+            return self._host_blue_fn(ls, N, verbose,
+                                      compute_mlmc_differences)
         key_ls = tuple(int(l) for l in ls)
         N = int(N)
         t0 = time()
-        engine = self._sampling_engine()
-        sums = engine.sample_sums(key_ls, self._next_seed(), N)
+        samplefile = self.params["samplefile"]
+        sums = self._device_sums(key_ls, N)
         # Non-finite samples are masked out of the sums, but the estimator
         # divides by the requested N: top up with fresh draws so the sums
         # cover N finite samples (the reference resamples until all N are
-        # finite, blue_fn.py:118-129)
+        # finite, blue_fn.py:118-129).  The top-up rows reach the snapshot
+        # file too, through one sink for all rounds.
         rounds = 0
-        while int(sums.n_failed) > 0 and rounds < 4:
-            deficit = int(sums.n_failed)
-            extra = engine.sample_sums(key_ls, self._next_seed(), deficit)
-            sums = type(sums)(*[a + b for a, b in zip(sums[:-1],
-                                                       extra[:-1])],
-                              extra.n_failed)
-            rounds += 1
+        topup_sink = None
+        try:
+            while int(sums.n_failed) > 0 and rounds < 4:
+                deficit = int(sums.n_failed)
+                if samplefile is not None and topup_sink is None:
+                    topup_sink = self._collect_sink(key_ls, deficit,
+                                                    samplefile)
+                extra = self._device_sums(key_ls, deficit, sink=topup_sink)
+                sums = type(sums)(*[a + b for a, b in zip(sums[:-1],
+                                                           extra[:-1])],
+                                  extra.n_failed)
+                rounds += 1
+            if topup_sink is not None:
+                topup_sink.write(samplefile, key_ls)
+        finally:
+            if topup_sink is not None:
+                topup_sink.close()
         # one device -> host copy for the group
         k, No = len(key_ls), self.n_outputs
         flat = torch.cat([s.reshape(-1).to(torch.float64)
@@ -391,17 +587,131 @@ class BLUEProblem:
             se, d1 = se[..., 0], d1[..., 0]    # scalar outputs
         sumse = [[se[n, i] for i in range(k)] for n in range(No)]
         sumsc = [sc[n] for n in range(No)]
+        cost = N * self.cost if hasattr(self, "cost") else wall
         if compute_mlmc_differences:
             sumsd1 = [[[d1[n, i, j] for j in range(k)] for i in range(k)]
                       for n in range(No)]
             sumsd2 = [[[d2[n, i, j] for j in range(k)] for i in range(k)]
                       for n in range(No)]
-            return sumse, sumsc, wall, sumsd1, sumsd2
-        return sumse, sumsc, wall
+            return sumse, sumsc, cost, sumsd1, sumsd2
+        return sumse, sumsc, cost
+
+    def _host_blue_fn(self, ls, N, verbose, compute_mlmc_differences):
+        """Black-box models: the host engine, serial or in a process pool
+        of ``host_workers`` (x ``model_workers``) spawned workers."""
+        samplefile = self.params["samplefile"]
+        n_workers = int(self.params["host_workers"])
+        model_workers = int(self.params["model_workers"])
+        if n_workers > 1 or model_workers > 1:
+            return host_engine.blue_fn_parallel(
+                ls, N, self, n_workers, No=self.n_outputs,
+                compute_mlmc_differences=compute_mlmc_differences,
+                model_workers=model_workers, filename=samplefile,
+                outputs_to_save=self.params["outputs_to_save"])
+        return host_engine.blue_fn(
+            ls, N, self, sampler=self.sampler,
+            inners=self.get_models_inner_products(),
+            N1=self.params["sample_batch_size"], No=self.n_outputs,
+            verbose=self.verbose and verbose,
+            compute_mlmc_differences=compute_mlmc_differences,
+            filename=samplefile,
+            outputs_to_save=self.params["outputs_to_save"])
+
+    def _device_sums(self, key_ls, N, sink=None):
+        """Device sums of one group's N samples from a fresh stream; with
+        a ``samplefile`` the rows also go to the snapshot file (through
+        ``sink`` when the caller owns one)."""
+        seed = self._next_seed()
+        samplefile = self.params["samplefile"]
+        if samplefile is None or N <= 0:
+            return self._sampling_engine().sample_sums(key_ls, seed, N)
+        if self._has_factored_model():
+            return self._kernel_collect_run(key_ls, seed, N, samplefile,
+                                            sink)
+        return self._group_collect_run(key_ls, seed, N, samplefile, sink)
+
+    # snapshot collection holds a chunk's outputs and inputs on the device
+    # until its one host copy; bound that allocation by collecting the
+    # group engine's rows in chunks of this many samples (the factored
+    # engine hands over every device_batch_size chunk)
+    _COLLECT_CHUNK = 1 << 18
+    # runs projected above this many bytes of collected rows switch from
+    # accumulate-on-host to an asynchronous disk spool (SnapshotSpool).
+    # Env override BLUEST_TPU_SNAPSHOT_SPILL_MB (0 disables spilling).
+    _COLLECT_SPILL_BYTES = 256 << 20
+
+    def _collect_spill_bytes(self):
+        mb = os.environ.get("BLUEST_TPU_SNAPSHOT_SPILL_MB")
+        if mb is not None:
+            try:
+                v = float(mb)
+            except ValueError:     # malformed: keep the default, don't
+                v = None           # abort a long sampling run mid-flight
+            if v is not None:
+                return v * 2 ** 20 if v > 0 else float("inf")
+        return float(self._COLLECT_SPILL_BYTES)
+
+    def _collect_sink(self, key_ls, N, samplefile):
+        """Accumulate-or-spill sink for snapshot collection; the spool
+        lives next to the samplefile (the system temp dir is often
+        RAM-backed, which would defeat the memory bound)."""
+        sdir = os.path.dirname(os.path.abspath(samplefile)) or None
+        return snapshots.CollectSink(
+            self.n_outputs, len(key_ls), N, self._collect_spill_bytes,
+            outputs_to_save=self.params["outputs_to_save"], tmpdir=sdir)
+
+    def _kernel_collect_run(self, key_ls, seed, N, samplefile, sink=None):
+        """Factored-engine sampling with snapshot collection: each chunk's
+        finite rows stream through a CollectSink; returns the sums.  With
+        an external ``sink`` the caller owns the write and close."""
+        own = sink is None
+        if own:
+            sink = self._collect_sink(key_ls, N, samplefile)
+        try:
+            sums = self._sampling_engine().sample_sums(
+                key_ls, seed, N, on_chunk=sink.add)
+            if own:
+                sink.write(samplefile, key_ls)
+        finally:
+            if own:
+                sink.close()
+        return sums
+
+    def _group_collect_run(self, key_ls, seed, N, samplefile, sink=None):
+        """Group-engine sampling with snapshot collection, in chunks of
+        ``_COLLECT_CHUNK`` samples (one device -> host copy each), each
+        from its own stream; the finite rows -- the accepted draws' inputs
+        -- go to the sink.  Returns the summed sums."""
+        engine = self._sampling_engine()
+        total = None
+        own = sink is None
+        if own:
+            sink = self._collect_sink(key_ls, N, samplefile)
+        try:
+            for i, base in enumerate(range(0, N, self._COLLECT_CHUNK)):
+                n_c = min(self._COLLECT_CHUNK, N - base)
+                seed_c = seed if i == 0 else generator_seed(seed,
+                                                            1 << 20 | i)
+                sums, vals, inputs, valid = engine.collect(key_ls, seed_c,
+                                                           n_c)
+                sel = valid.cpu().numpy()
+                vals = vals.cpu().numpy()[sel]
+                if vals.ndim == 4 and vals.shape[-1] == 1:
+                    vals = vals[..., 0]
+                sink.add(vals, inputs.cpu().numpy()[sel], n_c)
+                total = sums if total is None else add_sums(total, sums)
+            if own:
+                sink.write(samplefile, key_ls)
+        finally:
+            if own:
+                sink.close()
+        return total
 
     def _pipelined_sumse(self, group_list, n_list):
         """Per-(group, N) sumse, None for N == 0: the sum fetch of the
-        MLMC/MFMC estimators (one device -> host copy per group)."""
+        MLMC/MFMC estimators (one device -> host copy per group on the
+        device path, the host engine's progress per level on the host
+        path)."""
         return [self.blue_fn(g, int(n))[0] if n > 0 else None
                 for g, n in zip(group_list, n_list)]
 

@@ -15,12 +15,15 @@ samples
     (non-finite rows are counted in ``n_failed``).
 
 The sums stay on the device; the caller copies them to the host once per
-group.
+group.  With ``on_chunk`` (snapshot collection, the counterpart of
+``KernelEngineV2.sample_sums(collect=True, on_chunk=...)``) each chunk's
+finite rows -- outputs and flattened inputs -- also go to the host, so
+the snapshot rows are exactly the samples the sums cover.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -74,6 +77,36 @@ def add_sums(a: SampleSums, b: SampleSums) -> SampleSums:
     return SampleSums(*[x + y for x, y in zip(a, b)])
 
 
+def zero_sums(No: int, k: int, device, d: int = 1) -> SampleSums:
+    z = lambda *s: torch.zeros(s, dtype=F64, device=device)
+    return SampleSums(z(No, k, d), z(No, k, k), z(No, k, k, d), z(No, k, k),
+                      torch.zeros((), dtype=torch.int64, device=device))
+
+
+def finite_rows(outs: torch.Tensor) -> torch.Tensor:
+    """(n,) mask of the rows of ``outs`` (leading dimension n) that are
+    finite in every entry."""
+    return torch.isfinite(outs).flatten(1).all(dim=1)
+
+
+def flat_inputs(inputs) -> torch.Tensor:
+    """(n, q) snapshot form of a batch of inputs: a tensor, or a tuple or
+    list of tensors, each with leading dimension n, flattened per row and
+    concatenated (the JAX engines' per-sample ravel of the input tree)."""
+    leaves = list(inputs) if isinstance(inputs, (tuple, list)) else [inputs]
+    n = leaves[0].shape[0]
+    return torch.cat([x.reshape(n, -1) for x in leaves], dim=1)
+
+
+def check_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "sampling device %s: no CUDA card is available; pass "
+            "device=\"cpu\" to sample on the host CPU" % device)
+    return device
+
+
 class SamplingEngine:
     """Coupled sampling of groups of a factored model on one device.
 
@@ -89,26 +122,19 @@ class SamplingEngine:
         self.evaluate_model = evaluate_model
         self.No = int(No)
         self.batch = int(batch_size)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "sampling device %s: no CUDA card is available; pass "
-                "device=\"cpu\" to sample on the host CPU" % self.device)
+        self.device = check_device(device)
 
-    def zero_sums(self, k: int, d: int = 1) -> SampleSums:
-        z = lambda *s: torch.zeros(s, dtype=F64, device=self.device)
-        return SampleSums(z(self.No, k, d), z(self.No, k, k),
-                          z(self.No, k, k, d), z(self.No, k, k),
-                          torch.zeros((), dtype=torch.int64,
-                                      device=self.device))
-
-    def sample_sums(self, ls: Sequence[int], seed: int, N: int) -> SampleSums:
+    def sample_sums(self, ls: Sequence[int], seed: int, N: int,
+                    on_chunk: Optional[Callable] = None) -> SampleSums:
         """MLBLUE sums of group ``ls`` over N coupled samples drawn from a
-        generator seeded with ``seed``.  Returns device tensors."""
+        generator seeded with ``seed``.  Returns device tensors.  With
+        ``on_chunk(vals, inputs, attempted_rows)`` each chunk's finite
+        rows are handed over as numpy arrays: ``vals`` (rows, No, k[, d])
+        and ``inputs`` (rows, q)."""
         ls = [int(l) for l in ls]
         N = int(N)
         if N <= 0:
-            return self.zero_sums(len(ls))
+            return zero_sums(self.No, len(ls), self.device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         acc = None
@@ -118,4 +144,12 @@ class SamplingEngine:
             outs = torch.stack([self.evaluate_model(l, theta) for l in ls])
             part = combine(outs, base, N)
             acc = part if acc is None else add_sums(acc, part)
+            if on_chunk is not None:
+                # drop non-finite rows: the combiner masks them out of the
+                # sums and the problem's top-up resamples the deficit, so
+                # the snapshot rows equal the samples the sums cover
+                vals = outs.movedim(0, 2)                  # (n_c, No, k[, d])
+                sel = finite_rows(vals).cpu().numpy()
+                on_chunk(vals.cpu().numpy()[sel],
+                         flat_inputs(theta).cpu().numpy()[sel], n_c)
         return acc

@@ -1,0 +1,139 @@
+"""Coupled-group sampling engine: models that are sampled group by group.
+
+Port of ``bluest_tpu/sampling/jax_engine.py`` (``build_group_engine``
+and ``build_group_collect_engine``) for models that do not factor into
+one shared input and per-model evaluations.  The user gives two batched
+torch overloads:
+
+  * ``sample_group(generator, ls, n)``: n coupled inputs for the models
+    ``ls`` -- a tensor, or a tuple of tensors, with leading dimension n,
+    on the problem's device;
+  * ``evaluate_group(ls, inputs)``: the outputs, ``(n, No, len(ls))``, or
+    ``(n, No, len(ls), d)`` for vector outputs (the dot product is then
+    the inner product, reference blue_fn.py:159-167).
+
+For a group and N samples each chunk of up to ``batch_size`` rows draws
+and evaluates once, then redraws only the rows whose outputs are not
+finite, up to ``max_resample`` rounds, from the same generator: the
+finite rows keep their inputs and outputs (the JAX engine's per-sample
+``fold_in`` resample, ``jax_engine.py:42-62``).  Each round evaluates
+the whole group once, whatever its row count, and a model integrated by
+a loop of small kernels (Hodgkin-Huxley) costs its launches, not its
+rows.  So a round draws enough candidates that its finite ones are
+expected to cover the failing rows -- the deficit over the finite share
+seen so far in the chunk, with a margin -- and hands them, in draw
+order, to the failing rows in row order; the accepted draws are finite
+draws of the group's stream, as the JAX loop's are.  Rows still failing
+after the last round are masked out of the sums and counted in
+``n_failed``.  The f64 sums come from the same combiner as the factored
+engine's (``engine.combine``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Sequence, Tuple
+
+import torch
+
+from .engine import (SampleSums, add_sums, check_device, combine,
+                     finite_rows, flat_inputs, zero_sums)
+
+
+def _take_rows(inputs, idx):
+    if isinstance(inputs, (tuple, list)):
+        return type(inputs)(x[idx] for x in inputs)
+    return inputs[idx]
+
+
+def _put_rows(inputs, idx, new):
+    """Out of place: ``inputs`` with rows ``idx`` replaced by ``new``."""
+    if isinstance(inputs, (tuple, list)):
+        return type(inputs)(x.index_copy(0, idx, y)
+                            for x, y in zip(inputs, new))
+    return inputs.index_copy(0, idx, new)
+
+
+class GroupEngine:
+    """Coupled sampling of groups of a coupled-group model on one device."""
+
+    def __init__(self, sample_group: Callable, evaluate_group: Callable,
+                 No: int, batch_size: int, device, max_resample: int = 64):
+        if int(batch_size) < 1:
+            raise ValueError("batch_size must be >= 1, got %s" % batch_size)
+        self.sample_group = sample_group
+        self.evaluate_group = evaluate_group
+        self.No = int(No)
+        self.batch = int(batch_size)
+        self.device = check_device(device)
+        self.max_resample = max(int(max_resample), 0)
+
+    def redraw_rows(self, n_bad: int, drawn: int, accepted: int) -> int:
+        """Candidates to draw for ``n_bad`` failing rows when ``accepted``
+        of the chunk's ``drawn`` rows so far were finite: 1.25 n_bad over
+        the finite share (floored at 1/64), at least n_bad and at most
+        max(n_bad, 4 batch_size)."""
+        share = max(accepted / max(drawn, 1), 1.0 / 64)
+        m = math.ceil(1.25 * n_bad / share)
+        return min(max(m, n_bad), max(n_bad, 4 * self.batch))
+
+    def draw(self, gen: torch.Generator, ls, n: int):
+        """n coupled samples of group ``ls``: (inputs, outputs (n, No, L[,
+        d]), ok (n,)).  Non-finite rows are redrawn: each round draws
+        ``redraw_rows`` candidates and gives its finite ones, in order, to
+        the rows still failing."""
+        inputs = self.sample_group(gen, ls, n)
+        outs = self.evaluate_group(ls, inputs)
+        ok = finite_rows(outs)
+        drawn, accepted = n, int(ok.sum())
+        for _ in range(self.max_resample):
+            bad = torch.nonzero(~ok).flatten()
+            if bad.numel() == 0:
+                break
+            m = self.redraw_rows(bad.numel(), drawn, accepted)
+            new_in = self.sample_group(gen, ls, m)
+            new_out = self.evaluate_group(ls, new_in)
+            good = torch.nonzero(finite_rows(new_out)).flatten()
+            drawn, accepted = drawn + m, accepted + good.numel()
+            good = good[:bad.numel()]
+            take = bad[:good.numel()]
+            outs = outs.index_copy(0, take, new_out[good])
+            inputs = _put_rows(inputs, take, _take_rows(new_in, good))
+            ok = ok.index_fill(0, take, True)
+        return inputs, outs, ok
+
+    def _chunks(self, ls, seed: int, N: int):
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        for base in range(0, N, self.batch):
+            n_c = min(self.batch, N - base)
+            inputs, outs, ok = self.draw(gen, ls, n_c)
+            # combine masks non-finite rows itself; the rows are model-major
+            yield base, inputs, outs, ok, combine(outs.movedim(2, 0), base, N)
+
+    def sample_sums(self, ls: Sequence[int], seed: int, N: int) -> SampleSums:
+        """MLBLUE sums of group ``ls`` over N coupled samples drawn from a
+        generator seeded with ``seed``.  Returns device tensors."""
+        ls = tuple(int(l) for l in ls)
+        N = int(N)
+        acc = zero_sums(self.No, len(ls), self.device) if N <= 0 else None
+        for _base, _inputs, _outs, _ok, part in self._chunks(ls, seed, N):
+            acc = part if acc is None else add_sums(acc, part)
+        return acc
+
+    def collect(self, ls: Sequence[int], seed: int, N: int
+                ) -> Tuple[SampleSums, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+        """``sample_sums`` that also returns every row's outputs
+        ``vals`` (N, No, L[, d]), flattened inputs (N, q) -- the accepted
+        draw's -- and the (N,) mask of the finite rows the sums cover, all
+        on the device (``build_group_collect_engine``)."""
+        ls = tuple(int(l) for l in ls)
+        N = int(N)
+        acc, vals, inputs, valid = None, [], [], []
+        for _base, inp, outs, ok, part in self._chunks(ls, seed, N):
+            acc = part if acc is None else add_sums(acc, part)
+            vals.append(outs)
+            inputs.append(flat_inputs(inp))
+            valid.append(ok)
+        return acc, torch.cat(vals), torch.cat(inputs), torch.cat(valid)

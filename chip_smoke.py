@@ -23,7 +23,28 @@ Phases (any failure raises, so the exit code is non-zero):
      its error bar and against MLBLUE's, each path's model evaluations
      counted through K1 -- then complexity_test([2 eps*, eps*, eps*/2])
      (rate in [1.9, 2.1]) and variance_test(eps=2 eps*, N=20)
-     (err/err_ex in [0.5, 1.6]).
+     (err/err_ex in [0.5, 1.6]);
+  6. user models on the card, each part timed:
+     (a) Matern 2D at its default grids (64, 32, 16, 8), f64: 4096-sample
+         pilot, setup_solver(K=4, eps) and solve(); the card's outputs
+         against the CPU's on the same white noise (<= 1e-12 relative) and
+         the estimates against a 2^17-sample MC estimate of model 0;
+     (b) Hodgkin-Huxley, all 12 models and 5 outputs, through the
+         coupled-group engine (chunks of 16384 samples): pilot, the
+         finest model's launches per evaluation (torch.profiler),
+         setup_solver(K=3, budget) and solve(); the card's outputs
+         against the CPU's on the same parameters (<= 1e-8 relative, the
+         CPU parity tests' tolerance) and the estimates against an MC
+         estimate of model 0;
+     (c) snapshots through K1: the flagship problem with a samplefile and
+         outputs_to_save=[0], solve(K=2) at a small budget; every group
+         file holds as many rows as the samples its sums cover, K1 on
+         stored inputs gives the stored outputs bit for bit, and K1's
+         launches in the solve are the kernel line's "snapshots" path;
+     (d) a black-box numpy model with an inf sentinel (models 0 and 1
+         never coupled), host_workers=2: the masked SPG projection
+         converges, no group of setup_solver(K=3, eps) holds 0 and 1, and
+         solve_mc is within 4 error bars of exp(0.5).
 The second-to-last line is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.
 
@@ -36,8 +57,10 @@ leaves it out, so the profiler's cost never enters its other numbers.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 GRIDS = (1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
@@ -60,6 +83,21 @@ OTHER_FLOPS = {4: 67e12, 8: 34e12}
 HBM_BYTES_PER_S = 3.35e12
 K1_SOURCE = "bluest_tpu_torch/csrc/diffusion.cu"
 K1_REPLACES = "bluest_tpu/ops/pallas_diffusion.py:151"
+# phase 6: user models
+DEV = "cuda"
+MATERN_PILOT = 4096
+MATERN_EPS_REL = 0.01       # each output's eps: this x its sd
+MATERN_MC = 1 << 17
+MATERN_MC_CHUNK = 8192
+# the HH integration is bound by launches, not rows: one chunk of 16384
+# samples costs about what one of 1024 does (PERF.md, phase 6 findings)
+HH_BATCH = 16384
+HH_PILOT = 16384
+HH_BUDGET = 2.0e5           # in HH cost units (the cheapest model is 1)
+HH_MC = 16384
+SNAP_BUDGET = 2.0e4
+HOST_PILOT = 1024
+HOST_EPS = 0.02
 
 
 def log(*a):
@@ -592,6 +630,347 @@ def phase_profile(problem):
            ["%s %.3f ms" % (nm[:60], us / 1e3) for nm, us in top]))
 
 
+def _sync():
+    import torch
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def _normwise(got, ref):
+    """max |got - ref| over the rows (dim 0), over max |ref|, worst
+    column."""
+    return float(((got - ref).abs().amax(dim=0)
+                  / ref.abs().amax(dim=0).clamp_min(1e-300)).max())
+
+
+def _check_on_sampling_device(problem):
+    if problem.device.type != DEV:
+        raise AssertionError("%s samples on %s, not on %s"
+                             % (type(problem).__name__, problem.device, DEV))
+
+
+def _within_bars(name, mus, errs, ref, ref_se):
+    """Each estimate within 4 combined error bars of its reference."""
+    import numpy as np
+    mus, errs = np.asarray(mus, float), np.asarray(errs, float)
+    ref, ref_se = np.asarray(ref, float), np.asarray(ref_se, float)
+    z = np.abs(mus - ref) / np.sqrt(errs ** 2 + ref_se ** 2)
+    log("%s: estimates %s errs %s, reference %s se %s, |z| %s"
+        % (name, mus.tolist(), errs.tolist(), ref.tolist(), ref_se.tolist(),
+           z.tolist()))
+    if not (np.all(np.isfinite(mus)) and np.all(errs > 0) and np.all(z <= 4)):
+        raise AssertionError("%s: estimates not within 4 error bars of the "
+                             "reference" % name)
+
+
+def phase_matern(times):
+    """6(a): Matern 2D at its default grids, f64, on the default device."""
+    import numpy as np
+    import torch
+    from bluest_tpu_torch.models.matern2d import Matern2DProblem
+    t0 = time.perf_counter()
+    p = Matern2DProblem(covariance_estimation_samples=MATERN_PILOT,
+                        verbose=False)
+    _sync()
+    times["matern_pilot_s"] = time.perf_counter() - t0
+    _check_on_sampling_device(p)
+    if p.grids != (64, 32, 16, 8) or p.dtype != torch.float64:
+        raise AssertionError("Matern2DProblem defaults changed: %s %s"
+                             % (p.grids, p.dtype))
+
+    w = p.sample_inputs(torch.Generator(device=DEV).manual_seed(3), 256)
+    worst = max(_normwise(p.evaluate_model(l, w).cpu(),
+                          p.evaluate_model(l, w.cpu()))
+                for l in range(p.M))
+    log("Matern card vs CPU, same white noise, 256 samples x 4 models: max "
+        "normwise rel diff %.3e" % worst)
+    if not worst <= 1e-12:
+        raise AssertionError("Matern card vs CPU %.3e > 1e-12" % worst)
+
+    eps = [MATERN_EPS_REL * float(np.sqrt(p.get_covariance(n)[0, 0]))
+           for n in range(p.n_outputs)]
+    t0 = time.perf_counter()
+    p.setup_solver(K=4, eps=eps)
+    times["matern_setup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mus, errs, cost = p.solve(K=4, eps=eps)
+    _sync()
+    times["matern_solve_s"] = time.perf_counter() - t0
+    out = p.MOSAP_output
+    log("Matern: pilot %.3f s, setup_solver(K=4, eps=%s) %.3f s (L=%d, "
+        "%d samples), solve %.3f s, cost %.8g"
+        % (times["matern_pilot_s"], eps, times["matern_setup_s"], p.MOSAP.L,
+           int(sum(int(n) for n in out["samples"])),
+           times["matern_solve_s"], cost))
+    if not np.all(np.asarray(errs, float) <= 1.0001 * np.asarray(eps)):
+        raise AssertionError("Matern errs %s above eps %s" % (errs, eps))
+
+    # plain MC of model 0 on the card
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    s1 = torch.zeros(p.n_outputs, dtype=torch.float64, device=DEV)
+    s2 = torch.zeros_like(s1)
+    for _ in range(MATERN_MC // MATERN_MC_CHUNK):
+        q = p.evaluate_model(0, p.sample_inputs(gen, MATERN_MC_CHUNK))
+        s1 += q.sum(dim=0)
+        s2 += (q * q).sum(dim=0)
+    mean = (s1 / MATERN_MC).cpu().numpy()
+    var = (s2 / MATERN_MC).cpu().numpy() - mean ** 2
+    times["matern_mc_s"] = time.perf_counter() - t0
+    log("Matern MC reference: %d samples of model 0 in %.3f s"
+        % (MATERN_MC, times["matern_mc_s"]))
+    _within_bars("Matern MLBLUE vs MC", mus, errs, mean,
+                 np.sqrt(var / MATERN_MC))
+
+
+def _device_kernels(fn):
+    """Device items (kernels, copies) that ``fn`` puts on the card, from
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_hodgkin_huxley(times):
+    """6(b): all 12 Hodgkin-Huxley models through the group engine."""
+    import numpy as np
+    import torch
+    from bluest_tpu_torch.models import hodgkin_huxley as hh
+    from bluest_tpu_torch.sampling.engine import finite_rows
+    t0 = time.perf_counter()
+    p = hh.HodgkinHuxleyProblem(covariance_estimation_samples=HH_PILOT,
+                                device_batch_size=HH_BATCH, verbose=False)
+    _sync()
+    times["hh_pilot_s"] = time.perf_counter() - t0
+    _check_on_sampling_device(p)
+    if p.M != 12 or p.n_outputs != 5 or not p._has_group_model():
+        raise AssertionError("HodgkinHuxleyProblem is not the 12-model, "
+                             "5-output coupled-group family")
+    log("HH pilot: %d samples x 12 models in %.3f s"
+        % (HH_PILOT, times["hh_pilot_s"]))
+
+    # launches per evaluation: the HH RK4 integration at 20 and 40 steps
+    # gives the count per step and the fixed part; the finest model takes
+    # 1000 steps
+    x = p.sample_group(torch.Generator(device=DEV).manual_seed(5), (0,), 256)
+    c20 = _device_kernels(lambda: hh.hh_outputs(0, 0.5, x))
+    c40 = _device_kernels(lambda: hh.hh_outputs(0, 0.25, x))
+    per_step = (c40 - c20) / 20.0
+    finest = c20 + (1000 - 20) * per_step
+    t0 = time.perf_counter()
+    hh.hh_outputs(0, 0.01, x)
+    _sync()
+    t_finest = time.perf_counter() - t0
+    times["hh_finest_launches"] = finest
+    times["hh_finest_s"] = t_finest
+    log("HH finest model (RK4, dt 0.01, 1000 steps): %.0f device launches "
+        "per evaluation (%.2f per RK4 step + %.0f; profiled %d and %d at 20 "
+        "and 40 steps), %.3f s per evaluation of 256 samples"
+        % (finest, per_step, c20 - 20 * per_step, c20, c40, t_finest))
+
+    # card vs CPU on the same sampled parameters
+    t0 = time.perf_counter()
+    ls = tuple(range(p.M))
+    x = p.sample_group(torch.Generator(device=DEV).manual_seed(6), ls, 64)
+    got = p.evaluate_group(ls, x).cpu()
+    ref = p.evaluate_group(ls, x.cpu())
+    times["hh_check_s"] = time.perf_counter() - t0
+    fin = finite_rows(ref)
+    if not torch.equal(finite_rows(got), fin):
+        raise AssertionError("HH card and CPU differ in their failing rows")
+    worst = _normwise(got[fin].flatten(1), ref[fin].flatten(1))
+    log("HH card vs CPU, same parameters, 64 samples x 12 models: %d rows "
+        "finite in every model, max normwise rel diff %.3e (%.3f s)"
+        % (int(fin.sum()), worst, times["hh_check_s"]))
+    if int(fin.sum()) == 0 or not worst <= 1e-8:
+        raise AssertionError("HH card vs CPU %.3e > 1e-8" % worst)
+
+    t0 = time.perf_counter()
+    p.setup_solver(K=3, budget=HH_BUDGET)
+    times["hh_setup_s"] = time.perf_counter() - t0
+    out = p.MOSAP_output
+    active = [(list(g), int(n)) for g, n in zip(out["flattened_groups"],
+                                                out["samples"]) if n > 0]
+    t0 = time.perf_counter()
+    mus, errs, cost = p.solve(K=3, budget=HH_BUDGET)
+    _sync()
+    times["hh_solve_s"] = time.perf_counter() - t0
+    log("HH: setup_solver(K=3, budget=%.6g) %.3f s (L=%d), %d active groups "
+        "%s, solve %.3f s, cost %.8g"
+        % (HH_BUDGET, times["hh_setup_s"], p.MOSAP.L, len(active), active,
+           times["hh_solve_s"], cost))
+
+    # MC of model 0 (every draw finite: RK4 at dt 0.01 is stable)
+    t0 = time.perf_counter()
+    q = hh.hh_outputs(0, 0.01, p.sample_group(
+        torch.Generator(device=DEV).manual_seed(7), (0,), HH_MC))
+    if not bool(torch.isfinite(q).all()):
+        raise AssertionError("HH model 0 gave non-finite outputs")
+    q = q.cpu().numpy()
+    times["hh_mc_s"] = time.perf_counter() - t0
+    log("HH MC reference: %d samples of model 0 in %.3f s"
+        % (HH_MC, times["hh_mc_s"]))
+    _within_bars("HH MLBLUE vs MC", np.asarray(mus, float).ravel(),
+                 np.asarray(errs, float).ravel(), q.mean(axis=0),
+                 q.std(axis=0) / np.sqrt(HH_MC))
+
+
+def phase_snapshots(times, launches_by_path):
+    """6(c): the flagship with a samplefile: snapshots through K1."""
+    import glob
+    import numpy as np
+    import torch
+    from bluest_tpu_torch.models.diffusion import DiffusionProblem
+    from bluest_tpu_torch.ops import diffusion as k1
+    with tempfile.TemporaryDirectory() as d:
+        target = os.path.join(d, "snap.npz")
+        t0 = time.perf_counter()
+        p = DiffusionProblem(
+            grids=GRIDS, n_kl=N_KL, sigma=SIGMA, nu=NU, multi_output=True,
+            covariance_estimation_samples=PILOT, dtype=torch.float32,
+            device_batch_size=BATCH, samplefile=target, outputs_to_save=[0],
+            verbose=False)
+        _sync()
+        times["snap_pilot_s"] = time.perf_counter() - t0
+        _check_on_sampling_device(p)
+        t0 = time.perf_counter()
+        p.setup_solver(K=2, budget=SNAP_BUDGET)
+        times["snap_setup_s"] = time.perf_counter() - t0
+        out = p.MOSAP_output
+        groups = [list(g) for g, n in zip(out["flattened_groups"],
+                                          out["samples"]) if n > 0]
+        ns = [int(n) for n in out["samples"] if n > 0]
+        k1.diffusion_outputs.launches = 0
+        t0 = time.perf_counter()
+        mus, errs, cost = p.solve(K=2, budget=SNAP_BUDGET)
+        _sync()
+        times["snap_solve_s"] = time.perf_counter() - t0
+        launches = k1.diffusion_outputs.launches
+        launches_by_path["snapshots"] = launches
+        need = _chunk_evals(groups, ns)
+        log("snapshots: pilot %.3f s, setup_solver(K=2, budget=%.6g) %.3f s, "
+            "solve %.3f s, %d groups, %d samples, K1 launches %d (chunk "
+            "evaluations %d)"
+            % (times["snap_pilot_s"], SNAP_BUDGET, times["snap_setup_s"],
+               times["snap_solve_s"], len(groups), sum(ns), launches, need))
+        if not launches >= need > 0:
+            raise AssertionError("snapshots: K1 launched %d times for %d "
+                                 "chunk evaluations" % (launches, need))
+        if not np.all(np.isfinite(np.asarray(mus, float))):
+            raise AssertionError("snapshots: non-finite estimates")
+
+        files = sorted(glob.glob(os.path.join(d, "snap*.npz")))
+        seen = set()
+        for f in files:
+            with np.load(f) as z:
+                ls = tuple(int(l) for l in z["models"][0])
+                n = int(z["n_samples"][0])
+                rows = {k: z[k].shape[0] for k in z.files
+                        if k.startswith(("values_", "inputs_"))}
+            seen.add(ls)
+            if ls not in p.sampling_stats:
+                raise AssertionError("snapshot %s of a group that was not "
+                                     "sampled" % os.path.basename(f))
+            covered = p.sampling_stats[ls]["samples"]
+            if not (n == covered and set(rows.values()) == {n}
+                    and len(rows) == 2 * len(ls)):
+                raise AssertionError(
+                    "snapshot %s: n_samples %d, rows %s, samples covered %d"
+                    % (os.path.basename(f), n, rows, covered))
+        if seen != set(p.sampling_stats):
+            raise AssertionError("groups sampled without a snapshot: %s"
+                                 % sorted(set(p.sampling_stats) - seen))
+        log("snapshots: %d group files, rows equal the samples covered in "
+            "each (%d rows in all)"
+            % (len(files), sum(s["samples"]
+                               for s in p.sampling_stats.values())))
+
+        # K1 on stored inputs reproduces the stored outputs bit for bit
+        big = max(groups, key=len)
+        from bluest_tpu_torch.sampling.snapshots import snapshot_filename
+        with np.load(snapshot_filename(target, big)) as z:
+            for i, l in enumerate(big):
+                xi = torch.as_tensor(z["inputs_%d" % i][:64], device=DEV)
+                q = p.evaluate_model(l, xi)[:, 0].cpu().numpy()
+                if not np.array_equal(q, z["values_0_%d" % i][:64]):
+                    raise AssertionError(
+                        "K1 on stored inputs of model %d differs from the "
+                        "stored outputs" % l)
+        log("snapshots: K1 on 64 stored inputs of group %s gives the stored "
+            "outputs bit for bit" % big)
+
+
+def phase_host_model(times):
+    """6(d): a black-box numpy model with an inf sentinel, two workers."""
+    import numpy as np
+    from bluest_tpu_torch.linalg.spd import project_covariance_masked
+    from bluest_tpu_torch.models.analytic import (TRUE_MEAN,
+                                                  ExpSeriesHostProblem)
+    C = np.full((5, 5), np.nan)
+    C[0, 1] = C[1, 0] = np.inf
+    t0 = time.perf_counter()
+    p = ExpSeriesHostProblem(5, C=C, covariance_estimation_samples=HOST_PILOT,
+                             host_workers=2, sample_batch_size=256,
+                             skip_projection=True, verbose=False)
+    times["host_pilot_s"] = time.perf_counter() - t0
+    if p._has_torch_model() or p._engine is not None:
+        raise AssertionError("the black-box model took a device path")
+    Cp = p.get_covariance(0)
+    spg = p.params["spg_params"]
+    t0 = time.perf_counter()
+    _, err, res = project_covariance_masked(
+        Cp, (~np.isnan(Cp)).astype(float), spd_eps=spg["spd_threshold"],
+        spg_eps=spg["eps"], maxit=spg["maxit"], max_fevals=spg["max_fevals"])
+    p.project_covariances()
+    p.check_graphs(remove_uncorrelated=p.params["remove_uncorrelated"])
+    times["host_projection_s"] = time.perf_counter() - t0
+    log("host model: pilot (%d samples, 2 workers) %.3f s; masked SPG: "
+        "solver_info %d, %d iterations, error %.3e, %.3f s"
+        % (HOST_PILOT, times["host_pilot_s"], res.solver_info, res.it, err,
+           times["host_projection_s"]))
+    if res.solver_info != 0 or not np.isnan(p.get_covariance(0)[0, 1]):
+        raise AssertionError("masked SPG projection did not converge, or "
+                             "lost the never-coupled pair")
+    t0 = time.perf_counter()
+    out = p.setup_solver(K=3, eps=HOST_EPS)
+    times["host_setup_s"] = time.perf_counter() - t0
+    both = [g for g in out["models"] if {0, 1} <= set(g)]
+    if both:
+        raise AssertionError("groups couple models 0 and 1: %s" % both)
+    t0 = time.perf_counter()
+    mus, errs, cost = p.solve_mc(eps=HOST_EPS)
+    times["host_mc_s"] = time.perf_counter() - t0
+    log("host model: setup_solver(K=3, eps=%g) %.3f s, %d groups, none "
+        "holding 0 and 1; solve_mc %.3f s, cost %.6g"
+        % (HOST_EPS, times["host_setup_s"], len(out["models"]),
+           times["host_mc_s"], cost))
+    _within_bars("host model MC vs exp(0.5)", mus, errs, [TRUE_MEAN], [0.0])
+
+
+def phase_user_models(launches_by_path):
+    """Phase 6: every part raises on failure; nothing is caught."""
+    times = {}
+    t0 = time.perf_counter()
+    for name, run in (("a", lambda: phase_matern(times)),
+                      ("b", lambda: phase_hodgkin_huxley(times)),
+                      ("c", lambda: phase_snapshots(times, launches_by_path)),
+                      ("d", lambda: phase_host_model(times))):
+        t = time.perf_counter()
+        run()
+        times["part_%s_s" % name] = time.perf_counter() - t
+        log("phase 6(%s): %.3f s" % (name, times["part_%s_s" % name]))
+    log("phase 6: %.3f s; %s" % (time.perf_counter() - t0,
+                                 json.dumps({k: round(v, 6)
+                                             for k, v in times.items()})))
+    return times
+
+
 def main():
     import torch
     name = phase_device()
@@ -602,6 +981,7 @@ def main():
     if "--profile" in sys.argv[1:]:
         phase_profile(f["problem"])
     phase_target_rmse(f["problem"], launches_by_path)
+    phase_user_models(launches_by_path)
     print(json.dumps({"kernels": [{
         "name": "diffusion_outputs", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,

@@ -1,4 +1,6 @@
-"""K1 on the card: the compiled kernel against its plain version.
+"""The port on the card: K1 against its plain version, the user models'
+card outputs against their CPU outputs, the group engine's resample and
+the snapshot-collecting path through K1.
 
 These tests need a CUDA card and nvcc; without a card they skip.  They
 import neither jax nor the JAX package, so they also run on a machine
@@ -125,3 +127,107 @@ def test_problem_model_path_uses_kernel(cuda):
     torch.cuda.synchronize()
     assert k1.diffusion_outputs.launches == before + 1
     assert out.shape == (100, 3) and out.is_cuda
+
+
+def _normwise(got, ref):
+    """max |got - ref| over the rows, over max |ref|, worst output."""
+    return float(((got - ref).abs().amax(dim=0)
+                  / ref.abs().amax(dim=0).clamp_min(1e-300)).max())
+
+
+@pytest.mark.gpu
+def test_matern2d_card_matches_cpu(cuda):
+    """The same white noise gives the same QoIs on the card and on the
+    CPU, <= 1e-12 relative in f64, at the default grids."""
+    from bluest_tpu_torch.models.matern2d import Matern2DProblem
+    p = Matern2DProblem(C=[np.eye(4) + 0.5] * 3, verbose=False, device=cuda)
+    w = p.sample_inputs(torch.Generator(device=cuda).manual_seed(0), 64)
+    assert w.shape == (64, 64, 64) and w.dtype == torch.float64
+    for l in range(p.M):
+        got = p.evaluate_model(l, w)
+        assert got.is_cuda and got.shape == (64, 3)
+        assert _normwise(got.cpu(), p.evaluate_model(l, w.cpu())) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,dt", [(0, 0.08), (1, 0.08), (2, 0.08),
+                                     (0, 0.01)])
+def test_hodgkin_huxley_card_matches_cpu(cuda, kind, dt):
+    """The same parameters give the same outputs on the card and on the
+    CPU, <= 1e-8 relative (the CPU parity tests' tolerance against JAX),
+    with the same rows non-finite."""
+    from bluest_tpu_torch.models import hodgkin_huxley as hh
+    p = hh.HodgkinHuxleyProblem(C=[np.eye(12) + 0.5] * 5, verbose=False,
+                                device=cuda)
+    x = p.sample_group(torch.Generator(device=cuda).manual_seed(kind), (0,),
+                       64)
+    got = hh.hh_outputs(kind, dt, x).cpu()
+    ref = hh.hh_outputs(kind, dt, x.cpu())
+    fin = torch.isfinite(ref).all(dim=1)
+    assert torch.equal(torch.isfinite(got).all(dim=1), fin)
+    assert int(fin.sum()) > 0
+    assert _normwise(got[fin], ref[fin]) <= 1e-8
+
+
+@pytest.mark.gpu
+def test_group_engine_resample_on_card(cuda):
+    """The per-row resample on the card: the first draw's finite rows are
+    kept bit for bit, every row ends finite, and the sums are the
+    combiner's on the collected rows."""
+    from bluest_tpu_torch.sampling.engine import combine, finite_rows
+    from bluest_tpu_torch.sampling.group_engine import GroupEngine
+
+    def sample_group(gen, ls, n):
+        return torch.randn(n, generator=gen, dtype=torch.float64,
+                           device=cuda)
+
+    def evaluate_group(ls, z):
+        out = torch.stack([torch.exp(z) / (1.0 + l) for l in ls],
+                          dim=1)[:, None]
+        return torch.where(z[:, None, None] > 1.0, torch.nan, out)
+
+    eng = GroupEngine(sample_group, evaluate_group, 1, 4096, cuda)
+    ls = (0, 1, 2)
+    sums, vals, z, ok = eng.collect(ls, 5, 10000)
+    assert bool(ok.all()) and int(sums.n_failed) == 0
+    assert vals.is_cuda and bool(finite_rows(vals).all())
+    assert bool((z[:, 0] <= 1.0).all())
+    z0 = sample_group(torch.Generator(device=cuda).manual_seed(5), ls, 4096)
+    good = z0 <= 1.0
+    assert 0 < int((~good).sum()) < 4096
+    assert torch.equal(z[:4096, 0][good], z0[good])
+    for g, r in zip(sums, combine(vals.movedim(2, 0), 0, 10000)):
+        assert torch.allclose(g, r, rtol=1e-12, atol=0)
+
+
+@pytest.mark.gpu
+def test_factored_collect_through_kernel(cuda, tmp_path):
+    """DiffusionProblem with a samplefile on the card: the collect path
+    launches K1, the snapshot rows equal the samples the sums cover, and
+    K1 on the stored inputs gives the stored outputs bit for bit."""
+    from bluest_tpu_torch.models.diffusion import DiffusionProblem
+    p = DiffusionProblem(grids=(64, 16, 4), n_kl=8, sigma=SIGMA, nu=NU,
+                         multi_output=True, verbose=False,
+                         C=[np.eye(3) + 0.5] * 3, device=cuda,
+                         dtype=torch.float32, device_batch_size=100,
+                         samplefile=str(tmp_path / "d.npz"),
+                         outputs_to_save=[0, 2])
+    before = k1.diffusion_outputs.launches
+    se = p.blue_fn([0, 2], 250)[0]
+    torch.cuda.synchronize()
+    assert k1.diffusion_outputs.launches - before >= 2 * 3
+    with np.load(str(tmp_path / "d02.npz")) as d:
+        assert int(d["n_samples"][0]) == 250
+        xi = d["inputs_0"]
+        vals = {k: d[k] for k in d.files if k.startswith("values_")}
+    assert xi.shape == (250, 8) and xi.dtype == np.float32
+    assert sorted(vals) == ["values_0_0", "values_0_1", "values_2_0",
+                            "values_2_1"]
+    x = torch.as_tensor(xi[:17], device=cuda)
+    for i, l in enumerate((0, 2)):
+        out = p.evaluate_model(l, x).cpu().numpy()
+        np.testing.assert_array_equal(out[:, 0], vals["values_0_%d" % i][:17])
+        np.testing.assert_array_equal(out[:, 2], vals["values_2_%d" % i][:17])
+        assert se[0][i] == pytest.approx(
+            float(vals["values_0_%d" % i].astype(np.float64).sum()),
+            rel=1e-9)

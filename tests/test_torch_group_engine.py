@@ -1,0 +1,334 @@
+"""The coupled-group engine and the snapshot-collecting paths.
+
+  * group-engine sums equal ``combine`` on the same rows;
+  * the per-row resample redraws only the failing rows: the finite rows
+    of the first draw keep their inputs and outputs bit for bit, the
+    redrawn ones are the next draws of the same generator, and the run
+    ends with n_failed == 0;
+  * vector outputs (n, No, L, d) with the dot product;
+  * the collect variants (group and factored): snapshot rows equal the
+    samples the sums cover -- the accepted draws' inputs, with the
+    top-up rounds written through one sink -- over several
+    ``_COLLECT_CHUNK`` chunks (a small override here), in the JAX
+    package's npz layout;
+  * the coupled-group kind runs every estimator.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from bluest_tpu_torch import BLUEProblem
+from bluest_tpu_torch.models.analytic import TRUE_MEAN, ExpSeriesProblem
+from bluest_tpu_torch.sampling.engine import combine, finite_rows
+from bluest_tpu_torch.sampling.group_engine import GroupEngine
+
+torch.set_num_threads(1)
+F64 = torch.float64
+
+
+def _series(z, terms):
+    ii = torch.arange(terms + 1, dtype=F64)
+    return (z[:, None] ** ii / torch.exp(torch.lgamma(ii + 1.0))).sum(1)
+
+
+class GroupSeries(BLUEProblem):
+    """The tutorial hierarchy as a coupled-group model, with an input
+    tuple (z, shift); rows with z > ``fail_above`` give NaN."""
+
+    fail_above = float("inf")
+
+    def sample_group(self, generator, ls, n):
+        z = torch.randn(n, generator=generator, dtype=F64, device=self.device)
+        return z, torch.full((n, 2), 0.5, dtype=F64, device=self.device)
+
+    def evaluate_group(self, ls, inputs):
+        z, shift = inputs
+        cols = [torch.exp(z) if l == 0 else _series(z, self.M - l)
+                for l in ls]
+        out = torch.stack(cols, dim=1)[:, None, :] + 0 * shift[:, :1, None]
+        return torch.where(z[:, None, None] > self.fail_above,
+                           torch.full_like(out, float("nan")), out)
+
+
+class FlakyGroup(GroupSeries):
+    fail_above = 1.0
+
+
+def _engine(p, **kw):
+    return GroupEngine(p.sample_group, p.evaluate_group, p.n_outputs,
+                       kw.pop("batch", 7), "cpu", **kw)
+
+
+def _problem(cls=GroupSeries, M=3, **kw):
+    return cls(M, C=np.eye(M) + 0.5, costs=2.0 ** -np.arange(M),
+               device="cpu", verbose=False, **kw)
+
+
+def test_group_sums_equal_combine_on_the_same_rows():
+    p = _problem()
+    eng = _engine(p)
+    ls, N, seed = (0, 2), 30, 1234
+    sums = eng.sample_sums(ls, seed, N)
+    gen = torch.Generator().manual_seed(seed)
+    rows = []
+    for base in range(0, N, 7):
+        rows.append(p.evaluate_group(ls, p.sample_group(gen, ls,
+                                                        min(7, N - base))))
+    ref = combine(torch.cat(rows).movedim(2, 0), 0, N)
+    for g, r in zip(sums, ref):
+        assert torch.equal(g, r) or torch.allclose(g, r, rtol=1e-13,
+                                                   atol=0)
+    assert int(sums.n_failed) == 0
+
+
+def test_per_row_resample_keeps_finite_rows():
+    p = _problem(FlakyGroup)
+    sizes = []
+
+    def sample_group(generator, ls, n):
+        sizes.append(n)
+        return p.sample_group(generator, ls, n)
+
+    eng = GroupEngine(sample_group, p.evaluate_group, p.n_outputs, 64, "cpu")
+    ls, seed = (0, 1, 2), 77
+    sums, vals, inputs, ok = eng.collect(ls, seed, 64)
+    assert bool(ok.all()) and int(sums.n_failed) == 0
+    assert bool(finite_rows(vals).all())
+    gen = torch.Generator().manual_seed(seed)
+    z0, s0 = p.sample_group(gen, ls, 64)
+    first = p.evaluate_group(ls, (z0, s0))
+    good = finite_rows(first)
+    assert 0 < int((~good).sum()) < 64         # some rows were redrawn
+    assert torch.equal(vals[good], first[good])
+    assert torch.equal(inputs[good, 0], z0[good])
+    # the failing rows, in row order, take the finite ones of the next
+    # draws of the same generator, in draw order; the round draws the
+    # deficit over the finite share with a margin, so one round covers it
+    bad = torch.nonzero(~good).flatten()
+    assert sizes[0] == 64 and len(sizes) == 2
+    assert sizes[1] == eng.redraw_rows(bad.numel(), 64, int(good.sum()))
+    assert sizes[1] > bad.numel()
+    z1, _ = p.sample_group(gen, ls, sizes[1])
+    fin1 = z1[z1 <= p.fail_above]
+    assert fin1.numel() >= bad.numel()
+    assert torch.equal(inputs[bad, 0], fin1[:bad.numel()])
+    assert torch.all(inputs[:, 0] <= p.fail_above)
+    assert torch.equal(inputs[:, 1:], torch.full((64, 2), 0.5, dtype=F64))
+    ref = combine(vals.movedim(2, 0), 0, 64)
+    for g, r in zip(sums, ref):
+        assert torch.allclose(g, r, rtol=1e-13, atol=0)
+
+
+def test_resample_rounds_are_bounded():
+    """A group that never gives a finite row stops after max_resample
+    rounds, each drawing at most 4 batches, and counts every row failed."""
+    p = _problem(GroupSeries)
+    sizes = []
+
+    def sample_group(generator, ls, n):
+        sizes.append(n)
+        return p.sample_group(generator, ls, n)
+
+    def evaluate_group(ls, inputs):
+        return torch.full((inputs[0].shape[0], 1, len(ls)), float("nan"),
+                          dtype=F64)
+
+    eng = GroupEngine(sample_group, evaluate_group, 1, 8, "cpu",
+                      max_resample=3)
+    sums = eng.sample_sums((0, 1), 5, 10)
+    assert int(sums.n_failed) == 10
+    assert sizes == [8, 32, 32, 32, 2, 32, 32, 32]
+    assert eng.redraw_rows(5, 10, 5) == 13           # 1.25 * 5 / 0.5
+    assert eng.redraw_rows(5, 10, 10) == 7           # at least n_bad
+    assert eng.redraw_rows(100, 10, 10) == 100       # never below n_bad
+
+
+def test_no_resample_masks_and_counts():
+    p = _problem(FlakyGroup)
+    sums = _engine(p, max_resample=0).sample_sums((0, 1), 5, 200)
+    assert 10 < int(sums.n_failed) < 60        # P(z > 1) ~ 0.16
+    # through the problem, the top-up covers N finite samples
+    p.params["max_resample"] = 0
+    se = p.blue_fn([0, 1], 200)[0]
+    assert p.sampling_stats[(0, 1)]["samples"] == 200
+    assert np.isfinite(se[0][0])
+
+
+class VecGroup(BLUEProblem):
+    D = 4
+
+    def sample_group(self, generator, ls, n):
+        return torch.randn(n, generator=generator, dtype=F64)
+
+    def evaluate_group(self, ls, z):
+        k = torch.arange(self.D, dtype=F64)
+        cols = [torch.sin(z[:, None] + k) / (1.0 + 0.1 * l) for l in ls]
+        return torch.stack(cols, dim=1)[:, None]           # (n, 1, L, D)
+
+    def get_models_inner_products(self):
+        return [lambda a, b: np.dot(a, b)]
+
+
+def test_vector_outputs_group_engine():
+    """Array-valued QoIs through the group engine with the dot product
+    (the JAX package's tests/test_problem_e2e.py vector case)."""
+    p = VecGroup(3, costs=np.array([4.0, 2.0, 1.0]), device="cpu",
+                 covariance_estimation_samples=2048, verbose=False)
+    C = p.get_covariance()
+    assert np.all(np.isfinite(np.diag(C))) and C[0, 0] > 0
+    eps = 0.05 * np.sqrt(C[0, 0])
+    mus, errs, _ = p.solve(K=2, eps=eps)
+    mu = np.asarray(mus[0])
+    assert mu.shape == (VecGroup.D,)
+    ref = np.sin(np.arange(VecGroup.D)) * np.exp(-0.5)
+    np.testing.assert_allclose(mu, ref, atol=6 * max(errs[0], 0.05))
+    s = _engine(p).sample_sums((0, 2), 3, 20)
+    assert s.sumse.shape == (1, 2, VecGroup.D)
+    assert s.sumsd1.shape == (1, 2, 2, VecGroup.D)
+
+
+def _snap(path):
+    with np.load(path, allow_pickle=True) as d:
+        return {k: d[k] for k in d.files}
+
+
+def _check_file(p, path, ls, N):
+    """Rows == the samples the sums cover, and each stored row is the
+    model's output on its stored input."""
+    d = _snap(path)
+    assert list(d["models"][0]) == list(ls)
+    assert int(d["n_samples"][0]) == N == p.sampling_stats[tuple(ls)][
+        "samples"]
+    for i in range(len(ls)):
+        assert d["values_0_%d" % i].shape[0] == N
+        assert d["inputs_%d" % i].shape[0] == N
+    return d
+
+
+@pytest.mark.parametrize("cls", [GroupSeries, FlakyGroup])
+def test_group_collect_over_chunks(tmp_path, cls):
+    p = _problem(cls, max_resample=2)
+    p._COLLECT_CHUNK = 16
+    p.params["samplefile"] = str(tmp_path / "g.npz")
+    ls, N = (0, 2), 50
+    se, sc, _ = p.blue_fn(list(ls), N)
+    d = _check_file(p, str(tmp_path / "g02.npz"), ls, N)
+    z = torch.as_tensor(d["inputs_0"][:, 0])
+    shift = torch.as_tensor(d["inputs_0"][:, 1:])
+    vals = p.evaluate_group(ls, (z, shift))[:, 0]
+    for i in range(2):
+        np.testing.assert_array_equal(d["values_0_%d" % i],
+                                      vals[:, i].numpy())
+        assert se[0][i] == pytest.approx(float(vals[:, i].sum()),
+                                         rel=1e-12)
+    assert sc[0][0, 1] == pytest.approx(float((vals[:, 0] * vals[:, 1])
+                                              .sum()), rel=1e-12)
+
+
+class FlakyFactored(ExpSeriesProblem):
+    def evaluate_model(self, l, z):
+        out = super().evaluate_model(l, z)
+        return torch.where(z[:, None] > 1.0, torch.nan, out)
+
+
+@pytest.mark.parametrize("cls", [ExpSeriesProblem, FlakyFactored])
+def test_factored_collect(tmp_path, cls):
+    """The factored engine's collect mode: non-finite rows are dropped
+    from the snapshot and the top-up rows reach it, so the rows equal
+    the covered samples."""
+    p = cls(3, C=np.eye(3) + 0.5, device="cpu", verbose=False,
+            device_batch_size=16, samplefile=str(tmp_path / "f.npz"))
+    ls, N = (0, 1, 2), 60
+    se = p.blue_fn(list(ls), N)[0]
+    d = _check_file(p, str(tmp_path / "f012.npz"), ls, N)
+    z = torch.as_tensor(d["inputs_0"][:, 0])
+    for i, l in enumerate(ls):
+        v = ExpSeriesProblem.evaluate_model(p, l, z)[:, 0].numpy()
+        np.testing.assert_array_equal(d["values_0_%d" % i], v)
+        assert se[0][i] == pytest.approx(float(v.sum()), rel=1e-12)
+        np.testing.assert_array_equal(d["inputs_%d" % i], d["inputs_0"])
+
+
+def test_device_snapshot_layout_matches_jax(tmp_path):
+    """A device-engine snapshot has the JAX package's keys, dtypes and
+    shapes (the streams differ, so not its values), and the two packages
+    append to each other's file."""
+    from bluest_tpu.models.analytic import ExpSeriesMultiProblem as J
+    from bluest_tpu_torch.models.analytic import ExpSeriesMultiProblem as T
+    kw = dict(C=[np.eye(3) + 0.5] * 2, costs=np.array([4.0, 2.0, 1.0]),
+              verbose=False, outputs_to_save=[1])
+    pt = T(3, device="cpu", samplefile=str(tmp_path / "t.npz"), **kw)
+    pj = J(3, samplefile=str(tmp_path / "j.npz"), **kw)
+    pt.blue_fn([0, 2], 40)
+    pj.blue_fn([0, 2], 40)
+    a, b = _snap(str(tmp_path / "t02.npz")), _snap(str(tmp_path / "j02.npz"))
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert (a[k].dtype, a[k].shape) == (b[k].dtype, b[k].shape), k
+    pt.params["samplefile"] = str(tmp_path / "j.npz")
+    pt.blue_fn([0, 2], 10)
+    pj.params["samplefile"] = str(tmp_path / "t.npz")
+    pj.blue_fn([0, 2], 10)
+    for f in ("t02.npz", "j02.npz"):
+        d = _snap(str(tmp_path / f))
+        assert int(d["n_samples"][0]) == 50
+        assert all(d[k].shape[0] == 50 for k in d
+                   if k.startswith(("values", "inputs")))
+
+
+def test_spill_path_streams_through_the_spool(tmp_path, monkeypatch):
+    """Past the spill threshold the sink spools to disk next to the
+    samplefile; the file is the same as the in-memory path's."""
+    files = {}
+    for spill in ("0", "0.0001"):
+        monkeypatch.setenv("BLUEST_TPU_SNAPSHOT_SPILL_MB", spill)
+        d = tmp_path / ("s" + spill.replace(".", ""))
+        d.mkdir()
+        p = _problem(samplefile=str(d / "s.npz"))
+        p._COLLECT_CHUNK = 16
+        p.blue_fn([0, 1], 40)
+        files[spill] = _snap(str(d / "s01.npz"))
+        assert not [f for f in os.listdir(d) if "snapspool" in f]
+    a, b = files.values()
+    assert sorted(a) == sorted(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_group_kind_runs_every_estimator():
+    p = GroupSeries(4, costs=2.0 ** -np.arange(4), device="cpu",
+                    covariance_estimation_samples=2048, verbose=False)
+    assert p._has_group_model() and not p._has_factored_model()
+    eps = 0.03
+    p.setup_solver(K=3, eps=eps)
+    runs = {"mlblue": p.solve(K=3, eps=eps), "mc": p.solve_mc(eps=eps),
+            "mlmc": p.solve_mlmc(mlmc_data=p.setup_mlmc(eps=eps)),
+            "mfmc": p.solve_mfmc(mfmc_data=p.setup_mfmc(eps=eps))}
+    for name, (mus, errs, cost) in runs.items():
+        assert abs(float(mus[0]) - TRUE_MEAN) <= 4 * float(errs[0]), name
+        assert float(errs[0]) <= 1.0001 * eps and cost > 0, name
+    assert isinstance(p._engine, GroupEngine)
+
+
+def test_factored_kind_runs_every_estimator():
+    p = ExpSeriesProblem(4, device="cpu", covariance_estimation_samples=2048,
+                         verbose=False)
+    eps = 0.03
+    runs = {"mlblue": p.solve(K=3, eps=eps), "mc": p.solve_mc(eps=eps),
+            "mlmc": p.solve_mlmc(eps=eps), "mfmc": p.solve_mfmc(eps=eps)}
+    for name, (mus, errs, cost) in runs.items():
+        assert abs(float(mus[0]) - TRUE_MEAN) <= 4 * float(errs[0]), name
+
+
+def test_unported_parameters_raise():
+    for kw in (dict(mesh="auto"), dict(profile_dir="/nonexistent")):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            _problem(**kw)
+    with pytest.raises(TypeError, match="unknown parameters"):
+        _problem(no_such_parameter=1)
+    p = _problem(comm=object(), sample_batch_size=4, max_resample=3,
+                 host_workers=1, model_workers=1, outputs_to_save=[0])
+    assert p.params["max_resample"] == 3 and p.get_comm() is None

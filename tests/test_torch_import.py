@@ -13,10 +13,20 @@ def test_import_leaves_jax_out():
             "import bluest_tpu_torch as bt\n"
             "import bluest_tpu_torch.models, bluest_tpu_torch.sampling\n"
             "import bluest_tpu_torch.estimators.closed_forms\n"
+            "import bluest_tpu_torch.progress, bluest_tpu_torch.parallel\n"
+            "import bluest_tpu_torch.parallel.hostcomm\n"
+            "import bluest_tpu_torch.linalg.spg, bluest_tpu_torch.linalg.spd\n"
+            "import bluest_tpu_torch.sampling.snapshots\n"
+            "import bluest_tpu_torch.sampling.host_engine\n"
+            "import bluest_tpu_torch.sampling.group_engine\n"
+            "import bluest_tpu_torch.models.analytic\n"
+            "import bluest_tpu_torch.models.matern2d\n"
+            "import bluest_tpu_torch.models.hodgkin_huxley\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert not any(m.startswith('bluest_tpu.') or m == 'bluest_tpu'"
             " for m in sys.modules)\n"
-            "for name in ('BLUEProblem', 'MOSAP', 'SAP', 'BLUESTError'):\n"
+            "for name in ('blue_fn', 'BLUEProblem', 'MOSAP', 'SAP',\n"
+            "             'BLUESTError'):\n"
             "    assert hasattr(bt, name), name\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

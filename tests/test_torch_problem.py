@@ -139,8 +139,10 @@ def test_factored_model_api_with_cost_estimation():
     p.setup_solver(K=2, budget=1e3 * float(p.get_costs().sum()))
     mus, errs, _ = p.solve(K=2, budget=1e3 * float(p.get_costs().sum()))
     assert abs(float(mus[0]) - _Quadratic.b[0]) <= 4 * float(errs[0])
-    with pytest.raises(TypeError):
+    with pytest.raises(NotImplementedError, match="item 14"):
         Quadratic(3, verbose=False, mesh="auto")
+    with pytest.raises(TypeError):
+        Quadratic(3, verbose=False, no_such_parameter=1)
 
 
 def test_default_sampling_device_is_the_card():
