@@ -19,15 +19,19 @@ def _load():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(["make", "-C", _HERE], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
+    # make compares time stamps, so a library older than its source is
+    # rebuilt (into a temporary name, then renamed: several processes may
+    # get here at once)
+    try:
+        subprocess.run(["make", "-C", _HERE], check=True,
+                       capture_output=True, timeout=120)
+    except Exception:
+        if not os.path.exists(_LIB_PATH):
             return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+        lib.bluest_dykstra
+    except (OSError, AttributeError):
         return None
     lib.bluest_enumerate_cliques.restype = ctypes.c_int64
     lib.bluest_enumerate_cliques.argtypes = [
@@ -42,6 +46,10 @@ def _load():
         ctypes.POINTER(ctypes.c_double), ctypes.c_int32,
         ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
         ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8)]
+    dptr = ctypes.POINTER(ctypes.c_double)
+    lib.bluest_dykstra.restype = None
+    lib.bluest_dykstra.argtypes = [dptr, dptr, dptr, dptr, ctypes.c_int32,
+                                   ctypes.c_int32, ctypes.c_int32, dptr, dptr]
     _lib = lib
     return _lib
 
@@ -84,6 +92,26 @@ def corner_filter(lb, ub, base_cost, w, budget, e_rows, e_base,
         cap_rhs.ctypes.data_as(dptr), cap_rows.shape[0],
         keep.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     return keep.astype(bool)
+
+
+def dykstra(x, A, b, nrm2, n_sweeps):
+    """Dykstra projection of ``x`` onto {y >= 0, A y <= b} with the exact
+    feasibility repair (see bluest_native.cpp); ``A`` is (q, L) C-contiguous
+    float64.  Returns a new (L,) array, or None when the shared library is
+    unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(x, dtype=np.float64)
+    q, L = A.shape
+    work = np.empty((q + 2) * L, dtype=np.float64)
+    y = np.empty(L, dtype=np.float64)
+    dptr = ctypes.POINTER(ctypes.c_double)
+    lib.bluest_dykstra(x.ctypes.data_as(dptr), A.ctypes.data_as(dptr),
+                       b.ctypes.data_as(dptr), nrm2.ctypes.data_as(dptr),
+                       q, L, int(n_sweeps), work.ctypes.data_as(dptr),
+                       y.ctypes.data_as(dptr))
+    return y
 
 
 def enumerate_cliques(adj: np.ndarray, max_size: int, nodes=None):

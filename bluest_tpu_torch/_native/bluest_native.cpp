@@ -148,4 +148,56 @@ int64_t bluest_corner_filter(const int64_t* lb, const int64_t* ub, int32_t LL,
     return kept;
 }
 
+// Dykstra projection of x (length L) onto {y >= 0, A_i . y <= b_i} for the
+// q rows of A (row-major, q x L; nrm2[i] = |A_i|^2): n_sweeps alternating
+// sweeps over the orthant and each halfspace with their correction terms,
+// then the exact feasibility repair (clip, and scale the SUPPORT of each
+// still-violated row down to its boundary; rows are elementwise >= 0).
+// The arithmetic follows solvers/spg_alloc.py's capped_projection step by
+// step; work holds (q + 2) * L doubles.
+void bluest_dykstra(const double* x, const double* A, const double* b,
+                    const double* nrm2, int32_t q, int32_t L,
+                    int32_t n_sweeps, double* work, double* y) {
+    double* P = work;                 // q x L halfspace corrections
+    double* p0 = work + (int64_t)q * L;   // orthant correction
+    double* z = p0 + L;
+    for (int64_t j = 0; j < (int64_t)(q + 1) * L; ++j) work[j] = 0.0;
+    for (int32_t j = 0; j < L; ++j) y[j] = x[j];
+    for (int32_t s = 0; s < n_sweeps; ++s) {
+        for (int32_t j = 0; j < L; ++j) {
+            const double zz = y[j] + p0[j];
+            const double yn = zz > 0.0 ? zz : 0.0;
+            p0[j] = zz - yn;
+            y[j] = yn;
+        }
+        for (int32_t i = 0; i < q; ++i) {
+            const double* Ai = A + (int64_t)i * L;
+            double* Pi = P + (int64_t)i * L;
+            double dot = 0.0;
+            for (int32_t j = 0; j < L; ++j) {
+                z[j] = y[j] + Pi[j];
+                dot += Ai[j] * z[j];
+            }
+            double t = dot - b[i];
+            t = (t > 0.0 ? t : 0.0) / nrm2[i];
+            for (int32_t j = 0; j < L; ++j) {
+                const double yn = z[j] - t * Ai[j];
+                Pi[j] = z[j] - yn;
+                y[j] = yn;
+            }
+        }
+    }
+    for (int32_t j = 0; j < L; ++j) y[j] = y[j] > 0.0 ? y[j] : 0.0;
+    for (int32_t i = 0; i < q; ++i) {
+        const double* Ai = A + (int64_t)i * L;
+        double v = 0.0;
+        for (int32_t j = 0; j < L; ++j) v += Ai[j] * y[j];
+        if (v > b[i]) {
+            const double f = b[i] / (v > 1e-300 ? v : 1e-300);
+            for (int32_t j = 0; j < L; ++j)
+                if (Ai[j] > 0.0) y[j] *= f;
+        }
+    }
+}
+
 }  // extern "C"

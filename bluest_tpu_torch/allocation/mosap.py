@@ -14,9 +14,13 @@ candidate race with its KKT screen), with or without per-model caps, and
 the scipy trust-constr NLP both as ``solver="scipy"``/``"ipopt"`` and as
 the fallback when every cone solve fails.
 
-Not ported yet (each raises NotImplementedError naming ROADMAP queue 1
-item 11): the ADMM (``"admm"``/``"scs"``) and SPG (``"spg"``) solver
-families and the opt-in Newton polish (``solver_params={"polish": True}``).
+The cone programs run on either cone backend: the interior-point solver
+(``"sdp"``/``"cvxopt"``/``"cvxpy"``) or the operator-splitting one
+(``"admm"``/``"scs"``, solvers/admm.py).  ``solver="spg"`` is the third
+continuous family (projected spectral gradient on the smoothed
+max-variance, solvers/spg_alloc.py), and ``solver_params={"polish":
+True}`` runs the opt-in active-set Newton polish of an eps-mode point
+(allocation/polish.py).
 """
 
 from __future__ import annotations
@@ -32,10 +36,6 @@ from . import cones
 from . import certificate as certmod
 from .sap import (SAP, _OK_STATUSES, _f64, budget_level_bisection,
                   cone_backend, caps_satisfied, validated_nlp_point)
-
-_NOT_PORTED = ("not ported to bluest_tpu_torch yet (ROADMAP queue 1 item "
-               "11)")
-
 
 class BLUESTError(RuntimeError):
     """Raised when the allocation optimization fails (reference mosap.py:15)."""
@@ -94,6 +94,7 @@ class MOSAP:
         self._sdp_guess = None
         self._ray_cache = {}
         self._ray_certs = {}
+        self.polish_report = None
 
     # ------------------------------------------------------------------ #
 
@@ -186,14 +187,6 @@ class MOSAP:
         projection.  Returns the integer samples (or the continuous point
         with ``continuous_relaxation``); None when the solve failed."""
         budget, eps = self.check_input(budget, eps)
-        if solver in ("admm", "scs", "spg"):
-            raise NotImplementedError("solver=%r is %s" % (solver,
-                                                           _NOT_PORTED))
-        if solver not in ("cvxopt", "cvxpy", "sdp", "scipy", "ipopt"):
-            raise ValueError("solvers available in bluest_tpu_torch: 'sdp' "
-                             "(default), 'scipy'")
-        if solver_params and solver_params.get("polish"):
-            raise NotImplementedError("the Newton polish is " + _NOT_PORTED)
         self.certificates = []
 
         # Budget-mode solutions form a ray: V is homogeneous of degree -1
@@ -217,12 +210,24 @@ class MOSAP:
             samples = self.sdp_solve(budget=budget, eps=eps,
                                      max_model_samples=max_model_samples,
                                      solver_params=solver_params)
-        else:
+        elif solver in ("admm", "scs"):
+            samples = self.sdp_solve(budget=budget, eps=eps,
+                                     max_model_samples=max_model_samples,
+                                     solver_params=solver_params,
+                                     backend="admm")
+        elif solver in ("scipy", "ipopt"):
             samples = self.scipy_solve(budget=budget, eps=eps, x0=x0,
                                        max_model_samples=max_model_samples)
+        elif solver == "spg":
+            samples = self.spg_solve(budget=budget, eps=eps,
+                                     max_model_samples=max_model_samples)
+        else:
+            raise ValueError("solvers available: 'sdp' (default), "
+                             "'admm', 'scipy', 'spg'")
 
         used_fallback = False
-        if samples is None and solver in ("cvxopt", "cvxpy", "sdp"):
+        if samples is None and solver in ("cvxopt", "cvxpy", "sdp",
+                                          "admm", "scs"):
             # robustness fallback: the host NLP solves instances the IPM
             # stalls on (and vice versa)
             used_fallback = True
@@ -248,6 +253,43 @@ class MOSAP:
 
         self.continuous_solution = np.asarray(samples, dtype=float).copy()
         self._continuous_eps = eps   # kkt_certificate's default tolerance
+
+        # opt-in Newton polish (solver_params={"polish": True}): drive
+        # the continuous eps-mode point to ~machine-precision KKT through
+        # the variance closures (allocation/polish.py), with the
+        # coverage rows and any per-model caps in the KKT system.
+        # Opt-in because recorded allocations are raw-solver
+        # numbers; eps-form only.  Per-model caps join the KKT system as
+        # linear rows.
+        if (eps is not None
+                and solver_params and solver_params.get("polish")):
+            from .polish import polish_eps
+            es_p, rhs_p = self.get_max_sample_constraints(
+                max_model_samples)
+            try:
+                r = polish_eps(self, samples, eps, es=es_p or None,
+                               rhs=rhs_p or None)
+            except (FloatingPointError, ValueError):
+                r = None
+            eps_vec = np.broadcast_to(
+                np.atleast_1d(np.asarray(eps, float)),
+                (len(self.mappings),)) if r is not None else None
+            if (r is not None and r["feasibility"] <= 1e-9
+                    # belt-and-suspenders: every output's variance must
+                    # be feasible, not just the polish's active set --
+                    # and under caps, every cap row must hold
+                    and np.all(np.asarray(r["variances"])
+                               <= (1 + 1e-9) * eps_vec ** 2)
+                    and caps_satisfied(r["m"], es_p, rhs_p)
+                    and r["cost"] <= float(
+                        np.asarray(samples, float) @ self.costs)
+                    * (1 + 1e-12)):
+                samples = r["m"]
+                self.continuous_solution = samples.copy()
+                self.polish_report = {
+                    k: r[k] for k in ("cost", "stationarity",
+                                      "feasibility", "complementarity",
+                                      "newton_iters", "converged")}
 
         # complete group sets make the continuous optimum degenerate: walk
         # the diffuse interior point to a sparse vertex first
@@ -300,9 +342,9 @@ class MOSAP:
         return samples
 
     def sdp_solve(self, budget=None, eps=None, max_model_samples=None,
-                  solver_params=None):
+                  solver_params=None, backend="ipm"):
         es, rhs = self.get_max_sample_constraints(max_model_samples)
-        cone_solve, params, allowed = cone_backend("ipm")
+        cone_solve, params, allowed = cone_backend(backend)
         if solver_params:
             params.update({k: v for k, v in solver_params.items()
                            if k in allowed})
@@ -575,13 +617,79 @@ class MOSAP:
                 m = m * budget
             self._sdp_guess = m
 
+    def spg_solve(self, budget=None, eps=None, max_model_samples=None):
+        """Third continuous solver family (projected spectral gradient on
+        the smoothed max-variance, solvers/spg_alloc.py) for
+        cross-validation; eps mode by homogeneity, or budget bisection
+        when per-model caps break the homogeneity reduction."""
+        from ..solvers.spg_alloc import (_cap_arrays,
+                                         solve_budget_spg_multi,
+                                         eps_caps_budget_search)
+        datas = [s.data for s in self.SAPS]
+        es, rhs = self.get_max_sample_constraints(max_model_samples)
+        cr, crhs = _cap_arrays(self.L, es, rhs)
+        if budget is None:
+            # homogeneity reduction with per-output weights eps_n^2:
+            # min max_n V_n/eps_n^2 at a fixed budget + exact rescale is
+            # the min-cost point at the heterogeneous tolerances
+            m0 = solve_budget_spg_multi(
+                datas, self.mappings, self.L, self.costs,
+                10.0 * float(self.costs.sum()),
+                weights=np.asarray(eps, dtype=float) ** 2)
+            if m0 is None:
+                return None
+            m0 = self._feasibility_rescale(m0, eps)
+            if m0 is None:
+                return None
+            if np.all(cr @ m0 <= crhs + 1e-9):   # vacuous when no caps
+                return m0
+
+            def ratio_of(m):
+                m = np.maximum(m, 0)
+                Ksc = 1.0 / max(m.max(), 1e-300)
+                try:
+                    r = max(Ksc * self.SAPS[n].variance(
+                        Ksc * m[self.mappings[n]]) / eps[n] ** 2
+                        for n in range(self.n_outputs))
+                except (AssertionError, np.linalg.LinAlgError):
+                    return np.inf
+                return r if np.isfinite(r) and r > 0 else np.inf
+
+            wts = np.asarray(eps, dtype=float) ** 2
+            return eps_caps_budget_search(
+                lambda B, x0: solve_budget_spg_multi(
+                    datas, self.mappings, self.L, self.costs, B,
+                    weights=wts, cap_rows=cr, cap_rhs=crhs, x0=x0),
+                ratio_of, float(self.costs @ m0))
+        return solve_budget_spg_multi(datas, self.mappings, self.L,
+                                      self.costs, float(budget),
+                                      cap_rows=cr, cap_rhs=crhs)
+
     def _record_continuous(self, samples, eps):
-        """Record an NLP result as the current continuous solution, so a
-        later kkt_certificate() verifies this point."""
+        """Record an alias's result as the current continuous solution, so
+        a later kkt_certificate() verifies this point."""
         if samples is not None:
             self.continuous_solution = np.asarray(samples, float).copy()
             self._continuous_eps = eps
         return samples
+
+    def cvxopt_solve(self, budget=None, eps=None, delta=0.0,
+                     max_model_samples=None, cvxopt_params=None):
+        budget, eps = self.check_input(budget, eps)
+        self.certificates = []
+        return self._record_continuous(
+            self.sdp_solve(budget=budget, eps=eps,
+                           max_model_samples=max_model_samples,
+                           solver_params=cvxopt_params), eps)
+
+    def cvxpy_solve(self, budget=None, eps=None, delta=0.0,
+                    max_model_samples=None, cvxpy_params=None):
+        budget, eps = self.check_input(budget, eps)
+        self.certificates = []
+        return self._record_continuous(
+            self.sdp_solve(budget=budget, eps=eps,
+                           max_model_samples=max_model_samples,
+                           solver_params=cvxpy_params), eps)
 
     def ipopt_solve(self, budget=None, eps=None, x0=None,
                     max_model_samples=None):

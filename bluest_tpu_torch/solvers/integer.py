@@ -1,8 +1,9 @@
-"""Integer rounding of continuous sample allocations (multi-output path).
+"""Integer rounding of continuous sample allocations.
 
-Port of the parts of ``bluest_tpu/solvers/integer.py`` that
-``best_integer_blue_multi`` and the MLMC/MFMC closed forms
-(``best_integer_generic``) run (misc.py:134-413 of the reference): pick
+Port of ``bluest_tpu/solvers/integer.py``: the single-output corner
+search (``best_integer_blue``), the multi-output one
+(``best_integer_blue_multi``) and the generic one the MLMC/MFMC closed
+forms run (``best_integer_generic``; misc.py:134-413 of the reference): pick
 the ~1.2*N largest allocation entries, enumerate all floor/ceil corners
 (2^LL of them), and select the best feasible corner.  The batched
 evaluation -- thousands of (M x M) Hermitian pseudo-inverses -- is one
@@ -92,8 +93,10 @@ def _corner_variances(basephi: np.ndarray, psi_idx: np.ndarray,
     LL, B = ms.shape
     out = []
     for s in range(0, B, _CHUNK):
-        chunk = torch.as_tensor(ms[:, s:s + _CHUNK], dtype=torch.float64,
-                                device=dev)
+        # (a copy: callers hand in reversed column views, and torch takes
+        # no negative strides)
+        chunk = torch.as_tensor(np.ascontiguousarray(ms[:, s:s + _CHUNK]),
+                                dtype=torch.float64, device=dev)
         phis = (bphi[:, None] + pidx @ chunk).T.reshape(-1, M, M)
         out.append(_chunk_var00(phis).cpu().numpy())
     return np.concatenate(out) if out else np.zeros(0)
@@ -291,6 +294,65 @@ def _apply_max_sample_filter(ms, idx, baseval, max_samples_info):
     if len(keep) == 0:
         return None
     return ms[:, keep]
+
+
+def best_integer_blue(sol, psi: np.ndarray, w: np.ndarray, e: np.ndarray,
+                      budget: Optional[float] = None,
+                      eps: Optional[float] = None,
+                      max_samples_info=((), ())):
+    """Single-output BLUE corner search
+    (reference best_closest_integer_solution_BLUE, misc.py:313-382)."""
+    sol = np.asarray(sol, dtype=float)
+    N = int(round(np.sqrt(psi.shape[0])))
+    lb, ub, idx = feasible_integer_bounds(sol, N, e=e)
+    LL = len(idx)
+    if LL > 24:
+        raise ValueError("Too many dimensions to brute-force it")
+
+    ms = corner_matrix(lb, ub)
+    val = np.round(sol).astype(np.int64)
+    baseval = val.copy(); baseval[idx] = 0
+    basephi = psi @ baseval
+    basecost = w @ baseval
+    basee = e @ baseval
+
+    if basee < 1:
+        keep = np.where(basee + e[idx] @ ms >= 1)[0]
+        if len(keep) == 0:
+            return None, np.inf
+        ms = ms[:, keep]
+
+    ms = _apply_max_sample_filter(ms, idx, baseval, max_samples_info)
+    if ms is None:
+        return None, np.inf
+
+    if budget is not None and basecost > budget:
+        return None, np.inf
+
+    costs = basecost + w[idx] @ ms
+    if budget is not None:
+        keep = np.where(costs <= 1.0001 * budget)[0]
+        if len(keep) == 0:
+            return None, np.inf
+        ms = ms[:, keep][:, ::-1]
+    else:
+        ms = ms[:, np.argsort(costs)[::-1]]
+
+    if ms.size == 0:
+        return None, np.inf
+
+    Vs = _corner_variances(basephi, psi[:, idx], ms)
+
+    if budget is not None:
+        i = int(np.argmin(Vs))
+    else:
+        ok = np.where(Vs <= 1.0001 * eps ** 2)[0]
+        if len(ok) == 0:
+            return None, np.inf
+        i = int(ok[-1])  # columns are cost-descending: last feasible = cheapest
+
+    val[idx] = ms[:, i]
+    return val, float(Vs[i])
 
 
 def _multi_helper(sol, psis, w, e, mappings, budget, eps, lb, ub, idx,

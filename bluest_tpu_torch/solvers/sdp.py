@@ -12,14 +12,30 @@ and a Mehrotra predictor-corrector (see the JAX module's docstring for
 the derivation).  The iteration is the JAX package's, step for step; what
 differs is the loop around it: the fused ``lax.while_loop`` program becomes
 a Python loop over eager torch operations on ``allocation_device()``, so
-there is no trace, compile or crash-isolation worker.  Not ported: the
-warm-start cache and the IPM prewarm (both exist to avoid XLA retraces
-and recompiles), and the opt-in Gondzio correctors and f32-GEMM /
-zero-padding knobs of the Woodbury path (all off by default there).
+there is no trace, compile or crash-isolation worker.
+
+Exact re-solves of one cone program (MOSAP rebuilds, repeated
+budget-calibration solves) start from the previous solve's final iterate:
+a process-wide cache keyed by a content hash of the post-equilibration
+program data, blended into the cold start inside ``_ipm_solve``.
+``BLUEST_TPU_IPM_WARM=0`` disables it and ``BLUEST_TPU_IPM_WARM_LAMBDA``
+sets the blend weight (default 0.99); both are read at call time, under
+the JAX package's names.  Two deliberate differences from the JAX
+package's cache: ``dims["warm_start"]`` stays True when a warm attempt
+that was not OK still outranks its cold re-attempt (there it is cleared
+before the comparison), and a hit moves its entry to the newest place, so
+the eviction is least-recently-used (there first-in-first-out).
+
+Not ported: the IPM prewarm (it exists to avoid XLA retraces), and the
+opt-in Gondzio correctors and f32-GEMM / zero-padding knobs of the
+Woodbury path (all off by default there).
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+import threading
 import time
 from typing import NamedTuple, Optional
 
@@ -43,7 +59,8 @@ class ConeLPResult(NamedTuple):
     pres: float
     dres: float
     pobj: float
-    dims: Optional[dict] = None   # {nx, p, nb, n, rank, woodbury, wall_s}
+    dims: Optional[dict] = None   # {nx, p, nb, n, rank, woodbury,
+                                  #  warm_start, wall_s, ...}
 
 
 def _sym(A):
@@ -397,10 +414,13 @@ def _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve, cnorm,
 
 def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
                step_frac, tol, feastol, max_iter, verbose=False,
-               woodbury=False):
-    """Full HSD-IPM solve: least-squares start, predictor-corrector loop
-    with stall / best-iterate / convergence bookkeeping, final dual
-    polish and (in)feasibility certificate data.
+               woodbury=False, warm=None, wlam=0.0):
+    """Full HSD-IPM solve: least-squares start (blended with the cached
+    iterate ``warm`` = (x, s_lp, S, z_lp, Z) at weight ``wlam`` when
+    given), predictor-corrector loop with stall / best-iterate /
+    convergence bookkeeping, final dual polish and (in)feasibility
+    certificate data.  Also returns the de-homogenized final iterate for
+    the caller's warm-start cache.
 
     done codes: 0 running, 1 converged, 2 non-finite, 3 stall/tiny-step,
     4 tau collapse (infeasible or numerically dead embedding)."""
@@ -478,6 +498,39 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
     S = shift_psd(S)
     Z = shift_psd(Z)
     tau, kappa = np.float64(1.0), np.float64(1.0)
+
+    # ----- optional warm start -----
+    # Blend a cached previous solution of the SAME program into the cold
+    # start (Skajaa/Jorgensen/Andersen-style HSD warm start): the HSD
+    # initialization is an arbitrary interior point, so blending is always
+    # admissible.  Active constraints in the warm point sit on the
+    # boundary, so blended slacks get an elementwise interior floor and
+    # kappa moves to the blended complementarity mean to stay near the
+    # central path.  wlam = 0 (or no cached iterate) leaves the cold
+    # start untouched, bit for bit.
+    if warm is not None and wlam != 0.0:
+        wx, ws_lp, wS, wz_lp, wZ = warm
+        one_m = 1.0 - wlam
+        x = one_m * x + wlam * wx
+        if p:
+            ds = wlam * 1e-6 * (1.0 + float(torch.mean(torch.abs(s_lp))))
+            dz = wlam * 1e-6 * (1.0 + float(torch.mean(torch.abs(z_lp))))
+            s_lp = torch.clamp(one_m * s_lp + wlam * ws_lp, min=ds)
+            z_lp = torch.clamp(one_m * z_lp + wlam * wz_lp, min=dz)
+        if nb:
+            dS = wlam * 1e-6 * (1.0 + float(torch.mean(torch.abs(S))))
+            dZ = wlam * 1e-6 * (1.0 + float(torch.mean(torch.abs(Z))))
+
+            def psd_floor(V, delta):
+                lam_min = torch.linalg.eigvalsh(V)[:, 0]
+                add = torch.clamp(delta - lam_min, min=0.0)
+                return V + add[:, None, None] * eye_n[None]
+
+            S = psd_floor(one_m * S + wlam * _sym(wS), dS)
+            Z = psd_floor(one_m * Z + wlam * _sym(wZ), dZ)
+        mu0 = ((float(s_lp @ z_lp) if p else 0.0)
+               + (float(torch.sum(S * Z)) if nb else 0.0)) / max(p + nb * n, 1)
+        kappa = np.float64(one_m + wlam * max(mu0, 1e-10))
 
     g_ops = (Gl_mul, GlT_mul, Gall_mul)
     best = dict(merit=np.inf, x=x, gap=np.inf, pres=np.inf, dres=np.inf,
@@ -570,7 +623,38 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
     xres_rel = float(torch.linalg.norm(Gall_mul(x) + s_all)) / x_nrm
     ctx_rel = float(cj @ x) / x_nrm
     kap_rel = kappa / max(1.0, max(z_nrm, x_nrm))
-    return best, it, done, (kap_rel, htz_rel, zres_rel, ctx_rel, xres_rel)
+    # de-homogenized FINAL iterate for the warm-start cache (the caller
+    # stores it only on an OK status; the tau guard is numerical safety)
+    tau_safe = max(float(tau), 1e-300)
+    final = (x / tau_safe, s_lp / tau_safe, S / tau_safe, z_lp / tau_safe,
+             Z / tau_safe)
+    return (best, it, done, (kap_rel, htz_rel, zres_rel, ctx_rel, xres_rel),
+            final)
+
+
+# --------------------------- warm-start cache ----------------------------- #
+# Process-level cache of final HSD iterates keyed by a content hash of the
+# (post-equilibration) program data.  Safety: a content-hash key cannot
+# cross-seed different instances, a non-OK warm outcome falls back to the
+# bit-exact cold start, and only finite OK-status iterates are stored.
+_WARM_CACHE: dict = {}
+_WARM_LOCK = threading.Lock()
+_WARM_CACHE_MAX = 8
+_WARM_OK = ("optimal", "inaccurate")
+
+
+def _warm_fingerprint(c_np, Gl_np, hl_np, As_np, Hs_np, gl_diag, R_np,
+                      nx, p, nb, n) -> str:
+    """Content hash of the cone program (post-equilibration arrays).
+    With the structured [-diag; rows] Gl the compact pieces (gl_diag, R)
+    stand for it; an unstructured Gl is hashed whole."""
+    h = hashlib.sha1()
+    h.update(np.asarray([nx, p, nb, n], dtype=np.int64).tobytes())
+    for a in (c_np, hl_np, As_np, Hs_np, gl_diag, R_np):
+        h.update(np.ascontiguousarray(a).tobytes())
+    if gl_diag.shape[0] != nx:
+        h.update(np.ascontiguousarray(Gl_np).tobytes())
+    return h.hexdigest()
 
 
 def solve_cone_lp(c: np.ndarray,
@@ -659,22 +743,40 @@ def solve_cone_lp(c: np.ndarray,
         GtG = T(Gall_np.T @ Gall_np)
     arrays = (T(c_np), T(Gl_np), T(hl_np), T(As_np), T(Hs_np), Gall, GtG,
               T(gl_diag), T(R_np))
+    # warm-start lookup: a hit implies the identical program (same-shape
+    # different instances must never cross-seed)
+    warm_entry = None
+    fp = None
+    if os.environ.get("BLUEST_TPU_IPM_WARM", "1") != "0":
+        fp = _warm_fingerprint(c_np, Gl_np, hl_np, As_np, Hs_np, gl_diag,
+                               R_np, nx, p, nb, n)
+        with _WARM_LOCK:
+            warm_entry = _WARM_CACHE.pop(fp, None)
+            if warm_entry is not None:
+                _WARM_CACHE[fp] = warm_entry    # a hit is the newest entry
+    wlam = float(os.environ.get("BLUEST_TPU_IPM_WARM_LAMBDA", "0.99"))
     dims_rec = {"nx": int(nx), "p": int(p), "nb": int(nb), "n": int(n),
-                "rank": int(max(rank_lr, 0)), "woodbury": bool(woodbury)}
+                "rank": int(max(rank_lr, 0)), "woodbury": bool(woodbury),
+                "warm_start": warm_entry is not None}
 
-    def _attempt(frac):
+    def _attempt(frac, warm=None):
+        """One solve + status derivation.  Returns (result, final iterate
+        for the warm-start cache)."""
         try:
-            best, it, done, cert = _ipm_solve(
+            best, it, done, cert, final = _ipm_solve(
                 *arrays, cnorm, hnorm, frac, tol, feastol, max_iter,
-                verbose=verbose, woodbury=bool(woodbury))
+                verbose=verbose, woodbury=bool(woodbury),
+                warm=None if warm is None else tuple(T(a) for a in warm),
+                wlam=wlam if warm is not None else 0.0)
         except torch.linalg.LinAlgError:
-            # a factorization broke down on the cold start (the fused JAX
+            # a factorization broke down on the start (the fused JAX
             # program reports this as a non-finite, failed solve)
-            best, it, done, cert = dict(merit=np.inf), 0, 2, None
+            best, it, done, cert, final = dict(merit=np.inf), 0, 2, None, None
         if not np.isfinite(best["merit"]):
             return ConeLPResult(x=np.full(nx, np.nan), status="failed",
                                 iterations=it, gap=np.inf, pres=np.inf,
-                                dres=np.inf, pobj=np.nan, dims=dims_rec)
+                                dres=np.inf, pobj=np.nan,
+                                dims=dims_rec), None
         kap_rel, htz_rel, zres_rel, ctx_rel, xres_rel = cert
         gap_f, pres_f, dres_f = best["gap"], best["pres"], best["dres"]
         pobj_f = best["pobj"]
@@ -707,22 +809,38 @@ def solve_cone_lp(c: np.ndarray,
             status = "failed"
         return ConeLPResult(x=xb, status=status, iterations=it, gap=gap_f,
                             pres=pres_f, dres=dres_f, pobj=pobj_f,
-                            dims=dims_rec)
+                            dims=dims_rec), \
+            tuple(a.cpu().numpy() for a in final)
 
+    rank = {"optimal": 0, "inaccurate": 1, "infeasible": 2,
+            "unbounded": 2, "max_iter": 3, "failed": 4}
     t0 = time.perf_counter()
-    res = _attempt(step_frac)
+    res, wout = _attempt(step_frac, warm_entry)
     dims_rec["wall_attempt_s"] = time.perf_counter() - t0
     dims_rec["retried"] = False
+    if warm_entry is not None and res.status not in _WARM_OK:
+        # The warm start must never cost robustness: any non-OK outcome
+        # of a warm-seeded solve falls back to the bit-exact cold start,
+        # and the cold result is preferred unless the warm one was
+        # strictly better-ranked.  The stale entry is dropped so later
+        # re-solves do not repeat the detour.
+        with _WARM_LOCK:
+            _WARM_CACHE.pop(fp, None)
+        t1 = time.perf_counter()
+        res_c, wout_c = _attempt(step_frac)
+        t_cold = time.perf_counter() - t1
+        if not rank.get(res.status, 4) < rank.get(res_c.status, 4):
+            res, wout = res_c, wout_c
+            dims_rec["warm_start"] = False
+            dims_rec["wall_attempt_s"] = t_cold
     if res.status == "failed" and step_frac > 0.92:
         # a 0.99 fraction-to-boundary can wedge the iterate off-center
         # near the PSD boundary on generic cone programs: retry once at
         # 0.85 and keep the better-ranked result
         t1 = time.perf_counter()
-        res2 = _attempt(0.85)
+        res2, wout2 = _attempt(0.85)
         t_second = time.perf_counter() - t1
         dims_rec["retried"] = True
-        rank = {"optimal": 0, "inaccurate": 1, "infeasible": 2,
-                "unbounded": 2, "max_iter": 3, "failed": 4}
 
         def _worst(r):
             rg = r.gap / max(1.0, abs(r.pobj)) if np.isfinite(r.pobj) \
@@ -731,7 +849,15 @@ def solve_cone_lp(c: np.ndarray,
 
         if rank.get(res2.status, 4) < rank.get(res.status, 4) or (
                 res2.status == res.status and _worst(res2) < _worst(res)):
-            res = res2
+            res, wout = res2, wout2
+            dims_rec["warm_start"] = False
             dims_rec["wall_attempt_s"] = t_second
     dims_rec["wall_s"] = time.perf_counter() - t0
+    if (fp is not None and wout is not None and res.status in _WARM_OK
+            and all(np.all(np.isfinite(a)) for a in wout)):
+        with _WARM_LOCK:
+            _WARM_CACHE.pop(fp, None)
+            _WARM_CACHE[fp] = wout
+            while len(_WARM_CACHE) > _WARM_CACHE_MAX:
+                _WARM_CACHE.pop(next(iter(_WARM_CACHE)))
     return res

@@ -44,7 +44,24 @@ Phases (any failure raises, so the exit code is non-zero):
      (d) a black-box numpy model with an inf sentinel (models 0 and 1
          never coupled), host_workers=2: the masked SPG projection
          converges, no group of setup_solver(K=3, eps) holds 0 and 1, and
-         solve_mc is within 4 error bars of exp(0.5).
+         solve_mc is within 4 error bars of exp(0.5);
+  7. the allocation's solver families (all on the host in f64, as the
+     allocation always is; the sampling that follows on the card):
+     (a) on phase 6(a)'s Matern problem, setup_solver(K=4, eps, solver=s,
+         continuous_relaxation=True) for s in sdp, admm, spg, scipy: every
+         tolerance met, ADMM and scipy costs within 1e-3 of the IPM's,
+         SPG within 10%, no NLP fallback; the Newton polish
+         (solver_params={"polish": True}) of the IPM and ADMM points:
+         stationarity <= 1e-9 and the two polished costs within 1e-8; an
+         integer ADMM allocation sampled on the card, within 4 error bars
+         of phase 6(a)'s MC reference;
+     (b) on phase 4's problem, two rebuilds of the budget allocation, the
+         IPM's warm-start cache emptied before the first: the second
+         starts warm, takes fewer iterations and gives the same
+         continuous cost; the polished allocation at eps* sampled through
+         K1 (the kernel line's "mlblue_polished" launches), estimates
+         within 4 error bars of phase 4's; solver="spg" at phase 4's
+         budget: feasible, its max-variance over the IPM's logged.
 The second-to-last line is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.
 
@@ -380,7 +397,9 @@ def phase_flagship():
         raise AssertionError("K1 launched %d times for %d chunk evaluations"
                              % (launches, chunk_evals))
     return {"launches": launches, "alloc_s": alloc_s, "sample_s": sample_s,
-            "n_evals": n_evals, "problem": problem}
+            "n_evals": n_evals, "problem": problem, "budget": budget,
+            "mus": mus, "errs": errs,
+            "eps_star": float(np.sqrt(max(out["variances"])))}
 
 
 def _chunk_evals(groups, ns):
@@ -721,6 +740,8 @@ def phase_matern(times):
         % (MATERN_MC, times["matern_mc_s"]))
     _within_bars("Matern MLBLUE vs MC", mus, errs, mean,
                  np.sqrt(var / MATERN_MC))
+    return {"problem": p, "eps": eps, "mc_mean": mean,
+            "mc_se": np.sqrt(var / MATERN_MC)}
 
 
 def _device_kernels(fn):
@@ -956,19 +977,231 @@ def phase_host_model(times):
 def phase_user_models(launches_by_path):
     """Phase 6: every part raises on failure; nothing is caught."""
     times = {}
+    kept = {}
     t0 = time.perf_counter()
     for name, run in (("a", lambda: phase_matern(times)),
                       ("b", lambda: phase_hodgkin_huxley(times)),
                       ("c", lambda: phase_snapshots(times, launches_by_path)),
                       ("d", lambda: phase_host_model(times))):
         t = time.perf_counter()
-        run()
+        kept[name] = run()
         times["part_%s_s" % name] = time.perf_counter() - t
         log("phase 6(%s): %.3f s" % (name, times["part_%s_s" % name]))
     log("phase 6: %.3f s; %s" % (time.perf_counter() - t0,
                                  json.dumps({k: round(v, 6)
                                              for k, v in times.items()})))
-    return times
+    return kept["a"]
+
+
+def _cone_solves(certs):
+    """(form, status, iterations, warm) of each cone solve of one set-up."""
+    return [(c["form"], c["status"], c["iterations"],
+             bool(c.get("dims", {}).get("warm_start", False)))
+            for c in certs]
+
+
+def phase_solver_families(matern, times):
+    """7(a): the four continuous solver families on the Matern 2D problem
+    of phase 6(a) (pilot paid), the Newton polish on the two cone
+    families' points, and an integer ADMM allocation sampled on the
+    card."""
+    import numpy as np
+    from bluest_tpu_torch.solvers import sdp
+    p, eps = matern["problem"], matern["eps"]
+    eps2 = np.asarray(eps, float) ** 2
+    sdp._WARM_CACHE.clear()
+    p._mosap_key = None             # a fresh MOSAP: fallbacks count from 0
+    fam = {}
+    for solver in ("sdp", "admm", "spg", "scipy"):
+        t0 = time.perf_counter()
+        p.setup_solver(K=4, eps=eps, solver=solver,
+                       continuous_relaxation=True)
+        wall = time.perf_counter() - t0
+        out = p.MOSAP_output
+        ratio = float(np.max(np.asarray(out["variances"]) / eps2))
+        fam[solver] = {"cost": float(out["cost"]), "ratio": ratio,
+                       "wall_s": wall}
+        times["family_%s_s" % solver] = wall
+        log("family %-5s: %.3f s, cost %.10g, max V/eps^2 %.8f, cone solves "
+            "%s, NLP fallbacks so far %d"
+            % (solver, wall, out["cost"], ratio,
+               _cone_solves(out["certificates"]), p.MOSAP.n_nlp_fallbacks))
+        if not ratio <= 1.005:
+            raise AssertionError("%s: max V/eps^2 = %.6f > 1.005"
+                                 % (solver, ratio))
+    c_ipm = fam["sdp"]["cost"]
+    for solver, tol in (("admm", 1e-3), ("scipy", 1e-3), ("spg", 0.10)):
+        rel = abs(fam[solver]["cost"] - c_ipm) / c_ipm
+        log("family %-5s: cost over the IPM's - 1 = %+.3e (gate %.0e)"
+            % (solver, fam[solver]["cost"] / c_ipm - 1.0, tol))
+        if not rel <= tol:
+            raise AssertionError("%s cost %.10g not within %g of the IPM's "
+                                 "%.10g" % (solver, fam[solver]["cost"], tol,
+                                            c_ipm))
+    if p.MOSAP.n_nlp_fallbacks != 0:
+        raise AssertionError("a cone family fell back to the NLP (%d times)"
+                             % p.MOSAP.n_nlp_fallbacks)
+
+    # the Newton polish removes each cone solver's own error
+    pol = {}
+    for solver in ("sdp", "admm"):
+        p.MOSAP.polish_report = None
+        t0 = time.perf_counter()
+        p.setup_solver(K=4, eps=eps, solver=solver,
+                       continuous_relaxation=True,
+                       optimization_solver_params={"polish": True})
+        wall = time.perf_counter() - t0
+        rep = p.MOSAP.polish_report
+        log("polish from %-4s: %.3f s, raw cost %.12g, report %s"
+            % (solver, wall, fam[solver]["cost"], rep))
+        if rep is None:
+            raise AssertionError("the polish of the %s point was not "
+                                 "accepted" % solver)
+        if not rep["stationarity"] <= 1e-9:
+            raise AssertionError("polished %s point: stationarity %.3e > "
+                                 "1e-9" % (solver, rep["stationarity"]))
+        if not rep["cost"] <= fam[solver]["cost"] * (1 + 1e-12):
+            raise AssertionError("the polish raised the %s cost" % solver)
+        pol[solver] = float(p.MOSAP_output["cost"])
+    rel = abs(pol["sdp"] - pol["admm"]) / pol["sdp"]
+    log("polished costs: IPM %.14g ADMM %.14g, rel diff %.3e"
+        % (pol["sdp"], pol["admm"], rel))
+    if not rel <= 1e-8:
+        raise AssertionError("polished costs differ by %.3e > 1e-8" % rel)
+
+    # the ADMM family end to end: integer projection, sampling on the card
+    t0 = time.perf_counter()
+    p.setup_solver(K=4, eps=eps, solver="admm")
+    times["admm_setup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mus, errs, cost = p.solve(K=4, eps=eps, solver="admm")
+    _sync()
+    times["admm_solve_s"] = time.perf_counter() - t0
+    log("ADMM allocation sampled: setup %.3f s, solve %.3f s, %d samples, "
+        "cost %.8g (the IPM's integer cost in phase 6(a) is logged above)"
+        % (times["admm_setup_s"], times["admm_solve_s"],
+           int(sum(int(n) for n in p.MOSAP_output["samples"])), cost))
+    if not np.all(np.asarray(errs, float) <= 1.0001 * np.asarray(eps)):
+        raise AssertionError("ADMM allocation: errs %s above eps %s"
+                             % (errs, eps))
+    _within_bars("Matern MLBLUE (ADMM allocation) vs MC", mus, errs,
+                 matern["mc_mean"], matern["mc_se"])
+
+
+def phase_warm_and_polished(flagship, times, launches_by_path):
+    """7(b): on phase 4's problem (pilot paid), a cold and a warm rebuild
+    of the budget allocation, the polished target-RMSE solve sampled
+    through K1, and the projected-gradient family at phase 4's budget."""
+    import numpy as np
+    from bluest_tpu_torch.solvers import sdp
+    problem, budget = flagship["problem"], flagship["budget"]
+    eps_star = flagship["eps_star"]
+
+    sdp._WARM_CACHE.clear()
+    runs = []
+    for tag in ("cold", "warm"):
+        problem._mosap_key = None   # a fresh MOSAP: no ray or structure cache
+        t0 = time.perf_counter()
+        problem.setup_solver(K=K, budget=budget)
+        wall = time.perf_counter() - t0
+        out = problem.MOSAP_output
+        solves = _cone_solves(out["certificates"])
+        ipm_s = sum(c["dims"]["wall_s"] for c in out["certificates"])
+        cont = float(problem.MOSAP.continuous_solution @ problem.MOSAP.costs)
+        runs.append({"solves": solves, "wall_s": wall, "ipm_s": ipm_s,
+                     "iterations": sum(s[2] for s in solves),
+                     "cont_cost": cont, "samples": np.array(out["samples"]),
+                     "maxvar": float(max(out["variances"]))})
+        times["alloc_%s_s" % tag] = wall
+        times["ipm_%s_s" % tag] = ipm_s
+        log("%s rebuild: setup_solver %.3f s of which cone solves %.3f s, "
+            "%d iterations %s, continuous cost %.10g, max variance %.8e"
+            % (tag, wall, ipm_s, runs[-1]["iterations"], solves, cont,
+               runs[-1]["maxvar"]))
+    cold, warm = runs
+    if any(s[3] for s in cold["solves"]):
+        raise AssertionError("a cold solve reports a warm start")
+    if not all(s[3] for s in warm["solves"]):
+        raise AssertionError("the second rebuild did not start warm: %s"
+                             % warm["solves"])
+    if not warm["iterations"] < cold["iterations"]:
+        raise AssertionError("warm %d iterations, cold %d"
+                             % (warm["iterations"], cold["iterations"]))
+    if not abs(warm["cont_cost"] - cold["cont_cost"]) \
+            <= 1e-6 * cold["cont_cost"]:
+        raise AssertionError("warm continuous cost %.10g, cold %.10g"
+                             % (warm["cont_cost"], cold["cont_cost"]))
+    same = np.array_equal(warm["samples"], cold["samples"])
+    log("warm vs cold: same integer samples %s, max-variance rel diff %.3e"
+        % (same, abs(warm["maxvar"] - cold["maxvar"]) / cold["maxvar"]))
+    if not (same or abs(warm["maxvar"] - cold["maxvar"])
+            <= 1e-3 * cold["maxvar"]):
+        raise AssertionError("warm and cold allocations differ")
+
+    # the polished target-RMSE allocation, sampled through K1
+    problem.MOSAP.polish_report = None
+    t0 = time.perf_counter()
+    problem.setup_solver(K=K, eps=eps_star,
+                         optimization_solver_params={"polish": True})
+    times["alloc_polished_s"] = time.perf_counter() - t0
+    out = problem.MOSAP_output
+    ratio = float(max(out["variances"])) / eps_star ** 2
+    log("polished eps* allocation: %.3f s, cost %.10g, max V/eps*^2 %.6f, "
+        "polish report %s, cone solves %s"
+        % (times["alloc_polished_s"], out["cost"], ratio,
+           problem.MOSAP.polish_report, _cone_solves(out["certificates"])))
+    if not ratio <= 1.0001:
+        raise AssertionError("polished: max V/eps*^2 = %.6f" % ratio)
+    mus, errs, cost, s, n, need = _run_path(
+        "mlblue_polished",
+        lambda: problem.solve(
+            K=K, eps=eps_star,
+            optimization_solver_params={"polish": True}),
+        lambda: (out["flattened_groups"], out["samples"]), launches_by_path)
+    times["sample_polished_s"] = s
+    log("MLBLUE polished @eps*: sample_s %.3f, cost %.10g, K1 launches %d "
+        "(chunk evaluations %d)" % (s, cost, n, need))
+    if problem.MOSAP_output is not out:
+        raise AssertionError("solve(eps=eps*) reran the allocation")
+    if not np.all(np.asarray(errs, float) <= 1.0001 * eps_star):
+        raise AssertionError("polished: errs %s above eps*" % (errs,))
+    _within_bars("polished MLBLUE vs phase 4", mus, errs, flagship["mus"],
+                 flagship["errs"])
+
+    # the projected-gradient family at phase 4's budget
+    t0 = time.perf_counter()
+    problem.setup_solver(K=K, budget=budget, solver="spg",
+                         continuous_relaxation=True)
+    times["alloc_spg_s"] = time.perf_counter() - t0
+    m = np.asarray(problem.MOSAP.samples, float)
+    spent = float(m @ problem.MOSAP.costs)
+    v_spg = float(max(problem.MOSAP.variances(m)))
+    problem.setup_solver(K=K, budget=budget, continuous_relaxation=True)
+    v_ipm = float(max(problem.MOSAP_output["variances"]))
+    log("SPG at the budget: %.3f s, spent %.10g of %.10g, max variance "
+        "%.8e over the IPM's continuous %.8e = %.4f"
+        % (times["alloc_spg_s"], spent, budget, v_spg, v_ipm, v_spg / v_ipm))
+    if not (spent <= budget * (1 + 1e-9) and np.all(m >= 0)
+            and np.isfinite(v_spg)):
+        raise AssertionError("SPG point infeasible: spent %.10g of %.10g"
+                             % (spent, budget))
+
+
+def phase_allocation_families(flagship, matern, launches_by_path):
+    """Phase 7: every part raises on failure; nothing is caught."""
+    times = {}
+    t0 = time.perf_counter()
+    for name, run in (
+            ("a", lambda: phase_solver_families(matern, times)),
+            ("b", lambda: phase_warm_and_polished(flagship, times,
+                                                  launches_by_path))):
+        t = time.perf_counter()
+        run()
+        times["part_%s_s" % name] = time.perf_counter() - t
+        log("phase 7(%s): %.3f s" % (name, times["part_%s_s" % name]))
+    log("phase 7: %.3f s; %s" % (time.perf_counter() - t0,
+                                 json.dumps({k: round(v, 6)
+                                             for k, v in times.items()})))
 
 
 def main():
@@ -981,7 +1214,8 @@ def main():
     if "--profile" in sys.argv[1:]:
         phase_profile(f["problem"])
     phase_target_rmse(f["problem"], launches_by_path)
-    phase_user_models(launches_by_path)
+    matern = phase_user_models(launches_by_path)
+    phase_allocation_families(f, matern, launches_by_path)
     print(json.dumps({"kernels": [{
         "name": "diffusion_outputs", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,

@@ -34,6 +34,17 @@ from bluest_tpu_torch.solvers.sdp import solve_cone_lp as torch_solve
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _cold_ipm():
+    """The interior-point solvers' warm-start caches are process-wide:
+    every test starts with both empty, so no test's cone solves depend on
+    which tests ran before it in the same process."""
+    from bluest_tpu.solvers import sdp as sdp_j
+    from bluest_tpu_torch.solvers import sdp as sdp_t
+    sdp_t._WARM_CACHE.clear()
+    sdp_j._WARM_CACHE.clear()
+
 GRIDS = (1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
 COSTS = np.array([g / GRIDS[-1] for g in GRIDS])
 

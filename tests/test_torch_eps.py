@@ -21,6 +21,8 @@ the eps entry points of BLUEProblem, against the JAX package.
   err/err_ex within [0.4, 1.9] (15 degrees of freedom; 0.40 is the 1e-4
   lower quantile of sqrt(chi2_15/15)).
 * ``solve(eps=same)`` reruns no allocation; eps=0, nan or < 0 raise.
+* ``solver`` in {admm, scs, spg} and ``{"polish": True}`` solve one seeded
+  problem in both packages (costs within 1e-3, 1e-2, 1e-8).
 """
 
 import numpy as np
@@ -33,6 +35,17 @@ from bluest_tpu_torch.allocation.sap import caps_satisfied
 from bluest_tpu_torch.models.diffusion import DiffusionProblem
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _cold_ipm():
+    """The interior-point solvers' warm-start caches are process-wide:
+    every test starts with both empty, so no test's cone solves depend on
+    which tests ran before it in the same process."""
+    from bluest_tpu.solvers import sdp as sdp_j
+    from bluest_tpu_torch.solvers import sdp as sdp_t
+    sdp_t._WARM_CACHE.clear()
+    sdp_j._WARM_CACHE.clear()
 
 GRIDS = (1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
 COSTS = np.array([g / GRIDS[-1] for g in GRIDS])
@@ -133,10 +146,9 @@ def test_kkt_certificate_matches_jax(seed):
 @pytest.mark.parametrize("seed", [0, 1, 3])
 def test_nlp_fallback_matches_jax(seed, monkeypatch):
     """An IPM cut to two iterations fails both eps candidates; both
-    packages then fall back to the scipy NLP once.  The JAX IPM
-    warm-starts exact re-solves from a content-hash cache (not ported
-    yet), which an earlier test's solve of the same instance would fill:
-    it is switched off so both packages run the same cold IPM."""
+    packages then fall back to the scipy NLP once.  Both IPMs warm-start
+    exact re-solves from a content-hash cache: it is switched off (one
+    env name serves both packages) so both run the same cold IPM."""
     monkeypatch.setenv("BLUEST_TPU_IPM_WARM", "0")
     pt, pj, K, eps = _pair(seed)
     for p in (pt, pj):
@@ -261,6 +273,38 @@ def test_bad_tolerance_raises_in_both(bad):
                                 {"optimization_solver_params":
                                  {"polish": True}}])
 def test_unported_families_raise(kw):
-    pt, _pj, K, eps = _pair(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.setup_solver(K=K, eps=eps, **kw)
+    """(The name is from when these four raised NotImplementedError in the
+    port.)  Each family now solves one seeded problem in both packages
+    (``_pair(1)``; the operator-splitting solver needs ~50k iterations a
+    cone solve there in either package, so ``admm`` takes the two-output
+    ``_pair(3)`` with the iterations capped at 8000 -- the direct form
+    converges in ~2k and its epigraph cross-check runs out, in both
+    packages -- and ``scs`` the one-output ``_pair(4)`` at the
+    defaults): every tolerance met, no NLP fallback, and the continuous
+    costs within the family's accuracy of each other -- 1e-3 for the
+    operator-splitting solver (it stops at 1e-6 residuals), 1e-2 for the
+    projected gradient on the smoothed max (the bias of its last
+    temperature), 1e-8 for the polished interior-point points (polishing
+    removes the solver's own error)."""
+    seed = {"admm": 3, "scs": 4}.get(kw.get("solver"), 1)
+    if kw.get("solver") == "admm":
+        kw = dict(kw, optimization_solver_params={"max_iter": 8000})
+    pt, pj, K, eps = _pair(seed)
+    tol = {"admm": 1e-3, "scs": 1e-3, "spg": 1e-2}.get(kw.get("solver"),
+                                                      1e-8)
+    cost = []
+    for p in (pt, pj):
+        p.setup_solver(K=K, eps=eps, continuous_relaxation=True, **kw)
+        assert p.MOSAP.n_nlp_fallbacks == 0
+        m = np.asarray(p.MOSAP.samples, float)
+        assert np.all(np.asarray(p.MOSAP.variances(m))
+                      <= 1.0001 * eps ** 2)
+        cost.append(_cost(p.MOSAP, m))
+        if "solver" not in kw:
+            assert p.MOSAP.polish_report["stationarity"] <= 1e-9
+    assert abs(cost[0] - cost[1]) <= tol * cost[1]
+    # and beside the port's own interior-point point
+    ref = _pair(seed)[0]
+    ref.setup_solver(K=K, eps=eps, continuous_relaxation=True)
+    c_ref = _cost(ref.MOSAP, ref.MOSAP.samples)
+    assert abs(cost[0] - c_ref) <= max(tol, 1e-4) * c_ref

@@ -22,6 +22,14 @@ def test_import_leaves_jax_out():
             "import bluest_tpu_torch.models.analytic\n"
             "import bluest_tpu_torch.models.matern2d\n"
             "import bluest_tpu_torch.models.hodgkin_huxley\n"
+            "import bluest_tpu_torch.solvers.admm\n"
+            "import bluest_tpu_torch.solvers.spg_alloc\n"
+            "import bluest_tpu_torch.solvers.sdp\n"
+            "import bluest_tpu_torch.solvers.integer\n"
+            "import bluest_tpu_torch.allocation.polish\n"
+            "import bluest_tpu_torch.allocation.sap\n"
+            "import bluest_tpu_torch.allocation.mosap\n"
+            "import bluest_tpu_torch._native\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert not any(m.startswith('bluest_tpu.') or m == 'bluest_tpu'"
             " for m in sys.modules)\n"

@@ -18,6 +18,17 @@ from bluest_tpu_torch.models.diffusion import DiffusionProblem
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _cold_ipm():
+    """The interior-point solvers' warm-start caches are process-wide:
+    every test starts with both empty, so no test's cone solves depend on
+    which tests ran before it in the same process."""
+    from bluest_tpu.solvers import sdp as sdp_j
+    from bluest_tpu_torch.solvers import sdp as sdp_t
+    sdp_t._WARM_CACHE.clear()
+    sdp_j._WARM_CACHE.clear()
+
 KW = dict(grids=(32, 16, 8, 4), n_kl=8, sigma=1.0, nu=0.6,
           multi_output=True, verbose=False)
 BUDGET = 2.0e3
