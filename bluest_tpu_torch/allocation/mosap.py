@@ -41,6 +41,16 @@ class BLUESTError(RuntimeError):
     """Raised when the allocation optimization fails (reference mosap.py:15)."""
 
 
+def prewarm_forms_for(budget, max_model_samples, L: int,
+                      solver: str = "sdp"):
+    """The JAX package lists here the cone-program shapes a
+    ``MOSAP.solve`` call will trace, for its background compile.  The
+    port compiles no program, so there is none to warm: kept for
+    callers' scripts, returns the empty list at once."""
+    del budget, max_model_samples, L, solver
+    return []
+
+
 class MOSAP:
     def __init__(self, C: Sequence[np.ndarray], K: int, Ks: Sequence[int],
                  groups, multi_groups, costs: np.ndarray,

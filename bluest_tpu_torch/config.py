@@ -13,6 +13,8 @@ back from one to the other.  The allocation runs on
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -37,3 +39,30 @@ def allocation_device() -> torch.device:
     CPU, as in the JAX package.  Whether the card's hardware f64 beats
     the host here is an open measurement, not a decided one."""
     return torch.device("cpu")
+
+
+# Names of the JAX package's device policy that callers' scripts use.  The
+# port's allocation is eager f64 numpy/torch on the host, so nothing has
+# to be pinned, probed or compiled: they are kept and do nothing.
+
+def ensure_responsive_device(timeout: float = 240.0, retries: int = 0,
+                             fallback: str = "cpu"):
+    """The JAX package probes a remote accelerator's backend here and
+    moves the process to ``fallback`` when it hangs.  A CUDA card is
+    local, and the port never replaces a missing card by the CPU
+    (``sampling.engine.check_device`` raises at the first sampling call),
+    so this returns None -- the healthy answer -- at once."""
+    del timeout, retries, fallback
+    return None
+
+
+@contextlib.contextmanager
+def allocation_device_scope():
+    """Context form of :func:`on_allocation_device`: a null context."""
+    yield
+
+
+def on_allocation_device(fn):
+    """Decorator that pins a function's work to ``allocation_device()``
+    in the JAX package; here the identity."""
+    return fn

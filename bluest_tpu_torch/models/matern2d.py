@@ -19,8 +19,10 @@ low-frequency block (spectral restriction -- the study's coupling).  QoIs
 (3 outputs): field energy mean(z^2), center value z(1/2,1/2), and a
 smooth exceedance functional mean(sigmoid(4 (z - 1))).  The synthesis is
 a plain batched ``torch.matmul``, as the JAX package computes it outside
-any Pallas kernel.  The model-axis sharded synthesis of the JAX package
-needs a mesh and is not ported yet (ROADMAP queue 1 item 14).
+any Pallas kernel.  On a (samples x model) mesh the synthesis spans the
+model axis (``sample_matern2d_sharded``): each rank of a model instance
+synthesises its block of x-modes and the field is assembled by an
+``all_reduce`` over the model group.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import MODEL_AXIS
 from ..problem import BLUEProblem
 
 
@@ -65,6 +68,29 @@ def sample_matern2d(w_hat: torch.Tensor, n: int, kappa: float = 8.0,
     return S @ (w_hat[:, :n, :n] * g) @ S.T
 
 
+def sample_matern2d_sharded(w_hat: torch.Tensor, n: int, mesh,
+                            kappa: float = 8.0, alpha: float = 1.0,
+                            basis=None) -> torch.Tensor:
+    """Model-parallel field synthesis: this model rank synthesises its
+    block of x-modes, ``S[:, blk] @ (w_hat g)[blk, :] @ S^T``, and the
+    full field is assembled with an ``all_reduce`` over the model group
+    of ``mesh`` -- the form of the reference's internally-MPI-parallel
+    user models (blue_models.py:121-130, restrictions_matern.py:19-37).
+    Every rank of the model group passes the same ``w_hat``.  Requires n
+    divisible by the model-axis size."""
+    if basis is None:
+        basis = (_sine_basis(n, w_hat.dtype, w_hat.device),
+                 _spectrum(n, kappa, alpha, w_hat.dtype, w_hat.device))
+    S, g = basis
+    if n % mesh.n_model:
+        raise ValueError("grid %d is not divisible by the model-axis size "
+                         "%d" % (n, mesh.n_model))
+    rows = n // mesh.n_model
+    blk = slice(mesh.model_rank * rows, (mesh.model_rank + 1) * rows)
+    part = S[:, blk] @ (w_hat[:, :n, :n] * g)[:, blk, :] @ S.T
+    return mesh.all_reduce_model(part)
+
+
 def _qois(z: torch.Tensor, n: int) -> torch.Tensor:
     q_energy = torch.mean(z * z, dim=(1, 2))
     q_center = z[:, n // 2, n // 2]
@@ -73,16 +99,25 @@ def _qois(z: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def matern2d_outputs(w_hat: torch.Tensor, n: int, kappa: float = 8.0,
-                     alpha: float = 1.0, basis=None) -> torch.Tensor:
-    """(B, n0, n0) white noise -> (B, 3) QoIs of the n x n model."""
-    return _qois(sample_matern2d(w_hat, n, kappa, alpha, basis), n)
+                     alpha: float = 1.0, basis=None,
+                     mesh=None) -> torch.Tensor:
+    """(B, n0, n0) white noise -> (B, 3) QoIs of the n x n model; with a
+    ``mesh`` the synthesis spans its model axis."""
+    if mesh is not None:
+        z = sample_matern2d_sharded(w_hat, n, mesh, kappa, alpha, basis)
+    else:
+        z = sample_matern2d(w_hat, n, kappa, alpha, basis)
+    return _qois(z, n)
 
 
 class Matern2DProblem(BLUEProblem):
     """Fidelity = grid resolution (spectral restriction coupling).
 
     Costs default to the synthesis matmul work, O(n^3), normalized to the
-    coarsest model.  ``dtype`` None = float64 (as the JAX package's)."""
+    coarsest model.  ``dtype`` None = float64 (as the JAX package's).  On
+    a 2D (samples x model) mesh the evaluation path itself spans the model
+    axis (``sample_matern2d_sharded``); the ranks of one model instance
+    draw the same chunks and hold the same sums."""
 
     def __init__(self, grids=(64, 32, 16, 8), kappa: float = 8.0,
                  alpha: float = 1.0, dtype=None, **params):
@@ -94,6 +129,16 @@ class Matern2DProblem(BLUEProblem):
         params.setdefault("costs", np.array(
             [(g / grids[-1]) ** 3 for g in self.grids], dtype=float))
         params.setdefault("n_outputs", 3)
+        # pilot sampling runs inside super().__init__, so the model axis
+        # must be read from the mesh parameter before it
+        self._model_mesh = None
+        mesh = params.get("mesh")
+        if (hasattr(mesh, "axis_names") and MODEL_AXIS in mesh.axis_names
+                and mesh.shape[MODEL_AXIS] > 1):
+            self._model_mesh = mesh
+            if any(g % mesh.shape[MODEL_AXIS] for g in self.grids):
+                raise ValueError("grids must be divisible by the model-axis "
+                                 "size for sharded synthesis")
         super().__init__(len(self.grids), **params)
 
     def sample_inputs(self, generator, n):
@@ -110,4 +155,5 @@ class Matern2DProblem(BLUEProblem):
                 _spectrum(g, self.kappa, self.alpha, w_hat.dtype,
                           w_hat.device))
         return matern2d_outputs(w_hat, self.grids[l], self.kappa,
-                                self.alpha, basis=self._bases[key])
+                                self.alpha, basis=self._bases[key],
+                                mesh=self._model_mesh)

@@ -35,13 +35,24 @@ the masked SPG projection.  ``samplefile`` streams sample snapshots in
 the JAX package's npz format on every path.  The allocation runs on
 ``config.allocation_device()``.
 
-Not ported yet: meshes and ``profile_dir`` (both raise
-``NotImplementedError``, ROADMAP queue 1 item 14).
+``solve``, ``solve_mlmc`` and ``solve_mfmc`` dispatch the sampling of
+every group before they fetch anything: the sums of all groups reach the
+host in one copy per fetch round (a second round only tops up groups
+whose model returned non-finite rows).  With ``mesh=`` (a
+``parallel/mesh.py`` mesh over an initialised ``torch.distributed`` job;
+``"auto"`` = a sample mesh over the world, ``None`` for a world of one)
+each sample rank evaluates a block of the chunks of every call and that
+one copy is preceded by one ``all_reduce`` over the sample group; the
+allocation runs redundantly on every rank and rank 0's is broadcast, and
+only rank 0 prints and writes snapshot files.  ``profile_dir`` writes a
+``torch.profiler`` trace of the sampling of each ``solve`` there.
 """
 
 from __future__ import annotations
 
+import math
 import os
+from contextlib import nullcontext
 from time import time
 from typing import Optional
 
@@ -54,8 +65,10 @@ from .estimators.closed_forms import (mfmc_allocation, mfmc_check,
 from .graph import CovarianceGraph, cliques
 from .linalg.spd import (mark_uncorrelated, project_covariance_full,
                          project_covariance_masked)
+from .parallel.mesh import Mesh, sample_mesh
+from .profiling import device_trace
 from .sampling import host_engine, snapshots
-from .sampling.engine import SamplingEngine, add_sums, generator_seed
+from .sampling.engine import F64, SamplingEngine, zero_sums
 from .sampling.group_engine import GroupEngine
 
 spg_default_params = {
@@ -81,20 +94,21 @@ default_params = {
     "skip_projection": False,
     "spg_params": spg_default_params,
     "seed": 0,
-    "mesh": None,                      # not ported yet (ROADMAP item 14)
+    "mesh": None,                      # None | "auto" | parallel.mesh.Mesh
     "device": "cuda",                  # sampling device; "cpu" on request
     "device_batch_size": 4096,
     "max_resample": 64,                # 0 = model guaranteed finite
     "host_workers": 1,                 # >1: process pool for black-box models
     "model_workers": 1,                # >1: processes per model evaluation
-    "profile_dir": None,               # not ported yet (ROADMAP item 14)
+    "profile_dir": None,               # torch.profiler trace dir for solve()
 }
 
 
 def _holds_torch_state(v) -> bool:
-    """True when ``v`` is, or a dict/list/tuple holds, a torch tensor or
-    generator (what must not travel to a host worker)."""
-    if isinstance(v, (torch.Tensor, torch.Generator)):
+    """True when ``v`` is, or a dict/list/tuple holds, a torch tensor, a
+    generator or a mesh with its process groups (what must not travel to
+    a host worker)."""
+    if isinstance(v, (torch.Tensor, torch.Generator, Mesh)):
         return True
     if isinstance(v, dict):
         return any(_holds_torch_state(x) for x in v.values())
@@ -132,16 +146,24 @@ class BLUEProblem:
         spg_params.update(params.get("spg_params", {}))
         params["spg_params"] = spg_params
         self.params.update(params)
-        for name in ("mesh", "profile_dir"):
-            if self.params[name] is not None:
-                raise NotImplementedError(
-                    "%s: bluest_tpu_torch samples on one device and has no "
-                    "profiler hook yet (ROADMAP queue 1 item 14)" % name)
 
-        self.verbose = self.params["verbose"]
+        mesh = self.params["mesh"]
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError("mesh must be None, \"auto\" or a mesh of "
+                                 "bluest_tpu_torch.parallel, got %r" % mesh)
+            many = (torch.distributed.is_available()
+                    and torch.distributed.is_initialized()
+                    and torch.distributed.get_world_size() > 1)
+            mesh = sample_mesh() if many else None
+        self.mesh = mesh
+        # only the root rank of a mesh prints
+        self.verbose = bool(self.params["verbose"]
+                            and (mesh is None or mesh.is_root))
         self.device = torch.device(self.params["device"])
         self._engine = None
         self._call_counter = 0
+        self._output_dim = None      # the model's output dimension d
         # per-group sampling telemetry: {group: {"samples", "wall_s"}}
         self.sampling_stats = {}
 
@@ -281,6 +303,9 @@ class BLUEProblem:
 
     def get_mlmc_variances(self):
         return self.dV
+
+    def get_mlmc_variance(self, n=0):
+        return self.dV[n]
 
     def get_covariances(self):
         return [self.get_covariance(n) for n in range(self.n_outputs)]
@@ -495,19 +520,31 @@ class BLUEProblem:
     # ----------------------------- engine ------------------------------ #
 
     def __getstate__(self):
-        """State for a spawned host worker (host_engine.blue_fn_parallel):
-        no engine, generator, allocation object or torch tensor travels,
-        so a worker never initialises the card to unpickle a problem that
-        has sampled there (the JAX package drops its device state the same
-        way).  Dict caches that hold tensors arrive empty, any other
-        attribute that holds one arrives as None."""
+        """State for a spawned host worker (host_engine.blue_fn_parallel)
+        or a saved problem: no engine, generator, mesh, allocation object
+        or torch tensor travels, so a worker never initialises the card
+        (or joins a process group) to unpickle a problem that has sampled
+        there (the JAX package drops its device state the same way).
+        Dict caches that hold tensors arrive empty, any other attribute
+        that holds one arrives as None."""
         state = self.__dict__.copy()
-        for k in ("_engine", "MOSAP", "MOSAP_output"):
+        for k in ("_engine", "mesh", "MOSAP", "MOSAP_output"):
             state[k] = None
+        state["params"] = dict(self.params, mesh=None)
         for k, v in state.items():
             if _holds_torch_state(v):
                 state[k] = {} if isinstance(v, dict) else None
         return state
+
+    def __setstate__(self, state):
+        """A loaded problem keeps its graphs, costs, parameters and call
+        counter and samples on one device: the engine is rebuilt at first
+        use and the allocation at the next ``setup_solver``."""
+        self.__dict__.update(state)
+        self._engine = None
+        self.mesh = None
+        self.MOSAP = None
+        self.MOSAP_output = None
 
     def _sampling_engine(self):
         """The device engine of a torch model: SamplingEngine for a
@@ -517,18 +554,14 @@ class BLUEProblem:
             if self._has_factored_model():
                 self._engine = SamplingEngine(
                     self.sample_inputs, self.evaluate_model, self.n_outputs,
-                    batch, self.device)
+                    batch, self.device, mesh=self.mesh)
             else:
                 self._engine = GroupEngine(
                     self.sample_group, self.evaluate_group, self.n_outputs,
                     batch, self.device,
-                    max_resample=int(self.params["max_resample"]))
+                    max_resample=int(self.params["max_resample"]),
+                    mesh=self.mesh)
         return self._engine
-
-    def _next_seed(self) -> int:
-        seed = generator_seed(self.params["seed"], self._call_counter)
-        self._call_counter += 1
-        return seed
 
     def blue_fn(self, ls, N, verbose=True, compute_mlmc_differences=False):
         """Sums over N coupled samples of group ``ls``: (sumse, sumsc,
@@ -540,54 +573,25 @@ class BLUEProblem:
         key_ls = tuple(int(l) for l in ls)
         N = int(N)
         t0 = time()
-        samplefile = self.params["samplefile"]
-        sums = self._device_sums(key_ls, N)
-        # Non-finite samples are masked out of the sums, but the estimator
-        # divides by the requested N: top up with fresh draws so the sums
-        # cover N finite samples (the reference resamples until all N are
-        # finite, blue_fn.py:118-129).  The top-up rows reach the snapshot
-        # file too, through one sink for all rounds.
-        rounds = 0
-        topup_sink = None
-        try:
-            while int(sums.n_failed) > 0 and rounds < 4:
-                deficit = int(sums.n_failed)
-                if samplefile is not None and topup_sink is None:
-                    topup_sink = self._collect_sink(key_ls, deficit,
-                                                    samplefile)
-                extra = self._device_sums(key_ls, deficit, sink=topup_sink)
-                sums = type(sums)(*[a + b for a, b in zip(sums[:-1],
-                                                           extra[:-1])],
-                                  extra.n_failed)
-                rounds += 1
-            if topup_sink is not None:
-                topup_sink.write(samplefile, key_ls)
-        finally:
-            if topup_sink is not None:
-                topup_sink.close()
-        # one device -> host copy for the group
-        k, No = len(key_ls), self.n_outputs
-        flat = torch.cat([s.reshape(-1).to(torch.float64)
-                          for s in sums]).cpu().numpy()
-        parts, off = [], 0
-        for s in sums:
-            parts.append(flat[off:off + s.numel()].reshape(tuple(s.shape)))
-            off += s.numel()
-        se, sc, d1, d2, n_failed = parts
-        n_failed = int(n_failed)
+        host = self._sample_groups([key_ls], [N])[0]
         wall = time() - t0
-        st = self.sampling_stats.setdefault(
-            key_ls, {"samples": 0, "wall_s": 0.0})
-        st["samples"] += N
-        st["wall_s"] += wall
-        if n_failed > 0 and self.verbose:
-            print("WARNING! %d samples non-finite after retries (dropped)"
-                  % n_failed)
+        cost = N * self.cost if hasattr(self, "cost") else wall
+        if host is None:                       # N <= 0: nothing sampled
+            host = [t.numpy() for t in zero_sums(self.n_outputs,
+                                                  len(key_ls), "cpu")]
+        return self._reference_layout(key_ls, host, cost,
+                                      compute_mlmc_differences)
+
+    def _reference_layout(self, key_ls, host, cost,
+                          compute_mlmc_differences=False):
+        """Host sums (se, sc, d1, d2, n_failed) of one group as blue_fn
+        returns them: nested lists per output and model."""
+        k, No = len(key_ls), self.n_outputs
+        se, sc, d1, d2, _ = host
         if se.shape[-1] == 1:
             se, d1 = se[..., 0], d1[..., 0]    # scalar outputs
         sumse = [[se[n, i] for i in range(k)] for n in range(No)]
         sumsc = [sc[n] for n in range(No)]
-        cost = N * self.cost if hasattr(self, "cost") else wall
         if compute_mlmc_differences:
             sumsd1 = [[[d1[n, i, j] for j in range(k)] for i in range(k)]
                       for n in range(No)]
@@ -599,7 +603,10 @@ class BLUEProblem:
     def _host_blue_fn(self, ls, N, verbose, compute_mlmc_differences):
         """Black-box models: the host engine, serial or in a process pool
         of ``host_workers`` (x ``model_workers``) spawned workers."""
-        samplefile = self.params["samplefile"]
+        # under a mesh the host models run redundantly on every rank (same
+        # seed, same samples) and the root alone writes the snapshot file
+        samplefile = (self.params["samplefile"]
+                      if self.mesh is None or self.mesh.is_root else None)
         n_workers = int(self.params["host_workers"])
         model_workers = int(self.params["model_workers"])
         if n_workers > 1 or model_workers > 1:
@@ -617,23 +624,24 @@ class BLUEProblem:
             filename=samplefile,
             outputs_to_save=self.params["outputs_to_save"])
 
-    def _device_sums(self, key_ls, N, sink=None):
-        """Device sums of one group's N samples from a fresh stream; with
-        a ``samplefile`` the rows also go to the snapshot file (through
-        ``sink`` when the caller owns one)."""
-        seed = self._next_seed()
+    def _device_sums(self, key_ls, N, counter, first_chunk=0, sink=None):
+        """Device sums of N samples of one group, dispatched and not
+        fetched: the chunks ``first_chunk, first_chunk + 1, ...`` of call
+        ``counter``.  With a ``samplefile`` the rows also go to the
+        snapshot file (through ``sink`` when the caller owns one).  Under
+        a mesh these are this rank's partial sums, None where it holds no
+        chunk."""
+        seed = self.params["seed"]
         samplefile = self.params["samplefile"]
         if samplefile is None or N <= 0:
-            return self._sampling_engine().sample_sums(key_ls, seed, N)
-        if self._has_factored_model():
-            return self._kernel_collect_run(key_ls, seed, N, samplefile,
-                                            sink)
-        return self._group_collect_run(key_ls, seed, N, samplefile, sink)
+            return self._sampling_engine().sample_sums(
+                key_ls, seed, counter, N, first_chunk=first_chunk)
+        return self._collect_run(key_ls, counter, N, samplefile, sink,
+                                 first_chunk)
 
-    # snapshot collection holds a chunk's outputs and inputs on the device
-    # until its one host copy; bound that allocation by collecting the
-    # group engine's rows in chunks of this many samples (the factored
-    # engine hands over every device_batch_size chunk)
+    # snapshot collection holds a piece's outputs and inputs on the device
+    # until its one host copy; bound that allocation by collecting a
+    # call's rows in pieces of this many samples (whole chunks)
     _COLLECT_CHUNK = 1 << 18
     # runs projected above this many bytes of collected rows switch from
     # accumulate-on-host to an asynchronous disk spool (SnapshotSpool).
@@ -654,52 +662,52 @@ class BLUEProblem:
     def _collect_sink(self, key_ls, N, samplefile):
         """Accumulate-or-spill sink for snapshot collection; the spool
         lives next to the samplefile (the system temp dir is often
-        RAM-backed, which would defeat the memory bound)."""
+        RAM-backed, which would defeat the memory bound).  Under a mesh
+        every rank takes part in the gather of the rows (a collective)
+        and the root alone accumulates and writes them: concurrent
+        appends to one npz on a shared file system race (the reference's
+        rank-0 merge, blue_fn.py:189-222)."""
+        if self.mesh is not None and not self.mesh.is_root:
+            return snapshots.NullSink()
         sdir = os.path.dirname(os.path.abspath(samplefile)) or None
         return snapshots.CollectSink(
             self.n_outputs, len(key_ls), N, self._collect_spill_bytes,
             outputs_to_save=self.params["outputs_to_save"], tmpdir=sdir)
 
-    def _kernel_collect_run(self, key_ls, seed, N, samplefile, sink=None):
-        """Factored-engine sampling with snapshot collection: each chunk's
-        finite rows stream through a CollectSink; returns the sums.  With
-        an external ``sink`` the caller owns the write and close."""
-        own = sink is None
-        if own:
-            sink = self._collect_sink(key_ls, N, samplefile)
-        try:
-            sums = self._sampling_engine().sample_sums(
-                key_ls, seed, N, on_chunk=sink.add)
-            if own:
-                sink.write(samplefile, key_ls)
-        finally:
-            if own:
-                sink.close()
-        return sums
-
-    def _group_collect_run(self, key_ls, seed, N, samplefile, sink=None):
-        """Group-engine sampling with snapshot collection, in chunks of
-        ``_COLLECT_CHUNK`` samples (one device -> host copy each), each
-        from its own stream; the finite rows -- the accepted draws' inputs
-        -- go to the sink.  Returns the summed sums."""
+    def _collect_run(self, key_ls, counter, N, samplefile, sink=None,
+                     first_chunk=0):
+        """Sampling with snapshot collection, for either engine, in pieces
+        of about ``_COLLECT_CHUNK`` samples (whole chunks; one device ->
+        host copy of the rows each, so neither the card nor the host holds
+        more than a piece outside the sink).  The pieces go on through the
+        chunk streams of the call and fold into one running sum, so the
+        sums equal those of the same call without a samplefile.  The
+        finite rows -- for the group engine the accepted draws' inputs --
+        go to the sink, under a mesh gathered from all ranks in chunk
+        order.  With an external ``sink`` the caller owns the write and
+        close."""
         engine = self._sampling_engine()
+        piece = max(self._COLLECT_CHUNK // engine.batch, 1) * engine.batch
         total = None
         own = sink is None
         if own:
             sink = self._collect_sink(key_ls, N, samplefile)
         try:
-            for i, base in enumerate(range(0, N, self._COLLECT_CHUNK)):
-                n_c = min(self._COLLECT_CHUNK, N - base)
-                seed_c = seed if i == 0 else generator_seed(seed,
-                                                            1 << 20 | i)
-                sums, vals, inputs, valid = engine.collect(key_ls, seed_c,
-                                                           n_c)
-                sel = valid.cpu().numpy()
-                vals = vals.cpu().numpy()[sel]
+            for base in range(0, N, piece):
+                n_c = min(piece, N - base)
+                total, vals, inputs, valid = engine.collect(
+                    key_ls, self.params["seed"], counter, n_c,
+                    first_chunk=first_chunk + base // engine.batch,
+                    acc=total)
+                if vals is not None:
+                    vals, inputs = vals[valid], inputs[valid]
+                if self.mesh is not None:
+                    vals, inputs = (self.mesh.fetch_rows(t)
+                                    for t in (vals, inputs))
+                vals = vals.cpu().numpy()
                 if vals.ndim == 4 and vals.shape[-1] == 1:
                     vals = vals[..., 0]
-                sink.add(vals, inputs.cpu().numpy()[sel], n_c)
-                total = sums if total is None else add_sums(total, sums)
+                sink.add(vals, inputs.cpu().numpy(), n_c)
             if own:
                 sink.write(samplefile, key_ls)
         finally:
@@ -707,15 +715,159 @@ class BLUEProblem:
                 sink.close()
         return total
 
+    # the sampling of several groups: dispatch all, then fetch once
+
+    def _dispatch_all(self, group_list, n_list):
+        """Dispatch the sampling of every (group, N > 0) in list order --
+        the call counter, hence the streams, are those of one blue_fn call
+        per group -- without fetching anything.  Returns one record per
+        group (None for N <= 0): its models, N, call counter, the chunks
+        its call has used so far and its sums on the device."""
+        out = []
+        batch = int(self.params["device_batch_size"])
+        for g, n in zip(group_list, n_list):
+            n = int(n)
+            if n <= 0:
+                out.append(None)
+                continue
+            key_ls = tuple(int(l) for l in g)
+            counter = self._call_counter
+            self._call_counter += 1
+            out.append({"ls": key_ls, "N": n, "counter": counter,
+                        "chunks": math.ceil(n / batch), "sink": None,
+                        "sums": self._device_sums(key_ls, n, counter)})
+        return out
+
+    def _sums_to_host(self, flat: torch.Tensor) -> np.ndarray:
+        """The one device -> host copy of a fetch round."""
+        return flat.cpu().numpy()
+
+    def _batch_fetch_sums(self, dispatched):
+        """One fetch for the sums of every dispatched group: one flat f64
+        tensor (counts below 2^53 are exact in f64), under a mesh one
+        ``all_reduce`` of it over the sample ranks, one copy to the host.
+        Returns host sums [se, sc, d1, d2, n_failed] aligned with
+        ``dispatched`` (None entries preserved)."""
+        live = [d for d in dispatched if d is not None]
+        if not live:
+            return [None] * len(dispatched)
+        if self.mesh is not None and self._output_dim is None:
+            # a rank that held no chunk yet has not seen the model's
+            # output dimension, which sizes its zeros: agree on it once
+            d = max([x["sums"].sumse.shape[-1] for x in live
+                     if x["sums"] is not None], default=0)
+            self._output_dim = int(self.mesh.all_reduce_samples(
+                torch.tensor([d], device=self.device), op="max")[0])
+        sums = [x["sums"] if x["sums"] is not None
+                else zero_sums(self.n_outputs, len(x["ls"]), self.device,
+                               self._output_dim) for x in live]
+        flat = torch.cat([t.reshape(-1).to(F64) for s in sums for t in s])
+        if self.mesh is not None:
+            flat = self.mesh.all_reduce_samples(flat)
+        flat = self._sums_to_host(flat)
+        fetched, off = [], 0
+        for s in sums:
+            parts = []
+            for t in s:
+                parts.append(flat[off:off + t.numel()].reshape(
+                    tuple(t.shape)))
+                off += t.numel()
+            parts[-1] = int(parts[-1])
+            fetched.append(parts)
+        fetched = iter(fetched)
+        return [None if d is None else next(fetched) for d in dispatched]
+
+    def _attribute_batch_wall(self, dispatched, wall):
+        """Distribute the shared dispatch-and-fetch wall across the
+        dispatched groups pro rata by sample count (the sums arrive in one
+        fetch, so no per-group wall exists to measure)."""
+        total = sum(d["N"] for d in dispatched if d is not None)
+        for d in dispatched:
+            if d is None:
+                continue
+            st = self.sampling_stats.setdefault(
+                d["ls"], {"samples": 0, "wall_s": 0.0})
+            st["samples"] += d["N"]
+            st["wall_s"] += wall * d["N"] / total
+
+    def _sample_groups(self, group_list, n_list):
+        """Host sums [se, sc, d1, d2, n_failed] of every (group, N), None
+        for N <= 0: all groups dispatched, then fetched at once.
+
+        Non-finite samples are masked out of the sums, but the estimators
+        divide by the requested N: after the fetch, the groups that lost
+        samples draw the deficit from the next chunks of their own call
+        (no new call counter, so a group's sums do not depend on which
+        groups were sampled with it) and the top-ups are fetched together
+        again, for at most 4 rounds (the reference resamples until all N
+        are finite, blue_fn.py:118-129).  The top-up rows reach the
+        snapshot file too, through one sink per group for all rounds.
+        Under a mesh every rank holds the same sums after a fetch and so
+        takes the same decisions."""
+        t0 = time()
+        samplefile = self.params["samplefile"]
+        batch = int(self.params["device_batch_size"])
+        disp = self._dispatch_all(group_list, n_list)
+        host = self._batch_fetch_sums(disp)
+        try:
+            for _ in range(4):
+                again = [i for i, h in enumerate(host)
+                         if h is not None and h[-1] > 0]
+                if not again:
+                    break
+                for i in again:
+                    d, deficit = disp[i], host[i][-1]
+                    if samplefile is not None and d["sink"] is None:
+                        d["sink"] = self._collect_sink(d["ls"], deficit,
+                                                       samplefile)
+                    d["sums"] = self._device_sums(
+                        d["ls"], deficit, d["counter"],
+                        first_chunk=d["chunks"], sink=d["sink"])
+                    d["chunks"] += math.ceil(deficit / batch)
+                extra = self._batch_fetch_sums(
+                    [d if i in again else None for i, d in enumerate(disp)])
+                for i in again:
+                    host[i] = [a + b for a, b in zip(host[i][:-1],
+                                                     extra[i][:-1])] \
+                        + [extra[i][-1]]
+            for d in disp:
+                if d is not None and d["sink"] is not None:
+                    d["sink"].write(samplefile, d["ls"])
+        finally:
+            for d in disp:
+                if d is not None and d["sink"] is not None:
+                    d["sink"].close()
+        self._attribute_batch_wall(disp, time() - t0)
+        for h in host:
+            if h is not None and h[-1] > 0 and self.verbose:
+                print("WARNING! %d samples non-finite after retries "
+                      "(dropped)" % h[-1])
+        return host
+
     def _pipelined_sumse(self, group_list, n_list):
-        """Per-(group, N) sumse, None for N == 0: the sum fetch of the
-        MLMC/MFMC estimators (one device -> host copy per group on the
-        device path, the host engine's progress per level on the host
-        path)."""
-        return [self.blue_fn(g, int(n))[0] if n > 0 else None
-                for g, n in zip(group_list, n_list)]
+        """Per-(group, N) sumse, None for N == 0: torch models dispatch
+        every group before the one fetch (``_sample_groups``); black-box
+        models keep the host engine's progress per level."""
+        if not self._has_torch_model():
+            return [self.blue_fn(g, int(n))[0] if n > 0 else None
+                    for g, n in zip(group_list, n_list)]
+        host = self._sample_groups(group_list, n_list)
+        return [None if h is None
+                else self._reference_layout(g, h, None)[0]
+                for g, h in zip(group_list, host)]
 
     # ----------------------------- solvers ----------------------------- #
+
+    def prewarm_solver(self, K=4, background=False, budget=None,
+                       max_model_samples=None):
+        """Build the allocation structure (groups, psi assembly) that a
+        later ``setup_solver(K=...)`` will use, so that call reuses it,
+        and return its group count L.  The JAX package also traces and
+        compiles its cone programs here; eager PyTorch has nothing to
+        compile, so ``background``, ``budget`` and ``max_model_samples``
+        are accepted and unused."""
+        del background, budget, max_model_samples
+        return self._ensure_mosap(K, None).L
 
     def _ensure_mosap(self, K, multi_groups):
         """Build (or reuse from the structure cache) the MOSAP for this
@@ -816,6 +968,14 @@ class BLUEProblem:
                          continuous_relaxation=continuous_relaxation,
                          max_model_samples=max_model_samples,
                          solver_params=optimization_solver_params)
+        if self.mesh is not None:
+            # every rank solved the same allocation, but the integer
+            # cleanup turns on 1e-15 changes of its input: take the root's,
+            # so that no rank can sample another allocation
+            m = self.MOSAP
+            m.samples, m.continuous_solution, m.tot_cost = \
+                self.mesh.broadcast_from_root(
+                    (m.samples, m.continuous_solution, m.tot_cost))
         if self.MOSAP.samples is None:
             self.MOSAP_output = None
             raise BLUESTError("MOSAP solution failed!")
@@ -893,20 +1053,31 @@ class BLUEProblem:
         done_N = 0
         t0 = time()
         sums = [[] for _ in range(self.n_outputs)]
-        for ls, N in zip(flattened_groups, sample_list):
-            if N == 0:
+        pipelined = self._has_torch_model()
+        trace_dir = self.params["profile_dir"]
+        with device_trace(trace_dir) if trace_dir else nullcontext():
+            # torch models: every group is dispatched before the one fetch
+            # of all their sums; black-box models sample group by group
+            sumse_list = (self._pipelined_sumse(flattened_groups, sample_list)
+                          if pipelined else None)
+            for gi, (ls, N) in enumerate(zip(flattened_groups, sample_list)):
+                if N == 0:
+                    for n in range(self.n_outputs):
+                        sums[n].append([0 for _ in range(len(ls))])
+                    continue
+                if pipelined:
+                    sumse = sumse_list[gi]
+                else:
+                    sumse, _, _ = self.blue_fn(ls, int(N), verbose=verbose)
                 for n in range(self.n_outputs):
-                    sums[n].append([0 for _ in range(len(ls))])
-                continue
-            sumse, _, _ = self.blue_fn(ls, int(N), verbose=verbose)
-            for n in range(self.n_outputs):
-                sums[n].append(sumse[n])
-            done_groups += 1
-            done_N += int(N)
-            if self.verbose and verbose:
-                print("  group %s: %d samples | %d/%d groups, %d/%d samples"
-                      % (list(ls), int(N), done_groups, n_active, done_N,
-                         total_N), flush=True)
+                    sums[n].append(sumse[n])
+                done_groups += 1
+                done_N += int(N)
+                if self.verbose and verbose:
+                    print("  group %s: %d samples | %d/%d groups, %d/%d "
+                          "samples" % (list(ls), int(N), done_groups,
+                                       n_active, done_N, total_N),
+                          flush=True)
         if self.verbose and verbose and total_N:
             wall = max(time() - t0, 1e-9)
             print("  estimation: %d samples in %.2fs (%.0f samples/s)"

@@ -5,8 +5,12 @@ its combiner) and of ``SampleSums`` (``jax_engine.py:34``).  For a group
 ``ls`` of models and N samples, each chunk of up to ``batch_size``
 samples
 
-  * draws the random inputs ONCE from the group's ``torch.Generator`` on
-    the problem's device,
+  * draws the random inputs ONCE on the problem's device, from a
+    ``torch.Generator`` seeded for this chunk alone
+    (``generator_seed(seed, counter, chunk_index)``): what chunk c holds
+    depends on no chunk before it, so any rank can start in the middle --
+    the property ``fold_in(key, global_index)`` gives the JAX engines, at
+    chunk granularity,
   * evaluates every model of the group on that same input tensor -- the
     coupling that ``fold_in(key, idx)`` gives the JAX engine -- and
   * folds the outputs into the MLBLUE sums in float64 on the device:
@@ -14,16 +18,24 @@ samples
     rows whose index is >= N or whose outputs are non-finite weighted 0
     (non-finite rows are counted in ``n_failed``).
 
-The sums stay on the device; the caller copies them to the host once per
-group.  With ``on_chunk`` (snapshot collection, the counterpart of
-``KernelEngineV2.sample_sums(collect=True, on_chunk=...)``) each chunk's
-finite rows -- outputs and flattened inputs -- also go to the host, so
-the snapshot rows are exactly the samples the sums cover.
+The sums stay on the device; the caller copies the sums of all its
+groups to the host in one piece.  Under a mesh of R sample ranks
+(``parallel/mesh.py``) rank r takes a contiguous block of whole chunks of
+the call and returns its partial sums -- ``None`` when it holds no chunk;
+the caller adds the ranks' sums with one ``all_reduce``.  ``collect``
+(snapshot collection, the counterpart of
+``KernelEngineV2.sample_sums(collect=True, on_chunk=...)``) also returns
+the rows of this rank's chunks -- outputs, flattened inputs and the mask
+of the finite rows, which are exactly the samples the sums cover -- on
+the device; the caller collects a call in bounded pieces of whole chunks
+and under a mesh gathers each piece's rows in rank order, which is chunk
+order.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Sequence
+import math
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,12 +51,26 @@ class SampleSums(NamedTuple):
     n_failed: torch.Tensor    # non-finite samples (int64 scalar)
 
 
-def generator_seed(seed: int, counter: int) -> int:
-    """64-bit generator seed for call ``counter`` of a problem seeded with
-    ``seed``: distinct counters give independent, reproducible streams."""
-    s = np.random.SeedSequence([int(seed), int(counter)]).generate_state(
-        2, dtype=np.uint32)
+def generator_seed(seed: int, counter: int, chunk_index: int = 0) -> int:
+    """64-bit generator seed for chunk ``chunk_index`` of call ``counter``
+    of a problem seeded with ``seed``: distinct counters and distinct
+    chunks give independent, reproducible streams."""
+    s = np.random.SeedSequence(
+        [int(seed), int(counter), int(chunk_index)]).generate_state(
+            2, dtype=np.uint32)
     return (int(s[0]) << 32) | int(s[1])
+
+
+def rank_chunks(n_chunks: int, mesh=None) -> range:
+    """The chunks of a call that this rank evaluates: all of them without
+    a mesh, else the contiguous block ``[r per, (r + 1) per)`` of sample
+    rank r, ``per = ceil(n_chunks / R)`` (empty for a rank past the
+    end)."""
+    if mesh is None:
+        return range(n_chunks)
+    per = -(-n_chunks // mesh.n_sample)
+    lo = min(mesh.sample_rank * per, n_chunks)
+    return range(lo, min(lo + per, n_chunks))
 
 
 def combine(outs: torch.Tensor, base: int, N: int) -> SampleSums:
@@ -73,7 +99,12 @@ def combine(outs: torch.Tensor, base: int, N: int) -> SampleSums:
     return SampleSums(se, sc, d1, d2, nf)
 
 
-def add_sums(a: SampleSums, b: SampleSums) -> SampleSums:
+def add_sums(a: Optional[SampleSums],
+             b: Optional[SampleSums]) -> Optional[SampleSums]:
+    """Elementwise sum; ``None`` (a rank that held no chunk) adds
+    nothing."""
+    if a is None or b is None:
+        return b if a is None else a
     return SampleSums(*[x + y for x, y in zip(a, b)])
 
 
@@ -115,7 +146,7 @@ class SamplingEngine:
     ``l``'s outputs, shape (n, No) or (n, No, d)."""
 
     def __init__(self, sample_inputs: Callable, evaluate_model: Callable,
-                 No: int, batch_size: int, device):
+                 No: int, batch_size: int, device, mesh=None):
         if int(batch_size) < 1:
             raise ValueError("batch_size must be >= 1, got %s" % batch_size)
         self.sample_inputs = sample_inputs
@@ -123,33 +154,55 @@ class SamplingEngine:
         self.No = int(No)
         self.batch = int(batch_size)
         self.device = check_device(device)
+        self.mesh = mesh
 
-    def sample_sums(self, ls: Sequence[int], seed: int, N: int,
-                    on_chunk: Optional[Callable] = None) -> SampleSums:
-        """MLBLUE sums of group ``ls`` over N coupled samples drawn from a
-        generator seeded with ``seed``.  Returns device tensors.  With
-        ``on_chunk(vals, inputs, attempted_rows)`` each chunk's finite
-        rows are handed over as numpy arrays: ``vals`` (rows, No, k[, d])
-        and ``inputs`` (rows, q)."""
-        ls = [int(l) for l in ls]
-        N = int(N)
-        if N <= 0:
-            return zero_sums(self.No, len(ls), self.device)
+    def _chunks(self, ls, seed: int, counter: int, N: int, first_chunk: int):
+        """This rank's chunks of the call: chunk c draws from the stream
+        ``(seed, counter, first_chunk + c)``."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        acc = None
-        for base in range(0, N, self.batch):
+        for c in rank_chunks(math.ceil(N / self.batch), self.mesh):
+            base = c * self.batch
             n_c = min(self.batch, N - base)
+            gen.manual_seed(generator_seed(seed, counter, first_chunk + c))
             theta = self.sample_inputs(gen, n_c)
             outs = torch.stack([self.evaluate_model(l, theta) for l in ls])
-            part = combine(outs, base, N)
-            acc = part if acc is None else add_sums(acc, part)
-            if on_chunk is not None:
-                # drop non-finite rows: the combiner masks them out of the
-                # sums and the problem's top-up resamples the deficit, so
-                # the snapshot rows equal the samples the sums cover
-                vals = outs.movedim(0, 2)                  # (n_c, No, k[, d])
-                sel = finite_rows(vals).cpu().numpy()
-                on_chunk(vals.cpu().numpy()[sel],
-                         flat_inputs(theta).cpu().numpy()[sel], n_c)
+            yield theta, outs, combine(outs, base, N)
+
+    def sample_sums(self, ls: Sequence[int], seed: int, counter: int, N: int,
+                    first_chunk: int = 0) -> Optional[SampleSums]:
+        """MLBLUE sums of group ``ls`` over N coupled samples; chunk c
+        draws from the stream ``(seed, counter, first_chunk + c)``.
+        Returns device tensors: this rank's partial sums under a mesh,
+        ``None`` where it holds no chunk."""
+        ls = [int(l) for l in ls]
+        N = int(N)
+        acc = zero_sums(self.No, len(ls), self.device) if N <= 0 else None
+        for _theta, _outs, part in self._chunks(ls, seed, counter, N,
+                                                first_chunk):
+            acc = add_sums(acc, part)
         return acc
+
+    def collect(self, ls: Sequence[int], seed: int, counter: int, N: int,
+                first_chunk: int = 0, acc: Optional[SampleSums] = None
+                ) -> Tuple[Optional[SampleSums], Optional[torch.Tensor],
+                           Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """``sample_sums`` that also returns every row's outputs ``vals``
+        (N, No, k[, d]), flattened inputs (N, q) and the (N,) mask of the
+        finite rows -- the combiner masks the others out of the sums and
+        the problem's top-up resamples the deficit, so the finite rows
+        equal the samples the sums cover -- all on the device.  Under a
+        mesh these are this rank's rows, ``None`` where it holds no
+        chunk.  The chunks' sums are folded onto ``acc`` (the running sums
+        of the earlier pieces of one call), in chunk order."""
+        ls = [int(l) for l in ls]
+        N = int(N)
+        vals, inputs = [], []
+        for theta, outs, part in self._chunks(ls, seed, counter, N,
+                                              first_chunk):
+            acc = add_sums(acc, part)
+            vals.append(outs.movedim(0, 2))
+            inputs.append(flat_inputs(theta))
+        if not vals:
+            return acc, None, None, None
+        vals = torch.cat(vals)
+        return acc, vals, torch.cat(inputs), finite_rows(vals)

@@ -14,7 +14,10 @@ torch overloads:
 
 For a group and N samples each chunk of up to ``batch_size`` rows draws
 and evaluates once, then redraws only the rows whose outputs are not
-finite, up to ``max_resample`` rounds, from the same generator: the
+finite, up to ``max_resample`` rounds, from the chunk's own stream
+(``generator_seed(seed, counter, chunk_index)``, so that what a chunk
+holds depends on no chunk before it and a rank of a mesh can take any
+block of chunks): the
 finite rows keep their inputs and outputs (the JAX engine's per-sample
 ``fold_in`` resample, ``jax_engine.py:42-62``).  Each round evaluates
 the whole group once, whatever its row count, and a model integrated by
@@ -32,12 +35,13 @@ engine's (``engine.combine``).
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from .engine import (SampleSums, add_sums, check_device, combine,
-                     finite_rows, flat_inputs, zero_sums)
+                     finite_rows, flat_inputs, generator_seed, rank_chunks,
+                     zero_sums)
 
 
 def _take_rows(inputs, idx):
@@ -58,7 +62,8 @@ class GroupEngine:
     """Coupled sampling of groups of a coupled-group model on one device."""
 
     def __init__(self, sample_group: Callable, evaluate_group: Callable,
-                 No: int, batch_size: int, device, max_resample: int = 64):
+                 No: int, batch_size: int, device, max_resample: int = 64,
+                 mesh=None):
         if int(batch_size) < 1:
             raise ValueError("batch_size must be >= 1, got %s" % batch_size)
         self.sample_group = sample_group
@@ -67,6 +72,7 @@ class GroupEngine:
         self.batch = int(batch_size)
         self.device = check_device(device)
         self.max_resample = max(int(max_resample), 0)
+        self.mesh = mesh
 
     def redraw_rows(self, n_bad: int, drawn: int, accepted: int) -> int:
         """Candidates to draw for ``n_bad`` failing rows when ``accepted``
@@ -102,38 +108,53 @@ class GroupEngine:
             ok = ok.index_fill(0, take, True)
         return inputs, outs, ok
 
-    def _chunks(self, ls, seed: int, N: int):
+    def _chunks(self, ls, seed: int, counter: int, N: int, first_chunk: int):
+        """This rank's chunks of the call: chunk c draws, and redraws, from
+        the stream ``(seed, counter, first_chunk + c)``; the resample
+        rounds are local to the rank (no collective inside)."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        for base in range(0, N, self.batch):
+        for c in rank_chunks(math.ceil(N / self.batch), self.mesh):
+            base = c * self.batch
             n_c = min(self.batch, N - base)
+            gen.manual_seed(generator_seed(seed, counter, first_chunk + c))
             inputs, outs, ok = self.draw(gen, ls, n_c)
             # combine masks non-finite rows itself; the rows are model-major
-            yield base, inputs, outs, ok, combine(outs.movedim(2, 0), base, N)
+            yield inputs, outs, ok, combine(outs.movedim(2, 0), base, N)
 
-    def sample_sums(self, ls: Sequence[int], seed: int, N: int) -> SampleSums:
-        """MLBLUE sums of group ``ls`` over N coupled samples drawn from a
-        generator seeded with ``seed``.  Returns device tensors."""
+    def sample_sums(self, ls: Sequence[int], seed: int, counter: int, N: int,
+                    first_chunk: int = 0) -> Optional[SampleSums]:
+        """MLBLUE sums of group ``ls`` over N coupled samples of the
+        streams ``(seed, counter, first_chunk + c)``.  Returns device
+        tensors: this rank's partial sums under a mesh, ``None`` where it
+        holds no chunk."""
         ls = tuple(int(l) for l in ls)
         N = int(N)
         acc = zero_sums(self.No, len(ls), self.device) if N <= 0 else None
-        for _base, _inputs, _outs, _ok, part in self._chunks(ls, seed, N):
-            acc = part if acc is None else add_sums(acc, part)
+        for _inputs, _outs, _ok, part in self._chunks(ls, seed, counter, N,
+                                                      first_chunk):
+            acc = add_sums(acc, part)
         return acc
 
-    def collect(self, ls: Sequence[int], seed: int, N: int
-                ) -> Tuple[SampleSums, torch.Tensor, torch.Tensor,
-                           torch.Tensor]:
+    def collect(self, ls: Sequence[int], seed: int, counter: int, N: int,
+                first_chunk: int = 0, acc: Optional[SampleSums] = None
+                ) -> Tuple[Optional[SampleSums], Optional[torch.Tensor],
+                           Optional[torch.Tensor], Optional[torch.Tensor]]:
         """``sample_sums`` that also returns every row's outputs
         ``vals`` (N, No, L[, d]), flattened inputs (N, q) -- the accepted
         draw's -- and the (N,) mask of the finite rows the sums cover, all
-        on the device (``build_group_collect_engine``)."""
+        on the device (``build_group_collect_engine``).  Under a mesh
+        these are this rank's rows, ``None`` where it holds no chunk.
+        The chunks' sums are folded onto ``acc`` (the running sums of the
+        earlier pieces of one call), in chunk order."""
         ls = tuple(int(l) for l in ls)
         N = int(N)
-        acc, vals, inputs, valid = None, [], [], []
-        for _base, inp, outs, ok, part in self._chunks(ls, seed, N):
-            acc = part if acc is None else add_sums(acc, part)
+        vals, inputs, valid = [], [], []
+        for inp, outs, ok, part in self._chunks(ls, seed, counter, N,
+                                                first_chunk):
+            acc = add_sums(acc, part)
             vals.append(outs)
             inputs.append(flat_inputs(inp))
             valid.append(ok)
+        if not vals:
+            return acc, None, None, None
         return acc, torch.cat(vals), torch.cat(inputs), torch.cat(valid)

@@ -282,9 +282,9 @@ class SnapshotSpool:
 class CollectSink:
     """Accumulate collected snapshot chunks, spilling to a
     :class:`SnapshotSpool` once the projected run volume crosses a
-    threshold.  Shared by the group-engine chunk loop and the kernel
-    engine's per-bucket ``on_chunk`` callback, so every snapshot path is
-    memory-bounded the same way.
+    threshold.  Fed by ``BLUEProblem._collect_run``'s piece loop for both
+    device engines, so every snapshot path is memory-bounded the same
+    way.
 
     ``add`` takes each chunk's valid rows plus the number of rows the
     chunk *attempted* (>= valid), which anchors the projection of the

@@ -63,6 +63,44 @@ class ConeLPResult(NamedTuple):
                                   #  warm_start, wall_s, ...}
 
 
+def ipm_iteration_flops(dims: dict) -> float:
+    """Estimated f64 flops of ONE IPM iteration from the problem dims
+    recorded in ``ConeLPResult.dims`` (documented model, ~2x accuracy --
+    for achieved-FLOP/s reporting, not for exact op counts).  Copy of the
+    JAX package's arithmetic.
+
+    Per iteration the solver refactors the normal matrix once and runs
+    ~4 solves against it (predictor, corrector, tau border, centering
+    fallback), plus batched NT scaling algebra on the (nb, n, n) PSD
+    blocks (cholesky x2, SVD, eigh line searches ~ 20 n^3 each).
+
+    Woodbury path: capacitance build ``W^T (W/d0)`` = 2 nx r^2, Cholesky
+    r^3/3, and each solve pays (1 + _WOOD_REFINE) refinement rounds of
+    one implicit solve + one matvec ~ 8 nx r each.
+
+    Dense path: Hmat formation 2 nb nx^2 n^2 + nx^3/3 factorization +
+    solves ~ 4 x 2 nx^2.
+    """
+    nx = float(dims["nx"])
+    nb = float(dims["nb"])
+    n = float(dims["n"])
+    r = float(dims.get("rank", 0))
+    nt = nb * 20.0 * n ** 3
+    if dims.get("woodbury"):
+        n_ref = 1.0 + _WOOD_REFINE
+        return (2.0 * nx * r * r + r ** 3 / 3.0
+                + 4.0 * n_ref * 8.0 * nx * r + nt)
+    return 2.0 * nb * nx * nx * n * n + nx ** 3 / 3.0 + 8.0 * nx * nx + nt
+
+
+def prewarm_mlblue(L: int, No: int, n: int,
+                   budget_epigraph: bool = False, n_caps: int = 0) -> None:
+    """The JAX package traces and compiles its fused IPM program for an
+    MLBLUE shape class here.  The port's IPM is an eager loop with
+    nothing to compile: kept for callers' scripts, returns at once."""
+    del L, No, n, budget_epigraph, n_caps
+
+
 def _sym(A):
     return (A + A.transpose(-1, -2)) / 2
 

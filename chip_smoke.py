@@ -14,8 +14,14 @@ Phases (any failure raises, so the exit code is non-zero):
      every flagship grid, over B at n=1024, and in f64;
   4. drive the flagship end to end on the default device (the card):
      pilot (4096 samples) + SPD projection, setup_solver(K=4) with the
-     budget calibrated to ~1e6 samples, solve(); check the certificate,
-     the estimates and that the model evaluations went through K1;
+     budget calibrated to ~1e6 samples, solve() (all groups dispatched,
+     then one fetch of their sums); check the certificate, the estimates
+     and that the model evaluations went through K1; then the same
+     allocation seven times through solve(), through its fetch alone
+     (_pipelined_sumse: no estimator assembly) and through a loop of
+     blue_fn calls (the per-group path), in turns: the median and spread
+     of each, and the two paths' sums bit-equal from the same call
+     counters (two problems loaded from the saved graph);
   5. target RMSE on the same problem, at eps* = the largest error of
      phase 4's integer budget solve: setup_solver(K=4, eps=eps*) (cost
      within 2% of phase 4's, tolerance met, no NLP fallback), then
@@ -23,7 +29,14 @@ Phases (any failure raises, so the exit code is non-zero):
      its error bar and against MLBLUE's, each path's model evaluations
      counted through K1 -- then complexity_test([2 eps*, eps*, eps*/2])
      (rate in [1.9, 2.1]) and variance_test(eps=2 eps*, N=20)
-     (err/err_ex in [0.5, 1.6]);
+     (err/err_ex in [0.5, 1.6]).  Every estimator draws from the seed and
+     call counter the entry points give it.  MC runs twice: on the f32
+     problem, measured and not gated (the f32 model at n=1024 breaks down
+     on rare draws, which ~2.5e5 draws of the finest model meet often:
+     a line gives its estimate, how many of its draws' q_energy values
+     are off the f64 model's on the same inputs, and the f64 mean of
+     those draws, which is gated), and on the f64 problem at the same
+     width through K1's f64 instantiation, which carries MC's gates;
   6. user models on the card, each part timed:
      (a) Matern 2D at its default grids (64, 32, 16, 8), f64: 4096-sample
          pilot, setup_solver(K=4, eps) and solve(); the card's outputs
@@ -50,11 +63,13 @@ Phases (any failure raises, so the exit code is non-zero):
      (a) on phase 6(a)'s Matern problem, setup_solver(K=4, eps, solver=s,
          continuous_relaxation=True) for s in sdp, admm, spg, scipy: every
          tolerance met, ADMM and scipy costs within 1e-3 of the IPM's,
-         SPG within 10%, no NLP fallback; the Newton polish
-         (solver_params={"polish": True}) of the IPM and ADMM points:
-         stationarity <= 1e-9 and the two polished costs within 1e-8; an
+         SPG within 10%, no NLP fallback; the Newton polish of the IPM
+         point (solver_params={"polish": True}) and of the ADMM point:
+         stationarity <= 1e-9 and the two polished costs within 1e-8; the
          integer ADMM allocation sampled on the card, within 4 error bars
-         of phase 6(a)'s MC reference;
+         of phase 6(a)'s MC reference.  ADMM's set-up runs once, through
+         setup_solver with the polish and the integer projection: the
+         point it hands to the polish serves the cost comparison;
      (b) on phase 4's problem, two rebuilds of the budget allocation, the
          IPM's warm-start cache emptied before the first: the second
          starts warm, takes fewer iterations and gives the same
@@ -62,12 +77,31 @@ Phases (any failure raises, so the exit code is non-zero):
          K1 (the kernel line's "mlblue_polished" launches), estimates
          within 4 error bars of phase 4's; solver="spg" at phase 4's
          budget: feasible, its max-variance over the IPM's logged.
+  8. distribution, on the one card (problems loaded from phase 4's saved
+     graph, so no pilot is paid again):
+     (a) a world of one rank, backend nccl, mesh=sample_mesh(): the
+         flagship allocation and solve through the mesh path; the sums
+         equal the mesh-less sums bit for bit, K1's launches equal the
+         chunk evaluations, one all_reduce and one copy per fetch;
+     (b) two ranks spawned with torch.multiprocessing, both on the one
+         card, backend gloo named explicitly (NCCL refuses two ranks on
+         one device; the reduced tensor is a few kilobytes, so its host
+         copy is reduced): the flagship allocation (rank 0's, broadcast)
+         and solve; the sums equal the one-process sums to 1e-12
+         relative, the ranks' K1 launches add up to the one-process
+         count; then phase 6(c)'s snapshot solve under the two ranks: the
+         files, written by rank 0 alone, hold the one-process rows.  K1
+         was built in phase 2, so the ranks load it.  A rank that fails
+         fails the run.
+     The model axis needs a card per rank for NCCL and is not run here.
 The second-to-last line is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.
 
 With --profile, one more budget solve after phase 4 runs under
 torch.profiler and a line gives K1's device time, the device's busy share
-of the solve's wall and the largest device items.  It is the standing
+of the solve's wall and the largest device items; a further solve runs
+under torch.cuda.set_sync_debug_mode("warn") and a line lists the
+synchronising calls that are left, by call site.  It is the standing
 source of PERF.md's busy-share metric (the sampling layer's), measured
 again after every change to the sampling path or K1; the plain run
 leaves it out, so the profiler's cost never enters its other numbers.
@@ -75,10 +109,13 @@ leaves it out, so the profiler's cost never enters its other numbers.
 
 import json
 import os
+import socket
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 GRIDS = (1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
 N_KL = 32
@@ -115,6 +152,10 @@ HH_MC = 16384
 SNAP_BUDGET = 2.0e4
 HOST_PILOT = 1024
 HOST_EPS = 0.02
+# phase 4: repeated solves per path; phase 8: seconds a rank waits for
+# another in a collective before it fails
+PATH_REPS = 7
+RANK_TIMEOUT_S = 180
 
 
 def log(*a):
@@ -135,7 +176,7 @@ def phase_device():
     log(smi)
     log("torch", torch.__version__, "cuda", torch.version.cuda,
         "python", sys.version.split()[0])
-    return name
+    return name, smi
 
 
 def phase_build():
@@ -296,9 +337,71 @@ def _total_samples(problem):
     return int(sum(int(n) for n in problem.MOSAP_output["samples"]))
 
 
-def phase_flagship():
+def _both_paths(problem, budget, smi, graph):
+    """The same allocation through solve() (dispatch all groups, fetch
+    once) and through a loop of blue_fn calls (one fetch per group), in
+    one process, alternating: sample_s of each, and the sums of the two
+    from the same call counters, which must be bit-equal (two problems
+    loaded from the saved graph, so both count their calls from 0)."""
+    import numpy as np
+    import torch
+    out = problem.MOSAP_output
+    groups = [list(g) for g in out["flattened_groups"]]
+    ns = [int(n) for n in out["samples"]]
+
+    def per_group(p=problem):
+        return [p.blue_fn(g, n, verbose=False)[0] if n > 0 else None
+                for g, n in zip(groups, ns)]
+
+    a = _flagship_from_graph(graph)._pipelined_sumse(groups, ns)
+    b = per_group(_flagship_from_graph(graph))
+    same = all((x is None and y is None)
+               or np.array_equal(np.array(x), np.array(y))
+               for x, y in zip(a, b))
+    if not same:
+        raise AssertionError("the pipelined sums differ from the per-group "
+                             "path's from the same call counter")
+    # solve() also assembles the BLUE estimators on the host, which the
+    # loop does not: the fetch alone (_pipelined_sumse) is timed beside them
+    times = {"solve": [], "one fetch": [], "blue_fn loop": []}
+    for _ in range(PATH_REPS):
+        for name, run in (
+                ("solve", lambda: problem.solve(K=K, budget=budget,
+                                                verbose=False)),
+                ("one fetch", lambda: problem._pipelined_sumse(groups, ns)),
+                ("blue_fn loop", per_group)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    for name, ts in times.items():
+        log("sample_s through %-12s: median %.6f s, min %.6f, max %.6f over "
+            "%d runs of %d active groups (%s)"
+            % (name, statistics.median(ts), min(ts), max(ts), len(ts),
+               sum(n > 0 for n in ns), smi))
+    log("pipelined and per-group sums bit-equal over %d groups"
+        % sum(n > 0 for n in ns))
+    # what the chunk-keyed streams cost the host: one derived seed and one
+    # re-seeding of the card's generator per chunk
+    from bluest_tpu_torch.sampling.engine import generator_seed
+    import math
+    gen = torch.Generator(device=problem.device)
+    reps = 2000
+    t0 = time.perf_counter()
+    for c in range(reps):
+        gen.manual_seed(generator_seed(0, 1, c))
+    per_chunk = (time.perf_counter() - t0) / reps
+    chunks = sum(math.ceil(n / BATCH) for n in ns)
+    log("chunk-keyed streams: %.2f us per chunk to derive a seed and re-seed "
+        "the generator, %d chunks a solve = %.3f ms of its sample_s"
+        % (per_chunk * 1e6, chunks, per_chunk * chunks * 1e3))
+
+
+def phase_flagship(smi, graph):
     """The bench.py flagship through the port's public entry points, on
-    the default sampling device."""
+    the default sampling device; its graph (covariances and costs) is
+    saved to ``graph`` for the phases that load it without a pilot."""
     import math
     import numpy as np
     import torch
@@ -396,6 +499,8 @@ def phase_flagship():
     if launches < chunk_evals or launches == 0:
         raise AssertionError("K1 launched %d times for %d chunk evaluations"
                              % (launches, chunk_evals))
+    problem.save_graph_data(graph)
+    _both_paths(problem, budget, smi, graph)
     return {"launches": launches, "alloc_s": alloc_s, "sample_s": sample_s,
             "n_evals": n_evals, "problem": problem, "budget": budget,
             "mus": mus, "errs": errs,
@@ -429,10 +534,43 @@ def _run_path(name, run, groups_of, launches_by_path):
     return mus, errs, cost, sample_s, launches, need
 
 
-def phase_target_rmse(problem, launches_by_path):
+def _f32_mc_against_f64(problem, p64, counter, N, mus):
+    """The draws of the f32 MC estimate again (call ``counter`` of the
+    problem's seed, chunk by chunk), through the f32 model and through the
+    f64 model on the same inputs: how many of the f32 ``q_energy`` values
+    are off, the worst, and the f64 mean of these very draws."""
+    import math
+    import numpy as np
+    import torch
+    from bluest_tpu_torch.sampling.engine import generator_seed
+    gen = torch.Generator(device=problem.device)
+    over = {0.01: 0, 1.0: 0, 100.0: 0}
+    worst = torch.zeros((), dtype=torch.float64, device=problem.device)
+    s32 = torch.zeros(3, dtype=torch.float64, device=problem.device)
+    s64 = torch.zeros_like(s32)
+    for c in range(math.ceil(N / BATCH)):
+        gen.manual_seed(generator_seed(problem.params["seed"], counter, c))
+        xi = problem.sample_inputs(gen, min(BATCH, N - c * BATCH))
+        q32 = problem.evaluate_model(0, xi).double()
+        q64 = p64.evaluate_model(0, xi.double())
+        err = (q32 - q64).abs()[:, 2]
+        for t in over:
+            over[t] += int((err > t).sum())
+        worst = torch.maximum(worst, err.max())
+        s32 += q32.sum(dim=0)
+        s64 += q64.sum(dim=0)
+    m32, m64 = (s32 / N).cpu().numpy(), (s64 / N).cpu().numpy()
+    # the replay is the estimate's own draws (unless a non-finite row made
+    # the estimator draw more): its f32 mean is the estimate
+    same = bool(np.all(np.abs(m32 - mus) <= 1e-9 * np.abs(mus)))
+    return over, float(worst), m64, same
+
+
+def phase_target_rmse(problem, graph, launches_by_path):
     """Phase 5: the target-RMSE path on phase 4's problem (pilot paid
     once), at eps* = sqrt(max_n V_n) of phase 4's integer budget solve."""
     import numpy as np
+    import torch
 
     budget_cost = float(problem.MOSAP_output["cost"])
     eps_star = float(np.sqrt(max(problem.MOSAP_output["variances"])))
@@ -499,19 +637,57 @@ def phase_target_rmse(problem, launches_by_path):
         % (alloc_eps_s, s, len(active), sum(m for _, m in active), cost, n,
            need))
 
-    # MC: N = max_n ceil(C_n[0,0]/eps*^2) samples of model 0
+    # MC: N = max_n ceil(C_n[0,0]/eps*^2) samples of model 0.  The f32
+    # discretisation at n=1024 breaks down on rare draws (q_energy off by
+    # more than 1 on a few draws in 1e5, now and then by 1e2 to 1e7, where
+    # the f64 model is right), and ~2.5e5 draws of the finest model meet
+    # such draws often: the f32 MC estimate of q_energy is then off by far
+    # more than its error bar.  So the f32 MC run is driven and measured
+    # (its draws again through the f64 model, on the same inputs) but its
+    # estimate is not gated; the gates below hold the MC estimator on the
+    # f64 problem at the same width (K1's f64 instantiation), loaded from
+    # phase 4's graph, so its N is the same.
     mc_n = [0]
 
-    def run_mc():
-        r = problem.solve_mc(eps=eps_star)
+    def run_mc(p):
+        r = p.solve_mc(eps=eps_star)
         mc_n[0] = int(round(r[2] / w[0]))
         return r
 
+    counter = problem._call_counter
     mus, errs, cost, s, n, need = _run_path(
-        "mc", run_mc, lambda: ([[0]], [mc_n[0]]), launches_by_path)
+        "mc", lambda: run_mc(problem), lambda: ([[0]], [mc_n[0]]),
+        launches_by_path)
+    mus, errs = np.asarray(mus, float), np.asarray(errs, float)
+    p64 = _flagship_from_graph(graph, dtype=torch.float64)
+    over, worst, m64, same = _f32_mc_against_f64(problem, p64, counter,
+                                                 mc_n[0], mus)
+    z32 = abs(mus[2] - mus[0]) / float(np.max(errs))
+    z64 = abs(m64[2] - m64[0]) / float(np.max(errs))
+    log("MC @eps* in f32 (measured, not gated): sample_s %.3f | models [0], "
+        "%d samples from call %d | K1 launches %d (chunk evaluations %d) | "
+        "mus %s: q_energy - q_int = %.2f error bars; the same draws through "
+        "the f64 model%s: mean %s, %.2f error bars; f32 q_energy off the "
+        "f64 one by more than %s, worst %.4g"
+        % (s, mc_n[0], counter, n, need, mus.tolist(), z32,
+           "" if same else " (the estimate drew more: non-finite rows)",
+           m64.tolist(), z64, json.dumps({str(k): v for k, v in
+                                          over.items()}), worst))
+    if not (np.all(np.isfinite(mus)) and np.all(errs <= 1.0001 * eps_star)):
+        raise AssertionError("f32 MC: non-finite estimate or errs above eps*")
+    if not z64 <= 4:
+        raise AssertionError("the f32 MC's draws through the f64 model: "
+                             "q_energy and q_int disagree (%.2f error bars)"
+                             % z64)
+    mus, errs, cost, s, n, need = _run_path(
+        "mc_f64", lambda: run_mc(p64), lambda: ([[0]], [mc_n[0]]),
+        launches_by_path)
+    if p64.dtype != torch.float64 or p64.device.type != DEV:
+        raise AssertionError("the f64 MC problem is %s on %s"
+                             % (p64.dtype, p64.device))
     res["mc"] = (mus, errs, cost)
-    log("MC @eps*: setup_s 0 (closed form inside solve_mc) sample_s %.3f | "
-        "models [0], %d samples, cost %.10g | K1 launches %d (chunk "
+    log("MC @eps* in f64: setup_s 0 (closed form inside solve_mc) sample_s "
+        "%.3f | models [0], %d samples, cost %.10g | K1 launches %d (chunk "
         "evaluations %d)" % (s, mc_n[0], cost, n, need))
 
     # MLMC: pairs of consecutive chain models plus the last singleton
@@ -611,42 +787,41 @@ def phase_target_rmse(problem, launches_by_path):
 def phase_profile(problem):
     """One more budget solve of phase 4's problem under torch.profiler:
     K1's device time and launches, the union of all device activity over
-    the solve's wall (the busy share), and the largest device items."""
+    the solve's wall (the busy share), and the largest device items; then
+    one under the synchronisation debug mode: the calls that still make
+    the host wait for the card, by call site."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from bluest_tpu_torch.profiling import device_busy, device_trace
     budget = problem.MOSAP_output["budget"]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         problem.solve(K=K, budget=budget)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, k1_us, k1_n, by_name = [], 0.0, 0, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t0_, t1_ = e.time_range.start, e.time_range.end
-        spans.append((t0_, t1_))
-        by_name[e.name] = by_name.get(e.name, 0.0) + (t1_ - t0_)
-        if "diffusion_outputs_kernel" in e.name:
-            k1_us += t1_ - t0_
-            k1_n += 1
-    spans.sort()
-    busy, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    d = device_busy(prof, "diffusion_outputs_kernel")
+    busy, k1_us, k1_n = d["busy_us"], d["kernel_us"], d["kernel_n"]
+    top = sorted(d["by_name"].items(), key=lambda kv: -kv[1])[:6]
     log("profiled solve: wall %.3f ms, device busy %.3f ms (%.1f%%), K1 "
         "%.3f ms over %d launches (%.1f%% of busy); top device items %s"
         % (wall_ms, busy / 1e3, 100 * busy / 1e3 / wall_ms, k1_us / 1e3,
            k1_n, 100 * k1_us / max(busy, 1e-9),
            ["%s %.3f ms" % (nm[:60], us / 1e3) for nm, us in top]))
+
+    sites = {}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            problem.solve(K=K, budget=budget)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = "%s:%d" % (os.path.relpath(w.filename), w.lineno)
+            sites[site] = sites.get(site, 0) + 1
+    log("synchronising calls left in one pipelined solve: %d %s"
+        % (sum(sites.values()), json.dumps(sites, sort_keys=True)))
 
 
 def _sync():
@@ -1006,29 +1181,100 @@ def phase_solver_families(matern, times):
     families' points, and an integer ADMM allocation sampled on the
     card."""
     import numpy as np
+    from bluest_tpu_torch.allocation import polish as polish_mod
     from bluest_tpu_torch.solvers import sdp
     p, eps = matern["problem"], matern["eps"]
     eps2 = np.asarray(eps, float) ** 2
     sdp._WARM_CACHE.clear()
     p._mosap_key = None             # a fresh MOSAP: fallbacks count from 0
-    fam = {}
-    for solver in ("sdp", "admm", "spg", "scipy"):
-        t0 = time.perf_counter()
-        p.setup_solver(K=4, eps=eps, solver=solver,
-                       continuous_relaxation=True)
-        wall = time.perf_counter() - t0
-        out = p.MOSAP_output
-        ratio = float(np.max(np.asarray(out["variances"]) / eps2))
-        fam[solver] = {"cost": float(out["cost"]), "ratio": ratio,
-                       "wall_s": wall}
-        times["family_%s_s" % solver] = wall
-        log("family %-5s: %.3f s, cost %.10g, max V/eps^2 %.8f, cone solves "
-            "%s, NLP fallbacks so far %d"
-            % (solver, wall, out["cost"], ratio,
-               _cone_solves(out["certificates"]), p.MOSAP.n_nlp_fallbacks))
-        if not ratio <= 1.005:
-            raise AssertionError("%s: max V/eps^2 = %.6f > 1.005"
-                                 % (solver, ratio))
+    polished = {"polish": True}
+    fam, pol = {}, {}
+
+    # the point each polish starts from, as setup_solver hands it over
+    raw_points = []
+    real_polish = polish_mod.polish_eps
+
+    def recording_polish(mosap, m, *a, **k):
+        raw_points.append(np.asarray(m, float).copy())
+        return real_polish(mosap, m, *a, **k)
+
+    def check_polish(solver, wall, raw_cost):
+        rep = p.MOSAP.polish_report
+        if rep is None:
+            raise AssertionError("the polish of the %s point was not "
+                                 "accepted" % solver)
+        log("polish from %-4s: set-up %.3f s, raw cost %.12g, report %s"
+            % (solver, wall, raw_cost, rep))
+        if not rep["stationarity"] <= 1e-9:
+            raise AssertionError("polished %s point: stationarity %.3e > "
+                                 "1e-9" % (solver, rep["stationarity"]))
+        if not rep["cost"] <= raw_cost * (1 + 1e-12):
+            raise AssertionError("the polish raised the %s cost" % solver)
+        pol[solver] = float(rep["cost"])
+
+    polish_mod.polish_eps = recording_polish
+    try:
+        for solver in ("sdp", "admm", "spg", "scipy"):
+            # ADMM's set-up is the slow one (two cone programs of ~15,000
+            # and 60,000 iterations on the host): it runs once, through
+            # setup_solver with the polish and the integer projection, and
+            # serves three checks -- the point it hands to the polish
+            # stands beside the other families' here, the polished point
+            # beside the IPM's below, and its integer allocation is
+            # sampled on the card
+            admm = solver == "admm"
+            del raw_points[:]
+            p.MOSAP.polish_report = None
+            t0 = time.perf_counter()
+            p.setup_solver(K=4, eps=eps, solver=solver,
+                           continuous_relaxation=not admm,
+                           optimization_solver_params=polished if admm
+                           else None)
+            wall = time.perf_counter() - t0
+            out = p.MOSAP_output
+            if admm:
+                (point,) = raw_points
+            else:
+                point = np.asarray(p.MOSAP.continuous_solution, float)
+            cost = float(point @ p.MOSAP.costs)
+            ratio = float(np.max(np.asarray(p.MOSAP.variances(point))
+                                 / eps2))
+            fam[solver] = {"cost": cost, "ratio": ratio, "wall_s": wall}
+            times["family_%s_s" % solver] = wall
+            log("family %-5s: %.3f s, continuous cost %.10g, max V/eps^2 "
+                "%.8f, cone solves %s, NLP fallbacks so far %d"
+                % (solver, wall, cost, ratio,
+                   _cone_solves(out["certificates"]),
+                   p.MOSAP.n_nlp_fallbacks))
+            if not ratio <= 1.005:
+                raise AssertionError("%s: max V/eps^2 = %.6f > 1.005"
+                                     % (solver, ratio))
+            if not admm:
+                continue
+            check_polish("admm", wall, cost)
+            # the ADMM family end to end: its integer allocation, from
+            # the polished point, sampled on the card
+            times["admm_setup_s"] = wall
+            t0 = time.perf_counter()
+            mus, errs, cost = p.solve(K=4, eps=eps, solver="admm",
+                                      optimization_solver_params=polished)
+            _sync()
+            times["admm_solve_s"] = time.perf_counter() - t0
+            log("ADMM allocation sampled: setup %.3f s, solve %.3f s, %d "
+                "samples, cost %.8g (the IPM's integer cost in phase 6(a) is "
+                "logged above)"
+                % (wall, times["admm_solve_s"],
+                   int(sum(int(n) for n in out["samples"])), cost))
+            if p.MOSAP_output is not out:
+                raise AssertionError("solve(solver=admm) reran the set-up")
+            if not np.all(np.asarray(errs, float)
+                          <= 1.0001 * np.asarray(eps)):
+                raise AssertionError("ADMM allocation: errs %s above eps %s"
+                                     % (errs, eps))
+            _within_bars("Matern MLBLUE (ADMM allocation) vs MC", mus, errs,
+                         matern["mc_mean"], matern["mc_se"])
+    finally:
+        polish_mod.polish_eps = real_polish
     c_ipm = fam["sdp"]["cost"]
     for solver, tol in (("admm", 1e-3), ("scipy", 1e-3), ("spg", 0.10)):
         rel = abs(fam[solver]["cost"] - c_ipm) / c_ipm
@@ -1042,50 +1288,18 @@ def phase_solver_families(matern, times):
         raise AssertionError("a cone family fell back to the NLP (%d times)"
                              % p.MOSAP.n_nlp_fallbacks)
 
-    # the Newton polish removes each cone solver's own error
-    pol = {}
-    for solver in ("sdp", "admm"):
-        p.MOSAP.polish_report = None
-        t0 = time.perf_counter()
-        p.setup_solver(K=4, eps=eps, solver=solver,
-                       continuous_relaxation=True,
-                       optimization_solver_params={"polish": True})
-        wall = time.perf_counter() - t0
-        rep = p.MOSAP.polish_report
-        log("polish from %-4s: %.3f s, raw cost %.12g, report %s"
-            % (solver, wall, fam[solver]["cost"], rep))
-        if rep is None:
-            raise AssertionError("the polish of the %s point was not "
-                                 "accepted" % solver)
-        if not rep["stationarity"] <= 1e-9:
-            raise AssertionError("polished %s point: stationarity %.3e > "
-                                 "1e-9" % (solver, rep["stationarity"]))
-        if not rep["cost"] <= fam[solver]["cost"] * (1 + 1e-12):
-            raise AssertionError("the polish raised the %s cost" % solver)
-        pol[solver] = float(p.MOSAP_output["cost"])
+    # the Newton polish removes each cone solver's own error: the IPM's
+    # point, polished through setup_solver as ADMM's was above
+    p.MOSAP.polish_report = None
+    t0 = time.perf_counter()
+    p.setup_solver(K=4, eps=eps, solver="sdp", continuous_relaxation=True,
+                   optimization_solver_params=polished)
+    check_polish("sdp", time.perf_counter() - t0, fam["sdp"]["cost"])
     rel = abs(pol["sdp"] - pol["admm"]) / pol["sdp"]
     log("polished costs: IPM %.14g ADMM %.14g, rel diff %.3e"
         % (pol["sdp"], pol["admm"], rel))
     if not rel <= 1e-8:
         raise AssertionError("polished costs differ by %.3e > 1e-8" % rel)
-
-    # the ADMM family end to end: integer projection, sampling on the card
-    t0 = time.perf_counter()
-    p.setup_solver(K=4, eps=eps, solver="admm")
-    times["admm_setup_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    mus, errs, cost = p.solve(K=4, eps=eps, solver="admm")
-    _sync()
-    times["admm_solve_s"] = time.perf_counter() - t0
-    log("ADMM allocation sampled: setup %.3f s, solve %.3f s, %d samples, "
-        "cost %.8g (the IPM's integer cost in phase 6(a) is logged above)"
-        % (times["admm_setup_s"], times["admm_solve_s"],
-           int(sum(int(n) for n in p.MOSAP_output["samples"])), cost))
-    if not np.all(np.asarray(errs, float) <= 1.0001 * np.asarray(eps)):
-        raise AssertionError("ADMM allocation: errs %s above eps %s"
-                             % (errs, eps))
-    _within_bars("Matern MLBLUE (ADMM allocation) vs MC", mus, errs,
-                 matern["mc_mean"], matern["mc_se"])
 
 
 def phase_warm_and_polished(flagship, times, launches_by_path):
@@ -1204,18 +1418,285 @@ def phase_allocation_families(flagship, matern, launches_by_path):
                                              for k, v in times.items()})))
 
 
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _flagship_from_graph(graph, **params):
+    """The flagship problem from its saved graph: no pilot is sampled, so
+    its call counter starts at 0.  ``dtype`` defaults to f32."""
+    import torch
+    from bluest_tpu_torch.models.diffusion import DiffusionProblem
+    params.setdefault("dtype", torch.float32)
+    return DiffusionProblem(
+        grids=GRIDS, n_kl=N_KL, sigma=SIGMA, nu=NU, multi_output=True,
+        device_batch_size=BATCH, datafile=graph, verbose=False, **params)
+
+
+def _counted_solve(problem, **how):
+    """solve() with K1's count set to 0 just before and read just after,
+    the sums of its one _pipelined_sumse call, and the all_reduce(SUM)
+    and host-copy calls of its fetches (a problem's first fetch under a
+    mesh also agrees on the model's output dimension, one 8-byte
+    all_reduce(MAX) counted apart as "agree")."""
+    import torch
+    from bluest_tpu_torch.ops import diffusion as k1
+    seen, calls = [], {"reduce": 0, "copy": 0, "agree": 0}
+    real_sumse, real_copy = problem._pipelined_sumse, problem._sums_to_host
+
+    def sumse(group_list, n_list):
+        out = real_sumse(group_list, n_list)
+        seen.append(out)
+        return out
+
+    def copy(flat):
+        calls["copy"] += 1
+        return real_copy(flat)
+
+    problem._pipelined_sumse, problem._sums_to_host = sumse, copy
+    mesh = problem.mesh
+    if mesh is not None:
+        real_reduce = mesh.all_reduce_samples
+
+        def reduce(x, op="sum"):
+            calls["reduce" if op == "sum" else "agree"] += 1
+            return real_reduce(x, op)
+        mesh.all_reduce_samples = reduce
+    try:
+        k1.diffusion_outputs.launches = 0
+        t0 = time.perf_counter()
+        mus, errs, cost = problem.solve(**how)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = k1.diffusion_outputs.launches
+    finally:
+        del problem._pipelined_sumse, problem._sums_to_host
+        if mesh is not None:
+            del mesh.all_reduce_samples
+    (sums,) = seen
+    return mus, errs, sums, launches, calls, wall
+
+
+def _sums_gap(got, ref):
+    """Largest |got - ref| over the largest |ref|, group by group."""
+    import numpy as np
+    worst = 0.0
+    for g, r in zip(got, ref):
+        if (g is None) != (r is None):
+            raise AssertionError("the paths sampled different groups")
+        if g is not None:
+            g, r = np.array(g, float), np.array(r, float)
+            worst = max(worst, float(np.abs(g - r).max() / np.abs(r).max()))
+    return worst
+
+
+def _rank_main(rank, world, port, graph, budget, workdir):
+    """One rank of phase 8(b).  Raises on any failure: the parent joins
+    the ranks and fails the run on a non-zero exit code."""
+    import datetime
+    import pickle
+    import numpy as np
+    import torch
+    from bluest_tpu_torch.parallel import initialize_distributed, sample_mesh
+    initialize_distributed(
+        backend="gloo", init_method="tcp://localhost:%d" % port,
+        world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        mesh = sample_mesh()
+        p = _flagship_from_graph(graph, mesh=mesh)
+        _check_on_sampling_device(p)
+        t0 = time.perf_counter()
+        p.setup_solver(K=K, budget=budget)
+        alloc_s = time.perf_counter() - t0
+        mus, errs, sums, launches, calls, wall = _counted_solve(
+            p, K=K, budget=budget)
+        res = {"samples": np.array(p.MOSAP_output["samples"]),
+               "groups": [list(g) for g in
+                          p.MOSAP_output["flattened_groups"]],
+               "mus": np.asarray(mus, float), "errs": np.asarray(errs, float),
+               "sums": sums, "launches": launches, "calls": calls,
+               "alloc_s": alloc_s, "sample_s": wall}
+        # phase 6(c)'s snapshot solve under the mesh
+        ps = _flagship_from_graph(
+            graph, mesh=mesh, outputs_to_save=[0],
+            samplefile=os.path.join(workdir, "two.npz"))
+        ps.setup_solver(K=2, budget=SNAP_BUDGET)
+        _, _, sums, launches, _, wall = _counted_solve(ps, K=2,
+                                                       budget=SNAP_BUDGET)
+        res.update(snap_samples=np.array(ps.MOSAP_output["samples"]),
+                   snap_groups=[list(g) for g in
+                                ps.MOSAP_output["flattened_groups"]],
+                   snap_sums=sums, snap_launches=launches, snap_s=wall)
+        with open(os.path.join(workdir, "rank%d.pkl" % rank), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_distribution(flagship, graph, launches_by_path):
+    """Phase 8: the mesh path on the one card, on problems loaded from
+    phase 4's saved graph.  Nothing is caught."""
+    import glob
+    import pickle
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from bluest_tpu_torch.ops import diffusion as k1
+    from bluest_tpu_torch.parallel import initialize_distributed, sample_mesh
+    from bluest_tpu_torch.solvers import sdp
+    budget = flagship["budget"]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        # (a) one rank, nccl
+        t0 = time.perf_counter()
+        initialize_distributed(
+            backend="nccl", init_method="tcp://localhost:%d" % _free_port(),
+            world_size=1, rank=0)
+        try:
+            mesh = sample_mesh()
+            pa = _flagship_from_graph(graph, mesh=mesh)
+            pa.setup_solver(K=K, budget=budget)
+            out = pa.MOSAP_output
+            groups = [list(g) for g in out["flattened_groups"]]
+            ns = [int(n) for n in out["samples"]]
+            mus, errs, sums, launches, calls, wall = _counted_solve(
+                pa, K=K, budget=budget)
+        finally:
+            torch.distributed.destroy_process_group()
+        need = _chunk_evals(groups, ns)
+        ref = _flagship_from_graph(graph)._pipelined_sumse(groups, ns)
+        gap = _sums_gap(sums, ref)
+        launches_by_path["mesh_one_rank"] = launches
+        log("8(a) one rank, nccl, sample_mesh(): %d samples in %.3f s, K1 "
+            "launches %d (chunk evaluations %d), %d all_reduce and %d host "
+            "copy in the solve, sums against the mesh-less path: max rel "
+            "diff %.3e; part %.3f s"
+            % (sum(ns), wall, launches, need, calls["reduce"], calls["copy"],
+               gap, time.perf_counter() - t0))
+        if gap != 0.0:
+            raise AssertionError("8(a): the one-rank mesh sums are not "
+                                 "bit-equal to the mesh-less sums")
+        if launches != need or need == 0:
+            raise AssertionError("8(a): K1 launched %d times for %d chunk "
+                                 "evaluations" % (launches, need))
+        if (calls["reduce"], calls["copy"]) != (1, 1) or calls["agree"] > 1:
+            raise AssertionError("8(a): %s per solve, expected one all_reduce "
+                                 "and one copy" % calls)
+        _within_bars("8(a) mesh MLBLUE vs phase 4", mus, errs,
+                     flagship["mus"], flagship["errs"])
+
+        # (b) two ranks on the one card, gloo.  mp.spawn joins the ranks
+        # and raises if any of them exits with a non-zero code.
+        t0 = time.perf_counter()
+        mp.spawn(_rank_main, args=(2, _free_port(), graph, budget, d),
+                 nprocs=2, join=True)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(d, "rank%d.pkl" % r), "rb") as f:
+                ranks.append(pickle.load(f))
+        spawn_s = time.perf_counter() - t0
+        r0, r1 = ranks
+        if not (np.array_equal(r0["samples"], r1["samples"])
+                and np.array_equal(r0["mus"], r1["mus"])
+                and np.array_equal(r0["snap_samples"], r1["snap_samples"])):
+            raise AssertionError("8(b): the ranks disagree on the allocation "
+                                 "or the estimates")
+        groups, ns = r0["groups"], [int(n) for n in r0["samples"]]
+        one = _flagship_from_graph(graph)
+        k1.diffusion_outputs.launches = 0
+        ref = one._pipelined_sumse(groups, ns)
+        torch.cuda.synchronize()
+        one_launches = k1.diffusion_outputs.launches
+        gap = max(_sums_gap(r["sums"], ref) for r in ranks)
+        two_launches = r0["launches"] + r1["launches"]
+        launches_by_path["mesh_two_ranks"] = two_launches
+        log("8(b) two ranks, gloo, one card: %d samples, rank walls %.3f / "
+            "%.3f s (allocation %.3f / %.3f s), K1 launches %d + %d = %d "
+            "(one process %d, chunk evaluations %d), all_reduce / host "
+            "copies per solve %s / %s, sums against one process: max rel "
+            "diff %.3e; spawn to join %.3f s"
+            % (sum(ns), r0["sample_s"], r1["sample_s"], r0["alloc_s"],
+               r1["alloc_s"], r0["launches"], r1["launches"], two_launches,
+               one_launches, _chunk_evals(groups, ns), r0["calls"],
+               r1["calls"], gap, spawn_s))
+        if not gap <= 1e-12:
+            raise AssertionError("8(b): two-rank sums differ from the "
+                                 "one-process sums by %.3e > 1e-12" % gap)
+        if not (two_launches == one_launches == _chunk_evals(groups, ns)
+                and r0["launches"] > 0 and r1["launches"] > 0):
+            raise AssertionError("8(b): the ranks' K1 launches do not add "
+                                 "up to the one-process count")
+        if any((r["calls"]["reduce"], r["calls"]["copy"]) != (1, 1)
+               or r["calls"]["agree"] > 1 for r in ranks):
+            raise AssertionError("8(b): more than one all_reduce or copy "
+                                 "per solve")
+        _within_bars("8(b) two-rank MLBLUE vs phase 4", r0["mus"],
+                     r0["errs"], flagship["mus"], flagship["errs"])
+
+        # the snapshot solve: rank 0's files against one process's, from
+        # rank 0's allocation
+        sg = r0["snap_groups"]
+        sn = [int(n) for n in r0["snap_samples"]]
+        one = _flagship_from_graph(graph, outputs_to_save=[0],
+                                   samplefile=os.path.join(d, "one.npz"))
+        k1.diffusion_outputs.launches = 0
+        ref = one._pipelined_sumse(sg, sn)
+        torch.cuda.synchronize()
+        one_launches = k1.diffusion_outputs.launches
+        gap = max(_sums_gap(r["snap_sums"], ref) for r in ranks)
+        two_launches = r0["snap_launches"] + r1["snap_launches"]
+        launches_by_path["mesh_two_ranks_snapshots"] = two_launches
+        two = sorted(glob.glob(os.path.join(d, "two*.npz")))
+        ones = sorted(glob.glob(os.path.join(d, "one*.npz")))
+        rows = 0
+        if not two or [os.path.basename(f)[3:] for f in two] \
+                != [os.path.basename(f)[3:] for f in ones]:
+            raise AssertionError("8(b): snapshot files %s against %s"
+                                 % (two, ones))
+        for ft, fo in zip(two, ones):
+            with np.load(ft) as zt, np.load(fo) as zo:
+                if sorted(zt.files) != sorted(zo.files):
+                    raise AssertionError("8(b): keys of %s" % ft)
+                for key in zo.files:
+                    if not np.array_equal(zt[key], zo[key]):
+                        raise AssertionError("8(b): %s of %s differs from "
+                                             "the one-process file"
+                                             % (key, os.path.basename(ft)))
+                rows += int(zo["n_samples"][0])
+        log("8(b) snapshots under two ranks: %d group files by rank 0 alone, "
+            "%d rows, equal to the one-process files key for key; K1 "
+            "launches %d + %d (one process %d); sums max rel diff %.3e"
+            % (len(two), rows, r0["snap_launches"], r1["snap_launches"],
+               one_launches, gap))
+        if not (gap <= 1e-12 and two_launches == one_launches > 0
+                and rows == sum(sn)):
+            raise AssertionError("8(b): snapshot solve sums, launches or "
+                                 "rows off")
+    sdp._WARM_CACHE.clear()
+    log("the model axis (sample_matern2d_sharded) needs one card per rank "
+        "for nccl and is not run on this one card; the CPU tests hold it "
+        "against the unsharded field (tests/test_torch_mesh.py)")
+    log("phase 8: %.3f s" % (time.perf_counter() - t_phase))
+
+
 def main():
     import torch
-    name = phase_device()
+    name, smi = phase_device()
     phase_build()
     k = phase_kernel_check()
-    f = phase_flagship()
-    launches_by_path = {"mlblue_budget": f["launches"]}
-    if "--profile" in sys.argv[1:]:
-        phase_profile(f["problem"])
-    phase_target_rmse(f["problem"], launches_by_path)
-    matern = phase_user_models(launches_by_path)
-    phase_allocation_families(f, matern, launches_by_path)
+    with tempfile.TemporaryDirectory() as d:
+        graph = os.path.join(d, "flagship_graph.npz")
+        f = phase_flagship(smi, graph)
+        launches_by_path = {"mlblue_budget": f["launches"]}
+        if "--profile" in sys.argv[1:]:
+            phase_profile(f["problem"])
+        phase_target_rmse(f["problem"], graph, launches_by_path)
+        matern = phase_user_models(launches_by_path)
+        phase_allocation_families(f, matern, launches_by_path)
+        phase_distribution(f, graph, launches_by_path)
     print(json.dumps({"kernels": [{
         "name": "diffusion_outputs", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,

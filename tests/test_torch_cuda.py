@@ -174,7 +174,8 @@ def test_group_engine_resample_on_card(cuda):
     """The per-row resample on the card: the first draw's finite rows are
     kept bit for bit, every row ends finite, and the sums are the
     combiner's on the collected rows."""
-    from bluest_tpu_torch.sampling.engine import combine, finite_rows
+    from bluest_tpu_torch.sampling.engine import (combine, finite_rows,
+                                                  generator_seed)
     from bluest_tpu_torch.sampling.group_engine import GroupEngine
 
     def sample_group(gen, ls, n):
@@ -188,11 +189,12 @@ def test_group_engine_resample_on_card(cuda):
 
     eng = GroupEngine(sample_group, evaluate_group, 1, 4096, cuda)
     ls = (0, 1, 2)
-    sums, vals, z, ok = eng.collect(ls, 5, 10000)
+    sums, vals, z, ok = eng.collect(ls, 5, 0, 10000)
     assert bool(ok.all()) and int(sums.n_failed) == 0
     assert vals.is_cuda and bool(finite_rows(vals).all())
     assert bool((z[:, 0] <= 1.0).all())
-    z0 = sample_group(torch.Generator(device=cuda).manual_seed(5), ls, 4096)
+    z0 = sample_group(torch.Generator(device=cuda).manual_seed(
+        generator_seed(5, 0, 0)), ls, 4096)
     good = z0 <= 1.0
     assert 0 < int((~good).sum()) < 4096
     assert torch.equal(z[:4096, 0][good], z0[good])

@@ -22,7 +22,8 @@ import torch
 
 from bluest_tpu_torch import BLUEProblem
 from bluest_tpu_torch.models.analytic import TRUE_MEAN, ExpSeriesProblem
-from bluest_tpu_torch.sampling.engine import combine, finite_rows
+from bluest_tpu_torch.sampling.engine import (combine, finite_rows,
+                                              generator_seed)
 from bluest_tpu_torch.sampling.group_engine import GroupEngine
 
 torch.set_num_threads(1)
@@ -71,10 +72,11 @@ def test_group_sums_equal_combine_on_the_same_rows():
     p = _problem()
     eng = _engine(p)
     ls, N, seed = (0, 2), 30, 1234
-    sums = eng.sample_sums(ls, seed, N)
-    gen = torch.Generator().manual_seed(seed)
+    sums = eng.sample_sums(ls, seed, 2, N)
+    gen = torch.Generator()
     rows = []
-    for base in range(0, N, 7):
+    for c, base in enumerate(range(0, N, 7)):
+        gen.manual_seed(generator_seed(seed, 2, c))
         rows.append(p.evaluate_group(ls, p.sample_group(gen, ls,
                                                         min(7, N - base))))
     ref = combine(torch.cat(rows).movedim(2, 0), 0, N)
@@ -94,10 +96,10 @@ def test_per_row_resample_keeps_finite_rows():
 
     eng = GroupEngine(sample_group, p.evaluate_group, p.n_outputs, 64, "cpu")
     ls, seed = (0, 1, 2), 77
-    sums, vals, inputs, ok = eng.collect(ls, seed, 64)
+    sums, vals, inputs, ok = eng.collect(ls, seed, 0, 64)
     assert bool(ok.all()) and int(sums.n_failed) == 0
     assert bool(finite_rows(vals).all())
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator().manual_seed(generator_seed(seed, 0, 0))
     z0, s0 = p.sample_group(gen, ls, 64)
     first = p.evaluate_group(ls, (z0, s0))
     good = finite_rows(first)
@@ -138,7 +140,7 @@ def test_resample_rounds_are_bounded():
 
     eng = GroupEngine(sample_group, evaluate_group, 1, 8, "cpu",
                       max_resample=3)
-    sums = eng.sample_sums((0, 1), 5, 10)
+    sums = eng.sample_sums((0, 1), 5, 0, 10)
     assert int(sums.n_failed) == 10
     assert sizes == [8, 32, 32, 32, 2, 32, 32, 32]
     assert eng.redraw_rows(5, 10, 5) == 13           # 1.25 * 5 / 0.5
@@ -148,7 +150,7 @@ def test_resample_rounds_are_bounded():
 
 def test_no_resample_masks_and_counts():
     p = _problem(FlakyGroup)
-    sums = _engine(p, max_resample=0).sample_sums((0, 1), 5, 200)
+    sums = _engine(p, max_resample=0).sample_sums((0, 1), 5, 0, 200)
     assert 10 < int(sums.n_failed) < 60        # P(z > 1) ~ 0.16
     # through the problem, the top-up covers N finite samples
     p.params["max_resample"] = 0
@@ -185,7 +187,7 @@ def test_vector_outputs_group_engine():
     assert mu.shape == (VecGroup.D,)
     ref = np.sin(np.arange(VecGroup.D)) * np.exp(-0.5)
     np.testing.assert_allclose(mu, ref, atol=6 * max(errs[0], 0.05))
-    s = _engine(p).sample_sums((0, 2), 3, 20)
+    s = _engine(p).sample_sums((0, 2), 3, 0, 20)
     assert s.sumse.shape == (1, 2, VecGroup.D)
     assert s.sumsd1.shape == (1, 2, 2, VecGroup.D)
 
@@ -226,6 +228,33 @@ def test_group_collect_over_chunks(tmp_path, cls):
                                          rel=1e-12)
     assert sc[0][0, 1] == pytest.approx(float((vals[:, 0] * vals[:, 1])
                                               .sum()), rel=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["group", "group-flaky", "factored",
+                                  "factored-flaky"])
+def test_sums_with_a_samplefile_equal_sums_without(tmp_path, kind):
+    """A samplefile changes no stream and no summation order: the
+    collect pieces (here 2 chunks each, 4 pieces) go on through the chunk
+    streams of the call and fold into one running sum, so every sum is
+    bit-equal to the same call's without a samplefile."""
+    out = []
+    for f in (None, str(tmp_path / "s.npz")):
+        if kind.startswith("group"):
+            p = _problem(FlakyGroup if "flaky" in kind else GroupSeries,
+                         max_resample=0 if "flaky" in kind else 2,
+                         device_batch_size=8, samplefile=f, seed=4)
+            p._COLLECT_CHUNK = 16
+        else:
+            cls = FlakyFactored if "flaky" in kind else ExpSeriesProblem
+            p = cls(3, C=np.eye(3) + 0.5, device="cpu", verbose=False,
+                    device_batch_size=8, samplefile=f, seed=4)
+        out.append(p.blue_fn([0, 2], 50, compute_mlmc_differences=True))
+        assert p._call_counter == 1
+    (se0, sc0, _, d10, d20), (se1, sc1, _, d11, d21) = out
+    for a, b in ((se0, se1), (sc0, sc1), (d10, d11), (d20, d21)):
+        assert np.array_equal(np.array(a), np.array(b))
+        assert np.isfinite(np.array(a)).all()
+    _check_file(p, str(tmp_path / "s02.npz"), (0, 2), 50)
 
 
 class FlakyFactored(ExpSeriesProblem):
@@ -324,9 +353,16 @@ def test_factored_kind_runs_every_estimator():
 
 
 def test_unported_parameters_raise():
-    for kw in (dict(mesh="auto"), dict(profile_dir="/nonexistent")):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            _problem(**kw)
+    # mesh and profile_dir are ported: one process without a process
+    # group has no mesh, a mesh by another name raises, and a mesh
+    # function without a process group raises
+    assert _problem(mesh="auto").mesh is None
+    assert _problem(profile_dir="/nonexistent").params["profile_dir"]
+    with pytest.raises(ValueError, match="mesh must be"):
+        _problem(mesh="ring")
+    from bluest_tpu_torch.parallel import sample_mesh
+    with pytest.raises(RuntimeError, match="not initialised"):
+        sample_mesh()
     with pytest.raises(TypeError, match="unknown parameters"):
         _problem(no_such_parameter=1)
     p = _problem(comm=object(), sample_batch_size=4, max_resample=3,

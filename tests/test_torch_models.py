@@ -96,9 +96,12 @@ def test_matern2d_problem_model_path():
     for l, n in enumerate(p.grids):
         assert torch.equal(p.evaluate_model(l, w),
                            matern2d_outputs(w, n, p.kappa, p.alpha))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Matern2DProblem(grids=(16, 8), C=[np.eye(2)] * 3, mesh="auto",
+    # one process, no process group: "auto" is no mesh, the synthesis is
+    # the unsharded one
+    q = Matern2DProblem(grids=(16, 8), C=[np.eye(2) + 0.5] * 3, mesh="auto",
                         verbose=False, device="cpu")
+    assert q.mesh is None and q._model_mesh is None
+    assert torch.equal(q.evaluate_model(0, w), p.evaluate_model(0, w))
 
 
 @pytest.mark.parametrize("kind,dt", [(0, 0.08), (1, 0.08), (2, 0.08),

@@ -150,8 +150,12 @@ def test_factored_model_api_with_cost_estimation():
     p.setup_solver(K=2, budget=1e3 * float(p.get_costs().sum()))
     mus, errs, _ = p.solve(K=2, budget=1e3 * float(p.get_costs().sum()))
     assert abs(float(mus[0]) - _Quadratic.b[0]) <= 4 * float(errs[0])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Quadratic(3, verbose=False, mesh="auto")
+    # one device and one rank: "auto" is no mesh, and the problem solves
+    q = Quadratic(3, C=C_true, costs=[3.0, 2.0, 1.0], verbose=False,
+                  device="cpu", mesh="auto")
+    assert q.mesh is None
+    mus, errs, _ = q.solve(K=2, budget=3e3)
+    assert abs(float(mus[0]) - _Quadratic.b[0]) <= 4 * float(errs[0])
     with pytest.raises(TypeError):
         Quadratic(3, verbose=False, no_such_parameter=1)
 
@@ -173,3 +177,293 @@ def test_default_sampling_device_is_the_card():
             p.solve(K=2, budget=100.0)
     d = DiffusionProblem(C=[np.eye(4)] * 3, **KW)
     assert d.device.type == "cuda"
+
+
+# ---------------- names the JAX package's users call ---------------------- #
+
+def test_get_mlmc_variance_matches_jax(graphs):
+    pj, jax_npz, _pt, _ = graphs
+    pt = DiffusionProblem(datafile=jax_npz, device="cpu", **KW)
+    for n in range(3):
+        assert pt.get_mlmc_variance(n) is pt.get_mlmc_variances()[n]
+        np.testing.assert_array_equal(np.triu(pt.get_mlmc_variance(n), 1),
+                                      np.triu(pj.get_mlmc_variance(n), 1))
+    np.testing.assert_array_equal(pt.get_mlmc_variance(), pt.dV[0])
+
+
+def test_prewarm_solver_shape_contract():
+    """prewarm_solver predicts exactly the group count setup_solver
+    builds, as the JAX package's does on the same graph, and the later
+    setup_solver reuses the structure it built."""
+    from bluest_tpu.models.analytic import ExpSeriesProblem as JaxSeries
+    from bluest_tpu_torch.models.analytic import ExpSeriesProblem
+    C = np.eye(5) + 0.5
+    C[0, 4] = C[4, 0] = np.inf     # uncouplable pair prunes cliques
+    costs = np.array([16.0, 8, 4, 2, 1])
+    pt = ExpSeriesProblem(5, C=C.copy(), costs=costs, verbose=False,
+                          device="cpu")
+    pj = JaxSeries(5, C=C.copy(), costs=costs, verbose=False)
+    L_pred = pt.prewarm_solver(K=3)
+    assert L_pred == pj.prewarm_solver(K=3)
+    warmed = pt.MOSAP
+    assert warmed is not None and warmed.L == L_pred
+    blue = pt.setup_solver(K=3, budget=500.0)
+    assert pt.MOSAP is warmed and pt.MOSAP.L == L_pred
+    assert len(blue["models"]) <= L_pred
+    mms = np.array([np.inf, 10000.0, np.inf, 20000.0, np.inf])
+    assert pt.prewarm_solver(K=3, background=True, budget=500.0,
+                             max_model_samples=mms) == L_pred
+    assert pt.prewarm_solver(K=9) == pj.prewarm_solver(K=9)   # K > M clips
+
+
+def test_kept_names_behave_as_the_jax_package_s():
+    """The device-policy and prewarm names of the JAX package exist in
+    the port and give what the JAX package gives on a healthy host: None,
+    a usable context, the undecorated function's results."""
+    from bluest_tpu import config as cj
+    from bluest_tpu.allocation import mosap as mj
+    from bluest_tpu.solvers import sdp as sj
+    from bluest_tpu_torch import config as ct
+    from bluest_tpu_torch.allocation import mosap as mt
+    from bluest_tpu_torch.solvers import sdp as st
+    assert ct.ensure_responsive_device() is None
+    assert cj.ensure_responsive_device() is None       # pinned to the CPU
+    assert ct.ensure_responsive_device(timeout=1.0, retries=2,
+                                       fallback="cpu") is None
+    for cfg in (cj, ct):
+        with cfg.allocation_device_scope():
+            assert cfg.on_allocation_device(lambda a, b=1: a + b)(2, b=3) == 5
+    f = lambda x: x
+    assert ct.on_allocation_device(f) is f
+    assert st.prewarm_mlblue(3, 1, 3) is None
+    assert st.prewarm_mlblue(3, 1, 3, budget_epigraph=True, n_caps=2) is None
+    # the port compiles no cone program, so it has none to warm; the JAX
+    # package says the same of its solvers that run no compiled IPM
+    assert mt.prewarm_forms_for(100.0, None, 10) == []
+    assert mt.prewarm_forms_for(None, [np.inf, 5.0], 10, solver="sdp") == []
+    assert mj.prewarm_forms_for(100.0, None, 10, solver="scipy") == []
+    for dims in ({"nx": 385, "nb": 3, "n": 11, "rank": 120,
+                  "woodbury": True},
+                 {"nx": 40, "nb": 2, "n": 5, "rank": 0, "woodbury": False},
+                 {"nx": 7, "nb": 1, "n": 3}):
+        assert st.ipm_iteration_flops(dims) == sj.ipm_iteration_flops(dims)
+
+
+@pytest.mark.parametrize("m", [1, 3, 7, 63, 255])
+def test_cyclic_reduction_solve(m):
+    """Held to thomas_solve at 1e-9 max relative in f64, and to the JAX
+    package's cyclic reduction, on diagonally dominant systems."""
+    import jax.numpy as jnp
+    from bluest_tpu.models import diffusion as dj
+    from bluest_tpu_torch.models import diffusion as dt
+    rng = np.random.default_rng(m)
+    lower = -rng.uniform(0.5, 1.5, (4, m))
+    upper = -rng.uniform(0.5, 1.5, (4, m))
+    lower[:, 0] = 0.0
+    upper[:, -1] = 0.0
+    diag = np.abs(lower) + np.abs(upper) + rng.uniform(0.1, 1.0, (4, m))
+    rhs = rng.standard_normal((4, m))
+    args = [torch.as_tensor(a) for a in (lower, diag, upper, rhs)]
+    got = dt.cyclic_reduction_solve(*args).numpy()
+    ref = dt.thomas_solve(*args).numpy()
+    assert got.shape == (4, m)
+    assert np.abs(got - ref).max() <= 1e-9 * np.abs(ref).max()
+    jx = np.stack([np.asarray(dj.cyclic_reduction_solve(
+        *[jnp.asarray(a[i]) for a in (lower, diag, upper, rhs)]))
+        for i in range(4)])
+    assert np.abs(got - jx).max() <= 1e-12 * np.abs(jx).max()
+
+
+def test_solve_diffusion_outputs_batched_matches_jax():
+    import jax.numpy as jnp
+    from bluest_tpu.models import diffusion as dj
+    from bluest_tpu_torch.models import diffusion as dt
+    xis = np.random.default_rng(0).standard_normal((9, 6))
+    got = dt.solve_diffusion_outputs_batched(torch.as_tensor(xis), 16, 1.0,
+                                             0.6).numpy()
+    ref = np.asarray(dj.solve_diffusion_outputs_batched(jnp.asarray(xis), 16,
+                                                        1.0, 0.6))
+    assert got.shape == ref.shape == (9, 3)
+    np.testing.assert_allclose(got, ref, rtol=1e-10)
+    assert dt.solve_diffusion_outputs_batched is dt.solve_diffusion_outputs
+
+
+# ---------------- save / load, profile_dir --------------------------------- #
+
+def test_pickle_round_trip_then_solve(tmp_path):
+    """A problem that has sampled and solved is pickled, loaded, and
+    solves again: graphs, costs, parameters and the call counter travel,
+    the engine and the allocation are rebuilt."""
+    import pickle
+    p = Quadratic(3, covariance_estimation_samples=2000, verbose=False,
+                  device="cpu", seed=5, costs=[3.0, 2.0, 1.0])
+    p.solve(K=2, budget=600.0)
+    counter = p._call_counter
+    assert p._engine is not None and p.MOSAP is not None
+    q = pickle.loads(pickle.dumps(p))
+    assert q._engine is None and q.MOSAP is None and q.MOSAP_output is None
+    assert q.mesh is None and q._call_counter == counter
+    np.testing.assert_array_equal(q.get_covariance(0), p.get_covariance(0))
+    np.testing.assert_array_equal(q.get_costs(), p.get_costs())
+    mus_q, errs_q, cost_q = q.solve(K=2, budget=600.0)
+    # the original goes on from the same counter: the same streams
+    mus_p, errs_p, cost_p = p.solve(K=2, budget=600.0)
+    assert float(mus_q[0]) == float(mus_p[0]) and cost_q == cost_p
+    np.testing.assert_array_equal(errs_q, errs_p)
+    assert abs(float(mus_q[0]) - _Quadratic.b[0]) <= 4 * float(errs_q[0])
+
+
+def test_profile_dir_writes_a_trace(tmp_path):
+    C = (np.outer(_Quadratic.a, _Quadratic.a)
+         + 2 * np.outer(_Quadratic.b, _Quadratic.b))
+    d = tmp_path / "traces"
+    p = Quadratic(3, C=C, costs=[3.0, 2.0, 1.0], verbose=False, device="cpu",
+                  profile_dir=str(d))
+    mus, _, _ = p.solve(K=2, budget=300.0)
+    files = list(d.glob("solve_*.json"))
+    assert len(files) == 1 and files[0].stat().st_size > 0
+    import json
+    with open(files[0]) as f:
+        assert "traceEvents" in json.load(f)
+    assert np.isfinite(float(mus[0]))
+
+
+# ---------------- the pipelined solve -------------------------------------- #
+
+_A = np.array([1.0, 0.95, 0.8])
+_B = np.array([0.5, 0.3, 0.1])
+# at costs (100, 10, 1) and K=2 the allocation couples three groups
+_C_Q = np.outer(_A, _A) + 2 * np.outer(_B, _B)
+
+
+class Quadratic2(Quadratic):
+    """y_l = a_l x + b_l x^2 with no two models perfectly correlated."""
+
+    def evaluate_model(self, l, x):
+        return _A[l] * x + _B[l] * x * x
+
+
+class FlakyQuadratic(Quadratic2):
+    """The same family with ~7% of draws non-finite (x > 1.5)."""
+
+    def evaluate_model(self, l, x):
+        y = super().evaluate_model(l, x)
+        return torch.where(x > 1.5, torch.nan, y)
+
+
+def _pair_of(cls, tmp_path, with_file, **kw):
+    """Two equal problems (same seed, known covariances): one for the
+    pipelined entry point, one for the loop of blue_fn calls."""
+    out = []
+    for tag in ("pipe", "loop"):
+        f = str(tmp_path / (tag + ".npz")) if with_file else None
+        out.append(cls(3, C=_C_Q, costs=[100.0, 10.0, 1.0], verbose=False,
+                       device="cpu", seed=9, device_batch_size=16,
+                       samplefile=f, **kw))
+    return out
+
+
+def _same_snapshots(tmp_path):
+    import glob
+    pipe = sorted(glob.glob(str(tmp_path / "pipe*.npz")))
+    loop = sorted(glob.glob(str(tmp_path / "loop*.npz")))
+    assert pipe and len(pipe) == len(loop)
+    for a, b in zip(pipe, loop):
+        with np.load(a) as za, np.load(b) as zb:
+            assert sorted(za.files) == sorted(zb.files)
+            for k in za.files:
+                np.testing.assert_array_equal(za[k], zb[k])
+
+
+def _groups_of(which, p, data):
+    best = list(data["models"])
+    samples = [int(m) for m in np.round(data["samples"])]
+    if which == "mlmc":
+        groups = [list(g) for g in zip(best[:-1], best[1:])] + [best[-1:]]
+        return groups, samples
+    incs = [samples[i] - (samples[i - 1] if i else 0)
+            for i in range(len(samples))]
+    return [best[i:] for i in range(len(best))], incs
+
+
+@pytest.mark.parametrize("with_file", [False, True])
+@pytest.mark.parametrize("cls", [Quadratic2, FlakyQuadratic])
+@pytest.mark.parametrize("which", ["mlblue", "mlmc", "mfmc"])
+def test_pipelined_sums_equal_the_per_group_path(tmp_path, which, cls,
+                                                 with_file):
+    """Dispatch-all-then-fetch-once gives, bit for bit, the sums of one
+    blue_fn call per group in list order -- also when the model loses
+    rows (the top-up draws from the group's own call) and with a
+    samplefile, whose rows are then equal too."""
+    pipe, loop = _pair_of(cls, tmp_path, with_file)
+    seen = []
+    real = pipe._pipelined_sumse
+
+    def recording(group_list, n_list):
+        out = real(group_list, n_list)
+        seen.append(([list(g) for g in group_list],
+                     [int(n) for n in n_list], out))
+        return out
+
+    pipe._pipelined_sumse = recording
+    if which == "mlblue":
+        mus, errs, _ = pipe.solve(K=2, budget=9000.0)
+    elif which == "mlmc":
+        mus, errs, _ = pipe.solve_mlmc(budget=9000.0)
+    else:
+        mus, errs, _ = pipe.solve_mfmc(budget=9000.0)
+    (groups, ns, got), = seen
+    assert sum(n > 0 for n in ns) >= 2
+    for g, n, sumse in zip(groups, ns, got):
+        if n == 0:
+            assert sumse is None
+            continue
+        ref = loop.blue_fn(g, n)[0]
+        assert np.array_equal(np.array(sumse), np.array(ref))
+        assert np.isfinite(np.array(sumse)).all()
+    assert loop._call_counter == pipe._call_counter == sum(n > 0 for n in ns)
+    assert np.isfinite(float(mus[0]))
+    if cls is Quadratic2:
+        assert abs(float(mus[0]) - _B[0]) <= 5 * float(np.max(errs))
+    if with_file:
+        _same_snapshots(tmp_path)
+    # the walls of the groups add up to the wall of the batch
+    t = sum(s["wall_s"] for s in pipe.sampling_stats.values())
+    assert 0 < t and sum(s["samples"] for s in pipe.sampling_stats.values()) \
+        == sum(ns)
+
+
+def test_sampling_stats_walls_add_up_to_the_batch_wall(monkeypatch):
+    """One fetch has one wall: it is shared out pro rata by N."""
+    from bluest_tpu_torch import problem as mod
+    p = Quadratic2(3, C=_C_Q, costs=[3.0, 2.0, 1.0], verbose=False,
+                   device="cpu", device_batch_size=16)
+    ticks = iter([10.0, 14.0])
+    monkeypatch.setattr(mod, "time", lambda: next(ticks))
+    p._sample_groups([[0, 1], [2], [1, 2]], [30, 0, 10])
+    st = p.sampling_stats
+    assert set(st) == {(0, 1), (1, 2)}
+    assert st[(0, 1)] == {"samples": 30, "wall_s": 3.0}
+    assert st[(1, 2)] == {"samples": 10, "wall_s": 1.0}
+
+
+def test_one_copy_of_sums_per_fetch_round():
+    """All groups' sums reach the host in one copy; a model that loses
+    rows costs one more copy per top-up round, not one per group."""
+    for cls, rounds in ((Quadratic2, 1), (FlakyQuadratic, None)):
+        p = cls(3, C=_C_Q, costs=[3.0, 2.0, 1.0], verbose=False,
+                device="cpu", device_batch_size=16, seed=2)
+        copies = []
+        real = p._sums_to_host
+        p._sums_to_host = lambda flat: copies.append(flat.numel()) \
+            or real(flat)
+        host = p._sample_groups([[0], [0, 1], [1, 2], [2]],
+                                [40, 50, 60, 70])
+        assert all(h[-1] == 0 for h in host)
+        if rounds is not None:
+            assert len(copies) == rounds
+        else:
+            assert 2 <= len(copies) <= 5
+        # the first copy holds all four groups: se k + sc k^2 + d1 k^2 +
+        # d2 k^2 + 1 entries each
+        assert copies[0] == sum(k + 3 * k * k + 1 for k in (1, 2, 2, 1))

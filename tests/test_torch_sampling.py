@@ -63,23 +63,82 @@ def test_engine_couples_models_and_masks():
     eng = SamplingEngine(sample_inputs, evaluate_model, No=1, batch_size=7,
                          device="cpu")
     N = 30
-    seed = generator_seed(0, 5)
-    s = eng.sample_sums([0, 2, 5], seed, N)
+    s = eng.sample_sums([0, 2, 5], 0, 5, N)
     se = s.sumse.numpy()[0, :, 0]
     assert np.all(se == se[0])
     assert np.all(s.sumsd2.numpy() == 0) and np.all(s.sumsd1.numpy() == 0)
     assert int(s.n_failed) == 0
-    # the same stream drawn in one piece gives the same sums
-    gen = torch.Generator().manual_seed(seed)
-    xs = torch.cat([sample_inputs(gen, n) for n in (7, 7, 7, 7, 2)])[:, 0]
+    # the chunks' own streams, drawn one by one, give the same sums
+    gen = torch.Generator()
+    xs = torch.cat([sample_inputs(gen.manual_seed(generator_seed(0, 5, c)), n)
+                    for c, n in enumerate((7, 7, 7, 7, 2))])[:, 0]
     np.testing.assert_allclose(se[0], float(xs.sum()), rtol=1e-13)
     np.testing.assert_allclose(s.sumsc.numpy()[0, 0, 1],
                                float((xs * xs).sum()), rtol=1e-13)
     # a fresh counter is a fresh stream; the same counter repeats
-    assert generator_seed(0, 6) != seed
-    again = eng.sample_sums([0, 2, 5], seed, N)
+    assert generator_seed(0, 6) != generator_seed(0, 5)
+    again = eng.sample_sums([0, 2, 5], 0, 5, N)
     assert torch.equal(again.sumse, s.sumse)
-    z = eng.sample_sums([1, 2], seed, 0)
+    z = eng.sample_sums([1, 2], 0, 5, 0)
     assert z.sumsc.shape == (1, 2, 2) and float(z.sumse.abs().sum()) == 0
     both = add_sums(s, s)
     assert torch.equal(both.sumse, 2 * s.sumse)
+
+
+def _chunk_engine(batch=7):
+    def sample_inputs(gen, n):
+        return torch.randn((n, 2), generator=gen, dtype=torch.float64)
+
+    def evaluate_model(l, xi):
+        return xi[:, :1] * (l + 1.0)
+
+    return SamplingEngine(sample_inputs, evaluate_model, No=1,
+                          batch_size=batch, device="cpu"), sample_inputs
+
+
+def test_chunk_streams_do_not_depend_on_the_chunks_before():
+    """Chunk c of a call holds the same draws whatever precedes it: the
+    sums of chunks [2, 5) taken alone (first_chunk=2) equal the call's
+    sums less those of its first two chunks, and chunk 3 drawn by hand
+    from its own seed is what the engine drew."""
+    eng, sample_inputs = _chunk_engine()
+    whole = eng.sample_sums([0, 1], 11, 4, 35)            # chunks 0..4
+    head = eng.sample_sums([0, 1], 11, 4, 14)             # chunks 0, 1
+    tail = eng.sample_sums([0, 1], 11, 4, 21, first_chunk=2)
+    for w, h, t in zip(whole[:4], head[:4], tail[:4]):
+        np.testing.assert_allclose((h + t).numpy(), w.numpy(), rtol=1e-13,
+                                   atol=1e-13)
+    only3 = eng.sample_sums([0], 11, 4, 7, first_chunk=3)
+    gen = torch.Generator().manual_seed(generator_seed(11, 4, 3))
+    x3 = sample_inputs(gen, 7)[:, 0]
+    assert float(only3.sumse[0, 0, 0]) == float(x3.to(torch.float64).sum())
+
+
+def test_chunk_seeds_are_distinct_and_reproducible():
+    seeds = {generator_seed(s, c, k) for s in (0, 1) for c in range(4)
+             for k in range(6)}
+    assert len(seeds) == 2 * 4 * 6
+    assert all(0 <= s < 2 ** 64 for s in seeds)
+    assert generator_seed(3, 2, 1) == generator_seed(3, 2, 1)
+    # chunk 0 is the call's own stream
+    assert generator_seed(3, 2) == generator_seed(3, 2, 0)
+    eng, _ = _chunk_engine()
+    a = eng.sample_sums([0], 0, 1, 20)
+    b = eng.sample_sums([0], 0, 2, 20)
+    c = eng.sample_sums([0], 0, 1, 20, first_chunk=1)
+    assert float(a.sumse[0, 0, 0]) != float(b.sumse[0, 0, 0])
+    assert float(a.sumse[0, 0, 0]) != float(c.sumse[0, 0, 0])
+
+
+def test_rank_chunks_partition_every_call():
+    """Contiguous blocks of whole chunks: every chunk on exactly one
+    rank, in rank order, for calls shorter than the rank count too."""
+    from types import SimpleNamespace
+    from bluest_tpu_torch.sampling.engine import rank_chunks
+    assert list(rank_chunks(5)) == [0, 1, 2, 3, 4]
+    for R in (1, 2, 3, 8):
+        for n_chunks in (0, 1, 2, 5, 8, 17):
+            got = [list(rank_chunks(n_chunks, SimpleNamespace(
+                n_sample=R, sample_rank=r))) for r in range(R)]
+            assert sum(got, []) == list(range(n_chunks))
+            assert max(len(g) for g in got) == -(-n_chunks // R)
