@@ -138,14 +138,15 @@ class BLUEProblem:
         self.MOSAP = None
         self.MOSAP_output = None
 
-        unknown = set(params) - set(default_params)
-        if unknown:
-            raise TypeError("unknown parameters: %s" % sorted(unknown))
+        # a subclass's own keys land in params beside the defaults, as in
+        # the JAX package (bluest_tpu/problem.py:100-108)
+        self.default_params = default_params
         self.params = default_params.copy()
         spg_params = spg_default_params.copy()
         spg_params.update(params.get("spg_params", {}))
         params["spg_params"] = spg_params
         self.params.update(params)
+        self.warning = True
 
         mesh = self.params["mesh"]
         if isinstance(mesh, str):

@@ -7,8 +7,9 @@ Phases (any failure raises, so the exit code is non-zero):
   1. device: require a CUDA card; print its name and power limit;
   2. build K1 (bluest_tpu_torch/csrc/diffusion.cu) with nvcc;
   3. hold K1 against its plain PyTorch version on the card, for
-     n in {1, 2, 3, 8, 33, 64, 100, 256, 1024}, B in {1, 77, 8192}, f32
-     and f64: bit-equal in each dtype, f64 within 1e-10 and f32 within
+     n in {1, 2, 3, 8, 33, 64, 100, 256, 1024}, B in {1, 77, 8192} and
+     every grid and chunk size of the flagship and of the diffusion
+     example (phase 9(a): n 256/64/16/4, B 4096), f32 and f64: bit-equal in each dtype, f64 within 1e-10 and f32 within
      the f32 error class of the f64 plain version; time both at the
      flagship shape (n=1024, B=8192, f32) beside K1's bound, then K1 on
      every flagship grid, over B at n=1024, and in f64;
@@ -94,6 +95,30 @@ Phases (any failure raises, so the exit code is non-zero):
          was built in phase 2, so the ranks load it.  A rank that fails
          fails the run.
      The model axis needs a card per rank for NCCL and is not run here.
+  9. the user's front door on the card: each script of examples/torch/
+     and tutorials/01_tutorial_torch.py through its main([...]) in this
+     process, on its default device (the card), each part timed, its
+     printed output kept under build/chip_smoke/phase9/ and its last
+     lines echoed:
+     (a) single_output_diffusion --tests: the MLBLUE estimate within 4
+         error bars of a 2^20-sample MC estimate of model 0 through K1,
+         complexity rate in [1.9, 2.1], variance_test ratio in [0.5, 1.6],
+         and K1's launches in the run equal to its chunk evaluations (at
+         the example's own device_batch_size): the kernel line's
+         "example_diffusion" launches;
+     (b) matern_restrictions: every allocation of the sweep meets its
+         eps, and the estimate is finite with a positive error;
+     (c) multi_output_hodgkin_huxley --fast: every estimate and error
+         finite, output 0 within 4 error bars of an MC estimate of model
+         0 on the card;
+     (d) navier_stokes_study, its NS_NPZ pointed at a 12-model, 6-output
+         graph that the phase writes (write_ns_graph): MLBLUE's offline
+         cost at most MFMC's and MLMC's, and the surrogate's estimates
+         within 5 predicted RMSEs of their known means;
+     (e) nested_blackbox_parallel: the covariance diagonals of the nested
+         pools and of the one-process evaluations agree to the printed
+         5 decimals;
+     (f) the tutorial ends with "Tutorial completed.".
 The second-to-last line is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}.
 
@@ -107,7 +132,9 @@ again after every change to the sampling path or K1; the plain run
 leaves it out, so the profiler's cost never enters its other numbers.
 """
 
+import contextlib
 import json
+import math
 import os
 import socket
 import statistics
@@ -156,6 +183,20 @@ HOST_EPS = 0.02
 # another in a collective before it fails
 PATH_REPS = 7
 RANK_TIMEOUT_S = 180
+# phase 9: the front door's scripts (by directory), MC references of model
+# 0, the graph written for the Navier-Stokes study, lines echoed per part
+FRONT_DOOR = {"single_output_diffusion": "examples/torch",
+              "matern_restrictions": "examples/torch",
+              "multi_output_hodgkin_huxley": "examples/torch",
+              "navier_stokes_study": "examples/torch",
+              "nested_blackbox_parallel": "examples/torch",
+              "01_tutorial_torch": "tutorials"}
+EX_DIFFUSION_MC = 1 << 20
+EX_DIFFUSION_MC_CHUNK = 1 << 16
+EX_HH_MC = 16384
+NS_MODELS = 12
+NS_OUTPUTS = 6
+ECHO_LINES = 8
 
 
 def log(*a):
@@ -239,12 +280,20 @@ def phase_kernel_check():
     import torch
     from bluest_tpu_torch.ops.diffusion import (diffusion_outputs,
                                                 diffusion_outputs_plain)
+    from bluest_tpu_torch.problem import default_params
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     worst = 0.0
     max_abs = {torch.float32: 0.0, torch.float64: 0.0}   # kernel vs plain
-    for n in CHECK_GRIDS:
-        for B in CHECK_BATCHES:
+    # the edge cases, and every grid and chunk size that a main path
+    # (the flagship's, and the diffusion example's of phase 9) gives K1
+    example = _front_door_module("single_output_diffusion")
+    grids = sorted(set(CHECK_GRIDS) | set(GRIDS) | set(example.GRIDS))
+    batches = sorted(set(CHECK_BATCHES) | {
+        BATCH, int(default_params["device_batch_size"])})
+    log("K1 check: n in %s, B in %s" % (grids, batches))
+    for n in grids:
+        for B in batches:
             xi64 = torch.as_tensor(rng.standard_normal((B, N_KL)),
                                    dtype=torch.float64, device=dev)
             ref64 = diffusion_outputs_plain(xi64, n, SIGMA, NU)
@@ -1682,6 +1731,241 @@ def phase_distribution(flagship, graph, launches_by_path):
     log("phase 8: %.3f s" % (time.perf_counter() - t_phase))
 
 
+def _front_door_module(name):
+    """Import a script of examples/torch/ or tutorials/ by name, its
+    directory on sys.path (spawned host workers import it from there)."""
+    import importlib
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(here, FRONT_DOOR[name])
+    if d not in sys.path:
+        sys.path.insert(0, d)
+    return importlib.import_module(name)
+
+
+def _run_script(name, argv, times):
+    """``main(argv)`` of one front-door script in this process: its
+    printed output goes to build/chip_smoke/phase9/<name>.log, its last
+    lines to this log; returns (result, printed text)."""
+    import io
+    mod = _front_door_module(name)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = mod.main(list(argv))
+    _sync()
+    times[name + "_s"] = time.perf_counter() - t0
+    text = buf.getvalue()
+    logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke", "phase9")
+    os.makedirs(logdir, exist_ok=True)
+    with open(os.path.join(logdir, name + ".log"), "w") as f:
+        f.write(text)
+    log("%s %s: %.3f s; its last lines:" % (name, " ".join(argv),
+                                            times[name + "_s"]))
+    for line in text.rstrip().splitlines()[-ECHO_LINES:]:
+        log("  | " + line)
+    return res, text
+
+
+@contextlib.contextmanager
+def counting_chunk_evals():
+    """Count, in the list it yields, the chunk evaluations that sampling
+    asks for: every device sampling call passes through
+    BLUEProblem._device_sums, at the problem's own chunk size."""
+    from bluest_tpu_torch import BLUEProblem
+    need = [0]
+    real = BLUEProblem._device_sums
+
+    def counted(self, key_ls, N, *args, **kwargs):
+        if N > 0:
+            need[0] += len(key_ls) * math.ceil(
+                N / int(self.params["device_batch_size"]))
+        return real(self, key_ls, N, *args, **kwargs)
+
+    BLUEProblem._device_sums = counted
+    try:
+        yield need
+    finally:
+        BLUEProblem._device_sums = real
+
+
+def _ex_diffusion(times, launches_by_path):
+    """9(a): the diffusion example through K1, with its tests."""
+    import numpy as np
+    import torch
+    from bluest_tpu_torch.models.diffusion import DiffusionProblem
+    from bluest_tpu_torch.ops import diffusion as k1
+    mod = _front_door_module("single_output_diffusion")
+    with counting_chunk_evals() as need:
+        k1.diffusion_outputs.launches = 0
+        res, _ = _run_script("single_output_diffusion", ["--tests"], times)
+        launches = k1.diffusion_outputs.launches
+    launches_by_path["example_diffusion"] = launches
+    log("9(a) K1 launches %d (chunk evaluations %d)" % (launches, need[0]))
+    if not launches == need[0] > 0:
+        raise AssertionError("9(a): K1 launched %d times for %d chunk "
+                             "evaluations" % (launches, need[0]))
+
+    # MC of model 0 through K1 (these launches are not the example's)
+    m = len(mod.GRIDS)
+    p = DiffusionProblem(grids=mod.GRIDS, n_kl=mod.N_KL, sigma=mod.SIGMA,
+                         nu=mod.NU, C=np.eye(m), costs=np.ones(m),
+                         verbose=False)
+    _check_on_sampling_device(p)
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    s1 = torch.zeros((), dtype=torch.float64, device=DEV)
+    s2 = torch.zeros_like(s1)
+    t0 = time.perf_counter()
+    for _ in range(EX_DIFFUSION_MC // EX_DIFFUSION_MC_CHUNK):
+        q = p.evaluate_model(0, p.sample_inputs(
+            gen, EX_DIFFUSION_MC_CHUNK))[:, 0]
+        s1 += q.sum()
+        s2 += (q * q).sum()
+    mean = float(s1) / EX_DIFFUSION_MC
+    var = float(s2) / EX_DIFFUSION_MC - mean ** 2
+    log("9(a) MC reference: %d samples of model 0 through K1 in %.3f s"
+        % (EX_DIFFUSION_MC, time.perf_counter() - t0))
+    _within_bars("9(a) example MLBLUE vs MC", [res["mu"]], [res["err"]],
+                 [mean], [math.sqrt(var / EX_DIFFUSION_MC)])
+    ratio = np.asarray(res["variance_empirical"]) \
+        / np.asarray(res["variance_predicted"])
+    log("9(a) complexity rate %.6f (costs %s), variance_test ratio %s"
+        % (res["complexity_rate"], list(res["complexity_costs"]),
+           ratio.tolist()))
+    if not 1.9 <= res["complexity_rate"] <= 2.1:
+        raise AssertionError("9(a): complexity rate %.4f outside [1.9, 2.1]"
+                             % res["complexity_rate"])
+    if not np.all((ratio >= 0.5) & (ratio <= 1.6)):
+        raise AssertionError("9(a): variance_test ratio %s outside [0.5, "
+                             "1.6]" % ratio)
+
+
+def _ex_matern(times):
+    """9(b): the pilot-size sweep meets every eps; one finite estimate."""
+    import numpy as np
+    res, _ = _run_script("matern_restrictions", [], times)
+    for a in res["allocations"]:
+        if not np.all(a["errors"] <= 1.0001 * np.asarray(a["eps"])):
+            raise AssertionError("9(b): pilot %d: errors %s above eps %s"
+                                 % (a["pilot"], a["errors"], a["eps"]))
+    if not (np.isfinite(res["mu"]) and res["err"] > 0):
+        raise AssertionError("9(b): estimate %r +- %r" % (res["mu"],
+                                                          res["err"]))
+    log("9(b) %d allocations within their eps; estimate %.6g +- %.3g"
+        % (len(res["allocations"]), res["mu"], res["err"]))
+
+
+def _ex_hodgkin_huxley(times):
+    """9(c): the 6-model HH subset with --fast, against MC of model 0."""
+    import numpy as np
+    import torch
+    from bluest_tpu_torch.models import hodgkin_huxley as hh
+    mod = _front_door_module("multi_output_hodgkin_huxley")
+    res, _ = _run_script("multi_output_hodgkin_huxley", ["--fast"], times)
+    est, errs = np.asarray(res["estimates"]), np.asarray(res["errors"])
+    if not (np.all(np.isfinite(est)) and np.all(np.isfinite(errs))):
+        raise AssertionError("9(c): estimates %s errors %s" % (est, errs))
+    m = len(mod.SUBSET)
+    p = hh.HodgkinHuxleyProblem(models=mod.SUBSET,
+                                C=[np.eye(m)] * hh.N_OUTPUTS, verbose=False)
+    _check_on_sampling_device(p)
+    t0 = time.perf_counter()
+    q = hh.hh_outputs(*mod.SUBSET[0], p.sample_group(
+        torch.Generator(device=DEV).manual_seed(9), (0,), EX_HH_MC))
+    if not bool(torch.isfinite(q).all()):
+        raise AssertionError("9(c): HH model 0 gave non-finite outputs")
+    q = q[:, 0].cpu().numpy()
+    log("9(c) MC reference: %d samples of model 0 in %.3f s"
+        % (EX_HH_MC, time.perf_counter() - t0))
+    _within_bars("9(c) example output 0 vs MC", est[:1], errs[:1],
+                 [q.mean()], [q.std() / np.sqrt(EX_HH_MC)])
+
+
+def _ex_navier_stokes(times):
+    """9(d): the NS study on a written 12-model, 6-output graph."""
+    import numpy as np
+    mod = _front_door_module("navier_stokes_study")
+    with tempfile.TemporaryDirectory() as d:
+        mod.NS_NPZ = os.path.join(d, "ns_graph.npz")
+        write_ns_graph(mod.NS_NPZ)
+        with np.load(mod.NS_NPZ, allow_pickle=True) as z:
+            shape = (int(z["M"]), int(z["n_outputs"]))
+        res, _ = _run_script("navier_stokes_study", [], times)
+    c = res["costs"]
+    log("9(d) graph %s; offline costs MLBLUE %.1f, MFMC %.1f, MLMC %.1f; "
+        "surrogate estimates within 5 RMSEs: %s"
+        % (shape, c["mlblue"], c["mfmc"], c["mlmc"], res["within_5_rmse"]))
+    if shape != (NS_MODELS, NS_OUTPUTS) or len(res["estimates"]) != 6:
+        raise AssertionError("9(d): graph of %s models and outputs" % (shape,))
+    if not c["mlblue"] <= min(c["mfmc"], c["mlmc"]):
+        raise AssertionError("9(d): MLBLUE costs more than MFMC or MLMC: "
+                             "%s" % c)
+    if not res["within_5_rmse"]:
+        raise AssertionError("9(d): the surrogate's assert did not hold")
+
+
+def _ex_nested(times):
+    """9(e): nested pools against one-process evaluations."""
+    import numpy as np
+    res, _ = _run_script("nested_blackbox_parallel", [], times)
+    a = np.round(res["diagonal"], 5)
+    b = np.round(res["serial_diagonal"], 5)
+    log("9(e) covariance diagonals: nested %s, one process %s"
+        % (a.tolist(), b.tolist()))
+    if not np.array_equal(a, b):
+        raise AssertionError("9(e): the diagonals differ at 5 decimals")
+
+
+def _tutorial(times):
+    """9(f): the tutorial, all six parts."""
+    _, text = _run_script("01_tutorial_torch", [], times)
+    if not text.rstrip().endswith("Tutorial completed."):
+        raise AssertionError("9(f): the tutorial did not complete")
+
+
+def phase_front_door(launches_by_path):
+    """Phase 9: every part raises on failure; nothing is caught."""
+    times = {}
+    t0 = time.perf_counter()
+    for name, run in (
+            ("a", lambda: _ex_diffusion(times, launches_by_path)),
+            ("b", lambda: _ex_matern(times)),
+            ("c", lambda: _ex_hodgkin_huxley(times)),
+            ("d", lambda: _ex_navier_stokes(times)),
+            ("e", lambda: _ex_nested(times)),
+            ("f", lambda: _tutorial(times))):
+        t = time.perf_counter()
+        run()
+        times["part_%s_s" % name] = time.perf_counter() - t
+        log("phase 9(%s): %.3f s" % (name, times["part_%s_s" % name]))
+    log("phase 9: %.3f s; %s" % (time.perf_counter() - t0,
+                                 json.dumps({k: round(v, 6)
+                                             for k, v in times.items()})))
+
+
+def write_ns_graph(path, seed=0):
+    """A model graph in the shape of the reference's Navier-Stokes study
+    (12 models, 6 outputs, costs 2^(11-l)), written in the reference npz
+    format: per output a seeded SPD covariance of a hierarchy in which
+    model l is the exact output plus errors whose variances grow
+    2x per level, each with a random factor in [0.5, 2)."""
+    import numpy as np
+    from bluest_tpu_torch import BLUEProblem
+    rng = np.random.default_rng(seed)
+    m = NS_MODELS
+    C = []
+    for _ in range(NS_OUTPUTS):
+        s = 2.0 ** ((np.arange(1, m) - m) / 2) * rng.uniform(0.5, 2.0, m - 1)
+        A = np.zeros((m, m))
+        A[:, 0] = 1.0
+        for l in range(1, m):
+            A[l, 1:l + 1] = s[:l]
+        C.append(rng.uniform(0.5, 2.0) ** 2 * A @ A.T)
+    costs = 2.0 ** (m - 1 - np.arange(m))
+    BLUEProblem(m, n_outputs=NS_OUTPUTS, C=C, costs=costs, device="cpu",
+                verbose=False).save_graph_data(path)
+
+
 def main():
     import torch
     name, smi = phase_device()
@@ -1697,6 +1981,7 @@ def main():
         matern = phase_user_models(launches_by_path)
         phase_allocation_families(f, matern, launches_by_path)
         phase_distribution(f, graph, launches_by_path)
+    phase_front_door(launches_by_path)
     print(json.dumps({"kernels": [{
         "name": "diffusion_outputs", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,

@@ -363,8 +363,8 @@ def test_unported_parameters_raise():
     from bluest_tpu_torch.parallel import sample_mesh
     with pytest.raises(RuntimeError, match="not initialised"):
         sample_mesh()
-    with pytest.raises(TypeError, match="unknown parameters"):
-        _problem(no_such_parameter=1)
+    # a key outside default_params lands in params, as in the JAX package
+    assert _problem(no_such_parameter=1).params["no_such_parameter"] == 1
     p = _problem(comm=object(), sample_batch_size=4, max_resample=3,
                  host_workers=1, model_workers=1, outputs_to_save=[0])
     assert p.params["max_resample"] == 3 and p.get_comm() is None

@@ -156,8 +156,10 @@ def test_factored_model_api_with_cost_estimation():
     assert q.mesh is None
     mus, errs, _ = q.solve(K=2, budget=3e3)
     assert abs(float(mus[0]) - _Quadratic.b[0]) <= 4 * float(errs[0])
-    with pytest.raises(TypeError):
-        Quadratic(3, verbose=False, no_such_parameter=1)
+    # a key outside default_params lands in params, as in the JAX package
+    r = Quadratic(3, C=C_true, costs=[3.0, 2.0, 1.0], verbose=False,
+                  device="cpu", no_such_parameter=1)
+    assert r.params["no_such_parameter"] == 1
 
 
 def test_default_sampling_device_is_the_card():
@@ -214,6 +216,65 @@ def test_prewarm_solver_shape_contract():
     assert pt.prewarm_solver(K=3, background=True, budget=500.0,
                              max_model_samples=mms) == L_pred
     assert pt.prewarm_solver(K=9) == pj.prewarm_solver(K=9)   # K > M clips
+
+
+def test_subclass_keys_merge_into_params_as_in_the_jax_package():
+    """A subclass that passes its own key through the constructor gets the
+    params the JAX package gives it (the port adds only ``device``), and
+    ``default_params`` and ``warning`` are set as there."""
+    from bluest_tpu import BLUEProblem as JaxBLUEProblem
+    from bluest_tpu import problem as problem_j
+    from bluest_tpu_torch import problem as problem_t
+
+    def make(base):
+        class WithOwnKey(base):
+            def __init__(self, **params):
+                params.setdefault("refinement", 3)
+                super().__init__(3, C=np.eye(3) + 0.5,
+                                 costs=[4.0, 2.0, 1.0], verbose=False,
+                                 **params)
+        return WithOwnKey
+
+    pj = make(JaxBLUEProblem)(tag="run-1", spg_params={"maxit": 7})
+    pt = make(BLUEProblem)(tag="run-1", spg_params={"maxit": 7},
+                           device="cpu")
+    assert pt.params["refinement"] == pj.params["refinement"] == 3
+    assert pt.params["tag"] == pj.params["tag"] == "run-1"
+    assert set(pt.params) - set(pj.params) == {"device"}
+    for k in pj.params:
+        assert pt.params[k] == pj.params[k], k
+    assert pt.params["spg_params"]["maxit"] == 7
+    assert pt.default_params is problem_t.default_params
+    assert pj.default_params is problem_j.default_params
+    assert "tag" not in pt.default_params
+    assert pt.warning is True and pj.warning is True
+
+
+def test_plot_snapshots_tool_reads_the_port_s_files(tmp_path):
+    """tools/plot_snapshots.py loads and summarizes the snapshot files the
+    port writes (the npz layout both packages share)."""
+    import io
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    try:
+        from plot_snapshots import load_snapshot, summarize
+    finally:
+        sys.path.pop(0)
+    from bluest_tpu_torch.models.analytic import ExpSeriesProblem
+    snap = str(tmp_path / "snap.npz")
+    p = ExpSeriesProblem(3, C=np.eye(3) + 0.5,
+                         costs=np.array([4.0, 2.0, 1.0]), device="cpu",
+                         verbose=False, samplefile=snap)
+    p.blue_fn([0, 2], 64)
+    s = load_snapshot(str(tmp_path / "snap02.npz"))
+    assert s["models"] == [0, 2] and s["n_samples"] == 64
+    assert s["values"][(0, 0)].shape[0] == 64
+    assert s["values"][(0, 1)].shape[0] == 64
+    buf = io.StringIO()
+    summarize(s, stream=buf)
+    assert "model 2" in buf.getvalue()
 
 
 def test_kept_names_behave_as_the_jax_package_s():
