@@ -10,8 +10,9 @@ solved by finite differences on a hierarchy of grids (fidelity = grid
 resolution), with the SAME random coefficients xi shared across
 fidelities.  The problem's model path is K1
 (``ops/diffusion.py:diffusion_outputs``): the hand-written CUDA kernel
-for tensors on the card, its plain PyTorch version for tensors on the
-CPU.  ``thomas_solve`` / ``solve_diffusion_outputs`` below are the
+for tensors on the card -- K1 up to 1025 cells, its wide tier on finer
+grids or with more modes than K1's tile holds, so every grid runs on the
+card -- and their plain PyTorch version for tensors on the CPU.  ``thomas_solve`` / ``solve_diffusion_outputs`` below are the
 model-level reference formulation (field, then solve, then QoIs).
 """
 
@@ -172,7 +173,8 @@ class DiffusionProblem(BLUEProblem):
                            dtype=self.dtype, device=self.device)
 
     def evaluate_model(self, l, xis):
-        """Model l on a batch: the xi mask, then K1; (n, No)."""
+        """Model l on a batch: the xi mask, then K1 or its wide tier (the
+        kernel that ``ops.diffusion.tier`` names); (n, No)."""
         key = (l, xis.device)
         if key not in self._masks:
             self._masks[key] = (torch.arange(self.n_kl, device=xis.device)

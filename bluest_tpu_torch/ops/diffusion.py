@@ -3,20 +3,25 @@
 ``diffusion_outputs`` is the port of
 ``bluest_tpu/ops/pallas_diffusion.py:diffusion_outputs_pallas``: batched
 three-QoI evaluation of the lognormal diffusion model, ``xis (B, n_kl)``
-(already masked to the model's modes) -> ``(B, 3)`` in ``xis``' dtype.
+(already masked to the model's modes) -> ``(B, 3)`` in ``xis``' dtype,
+for any n_cells >= 1 and any n_kl >= 1.
 
-* A CUDA tensor launches the hand-written kernel of
+* A CUDA tensor launches a hand-written kernel of
   ``bluest_tpu_torch/csrc/diffusion.cu`` (float32 or float64), built with
   nvcc at first use into ``build/bluest_tpu_torch/`` next to the package
-  and loaded through ctypes.  It takes n_cells <= 1025 (a lane keeps its
-  rows in registers); a larger n raises.  Nothing falls back: a build or
-  launch failure raises.
-* A CPU tensor runs :func:`diffusion_outputs_plain`, the kernel's
+  and loaded through ctypes.  :func:`tier` picks it: K1 where K1 has a
+  tile (n_cells <= 1025, a lane's rows in registers, and the tile's
+  coefficients and xi in one block's shared memory), the wide tier
+  everywhere else (the rows in shared memory or in a workspace that the
+  wrapper allocates).  Nothing falls back: a build or launch failure of
+  either tier raises.
+* A CPU tensor runs :func:`diffusion_outputs_plain`, the kernels'
   partitioned tridiagonal solve with the same partition of rows among
   lanes, loop order and reduction trees, in PyTorch ops over
-  ``(B, lanes)``.  The
-  tests use it on the CPU, and ``chip_smoke.py`` holds the kernel
-  against it on the card.
+  ``(B, lanes)``.  It is the plain version of both tiers: the wide tier
+  keeps K1's partition and arithmetic, so :func:`tier` decides which
+  kernel runs, never which arithmetic.  The tests use it on the CPU, and
+  ``chip_smoke.py`` holds both kernels against it on the card.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ import numpy as np
 import torch
 
 __all__ = ["diffusion_outputs", "diffusion_outputs_plain", "mode_matrix",
-           "lanes_per_sample", "partition", "build_library"]
+           "lanes_per_sample", "partition", "tier", "launch",
+           "build_library"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "diffusion.cu")
@@ -43,6 +49,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _NO_TILE = -1              # the launcher's return for a shape it refuses
+K1_MAX_CELLS = 32 * 32 + 1  # K1's reach: a lane keeps <= 32 rows in registers
+_MAX_SMEM = 232448          # opt-in shared memory of one block (H100)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -95,8 +103,22 @@ def build_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
                 ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
+        for name in ("bluest_diffusion_wide_f32", "bluest_diffusion_wide_f64"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [
+                ctypes.c_int] * 3 + [ctypes.c_double, ctypes.c_double,
+                                     ctypes.c_void_p]
+        for name in ("bluest_diffusion_wide_workspace_f32",
+                     "bluest_diffusion_wide_workspace_f64"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                           ctypes.POINTER(ctypes.c_longlong)]
         lib.bluest_diffusion_max_cells.restype = ctypes.c_int
         lib.bluest_diffusion_max_cells.argtypes = []
+        lib.bluest_diffusion_k1_fits.restype = ctypes.c_int
+        lib.bluest_diffusion_k1_fits.argtypes = [ctypes.c_int] * 3
         _lib = lib
         return _lib
 
@@ -138,6 +160,21 @@ def lanes_per_sample(n_cells: int) -> int:
     return lanes
 
 
+def tier(n_cells: int, n_kl: int, dtype: torch.dtype) -> str:
+    """Which kernel evaluates (B, n_kl) xi at n_cells on the card: "k1"
+    where K1 has a tile -- n_cells <= 1025 and its tile of S samples (16
+    in f32, 8 in f64) of padded coefficients and xi fits one block's
+    shared memory, as ``csrc/diffusion.cu:k1_smem`` sizes it -- else
+    "wide".  Pure Python, so the CPU and the card agree on it."""
+    n = int(n_cells)
+    itemsize = 4 if dtype == torch.float32 else 8
+    S = 16 if itemsize == 4 else 8
+    tile_ld = (n - 1) + ((n - 1) >> 5) + 1       # K1's padded row length
+    fits = (n <= K1_MAX_CELLS
+            and S * (tile_ld + int(n_kl)) * itemsize <= _MAX_SMEM)
+    return "k1" if fits else "wide"
+
+
 def partition(n_cells: int, lanes: int):
     """K1's rows per lane: the m = n-1 unknowns split over P = min(lanes,
     m) lanes, lane p owning rows [p m // P, (p+1) m // P) (one or more);
@@ -173,9 +210,10 @@ def _shift(v: torch.Tensor, k: int, fill: float) -> torch.Tensor:
 def diffusion_outputs_plain(xis: torch.Tensor, n_cells: int,
                             sigma: float = 1.0,
                             nu: float = 1.5) -> torch.Tensor:
-    """Plain PyTorch version of K1: the kernel's partitioned solve with
-    its partition of rows among lanes, loop order and reduction trees,
-    vectorized over (B, lanes).  See csrc/diffusion.cu for the method."""
+    """Plain PyTorch version of both tiers: the kernels' partitioned solve
+    with their partition of rows among lanes, loop order and reduction
+    trees, vectorized over (B, lanes).  See csrc/diffusion.cu for the
+    method."""
     _check(xis, n_cells)
     n = int(n_cells)
     dt, dev = xis.dtype, xis.device
@@ -293,14 +331,29 @@ def _mode_matrix_t(n_cells: int, n_kl: int, sigma: float, nu: float,
 
 def diffusion_outputs(xis: torch.Tensor, n_cells: int, sigma: float = 1.0,
                       nu: float = 1.5) -> torch.Tensor:
-    """K1 wrapper: (B, n_kl) masked xi -> (B, 3) QoIs.  CPU tensors run
-    the plain version; CUDA tensors launch the kernel or raise."""
+    """(B, n_kl) masked xi -> (B, 3) QoIs.  CUDA tensors launch the kernel
+    that :func:`tier` picks, or raise; CPU tensors run the plain version,
+    which is that tier's (and the other's) arithmetic."""
     _check(xis, n_cells)
     if xis.device.type == "cpu":
         return diffusion_outputs_plain(xis, n_cells, sigma, nu)
+    return launch(tier(int(n_cells), xis.shape[1], xis.dtype), xis, n_cells,
+                  sigma, nu)
+
+
+def launch(which: str, xis: torch.Tensor, n_cells: int, sigma: float = 1.0,
+           nu: float = 1.5) -> torch.Tensor:
+    """Launch one tier's kernel ("k1" or "wide") on CUDA xis, counted in
+    ``diffusion_outputs.launches`` and ``launches_by_tier``.
+    :func:`diffusion_outputs` passes the tier that :func:`tier` names;
+    the wide tier takes every shape, K1 only those :func:`tier` gives it
+    (else ``RuntimeError``), so both can be timed at a K1 shape."""
+    _check(xis, n_cells)
     if xis.device.type != "cuda":
         raise ValueError("diffusion_outputs: unsupported device %s"
                          % xis.device)
+    if which not in ("k1", "wide"):
+        raise ValueError("diffusion_outputs: no tier %r" % (which,))
     n = int(n_cells)
     B, n_kl = xis.shape
     if B >= 2 ** 31:
@@ -310,28 +363,47 @@ def diffusion_outputs(xis: torch.Tensor, n_cells: int, sigma: float = 1.0,
     if B == 0:
         return out
     lib = build_library()
-    fn = (lib.bluest_diffusion_outputs_f32 if xis.dtype == torch.float32
-          else lib.bluest_diffusion_outputs_f64)
+    f32 = xis.dtype == torch.float32
     mckT = _mode_matrix_t(n, n_kl, float(sigma), float(nu), xis.dtype,
                           xis.device)
     h = 1.0 / n
     with torch.cuda.device(xis.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(xis.data_ptr(), mckT.data_ptr(), out.data_ptr(), B, n_kl, n,
-                h * h, h, stream)
+        if which == "k1":
+            fn = (lib.bluest_diffusion_outputs_f32 if f32
+                  else lib.bluest_diffusion_outputs_f64)
+            rc = fn(xis.data_ptr(), mckT.data_ptr(), out.data_ptr(), B, n_kl,
+                    n, h * h, h, stream)
+        else:
+            elems = ctypes.c_longlong(0)
+            plan = (lib.bluest_diffusion_wide_workspace_f32 if f32
+                    else lib.bluest_diffusion_wide_workspace_f64)
+            rc = plan(B, n, ctypes.byref(elems))
+            if rc == 0:
+                ws = torch.empty(elems.value, dtype=xis.dtype,
+                                 device=xis.device)
+                diffusion_outputs.workspace_bytes = (ws.numel()
+                                                     * ws.element_size())
+                fn = (lib.bluest_diffusion_wide_f32 if f32
+                      else lib.bluest_diffusion_wide_f64)
+                rc = fn(xis.data_ptr(), mckT.data_ptr(), out.data_ptr(),
+                        ws.data_ptr() if ws.numel() else None, ws.numel(),
+                        B, n_kl, n, h * h, h, stream)
     if rc == _NO_TILE:
-        raise ValueError(
-            "diffusion_outputs: K1 has no tile for n_cells=%d, n_kl=%d: a "
-            "lane keeps its rows in registers, so n_cells <= %d, and the "
-            "tile's coefficients and xi must fit one block's shared memory "
-            "(csrc/diffusion.cu)"
-            % (n, n_kl, lib.bluest_diffusion_max_cells()))
+        raise RuntimeError(
+            "diffusion_outputs: the %s tier refused n_cells=%d, n_kl=%d "
+            "(tier() names %r for it; where that is this tier, "
+            "csrc/diffusion.cu and tier() disagree)"
+            % (which, n, n_kl, tier(n, n_kl, xis.dtype)))
     if rc != 0:
-        raise RuntimeError("K1 diffusion kernel launch failed: CUDA error "
-                           "%d (B=%d, n_kl=%d, n_cells=%d)"
-                           % (rc, B, n_kl, n))
+        raise RuntimeError("diffusion kernel (%s tier) launch failed: CUDA "
+                           "error %d (B=%d, n_kl=%d, n_cells=%d)"
+                           % (which, rc, B, n_kl, n))
     diffusion_outputs.launches += 1
+    diffusion_outputs.launches_by_tier[which] += 1
     return out
 
 
-diffusion_outputs.launches = 0
+diffusion_outputs.launches = 0          # every launch, both tiers
+diffusion_outputs.launches_by_tier = {"k1": 0, "wide": 0}
+diffusion_outputs.workspace_bytes = 0   # the last wide launch's workspace

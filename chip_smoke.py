@@ -5,14 +5,29 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: require a CUDA card; print its name and power limit;
-  2. build K1 (bluest_tpu_torch/csrc/diffusion.cu) with nvcc;
+  2. build K1 and its wide tier (bluest_tpu_torch/csrc/diffusion.cu) with
+     nvcc;
   3. hold K1 against its plain PyTorch version on the card, for
      n in {1, 2, 3, 8, 33, 64, 100, 256, 1024}, B in {1, 77, 8192} and
      every grid and chunk size of the flagship and of the diffusion
-     example (phase 9(a): n 256/64/16/4, B 4096), f32 and f64: bit-equal in each dtype, f64 within 1e-10 and f32 within
+     example (phase 9(a): n 256/64/16/4, B 4096), all at 32 modes, and
+     at phase 10's K1 grids (1024 ... 8) with its 1024 modes and B in
+     {1, 77, 4096, 8192}, f32 and f64: each launch counted for K1,
+     bit-equal in each dtype, f64 within 1e-10 and f32 within
      the f32 error class of the f64 plain version; time both at the
      flagship shape (n=1024, B=8192, f32) beside K1's bound, then K1 on
-     every flagship grid, over B at n=1024, and in f64;
+     every flagship grid, over B at n=1024, and in f64; then the wide
+     tier (the kernel for every shape K1 has no tile for) against the same
+     plain version for n in {1026, 1500, 2048, 4096, 4097, 8192, 16385},
+     n_kl in {32, 1024}, B in {1, 77, 8192} (at most 1024 past 4097
+     cells), phase 10's pilot (B 4096 at n 4096 and 2048, 1024 modes),
+     and n=1024 with n_kl=3000, both dtypes: bit-equal, f64 within
+     1e-10, each launch counted for the wide tier; its time at n=4096 and
+     2048, n_kl=1024, B=8192 in both dtypes beside its bound (K1's, the
+     same function) and its workspace bytes, and the plain version's time
+     beside it at n=4096 in f64; last, both tiers timed in turns at two
+     shapes tier() gives K1 (n=1024 with 32 and with 1024 modes, B=8192,
+     both dtypes), the wide tier launched by name (ops.diffusion.launch);
   4. drive the flagship end to end on the default device (the card):
      pilot (4096 samples) + SPD projection, setup_solver(K=4) with the
      budget calibrated to ~1e6 samples, solve() (all groups dispatched,
@@ -119,8 +134,18 @@ Phases (any failure raises, so the exit code is non-zero):
          pools and of the one-process evaluations agree to the printed
          5 decimals;
      (f) the tutorial ends with "Tutorial completed.".
-The second-to-last line is the kernel report as JSON; the last line is
-{"ok": true, "device": {...}}.
+ 10. the deep-grid flagship on the default device: DiffusionProblem with
+     grids 4096..8 (10 models), 1024 KL modes, sigma 1.0, nu 0.6, three
+     outputs, f64, chunks of 8192, a 4096-sample pilot, setup_solver(K=4)
+     with the budget calibrated to ~1e6 samples as in phase 4 (L=385,
+     certificate checked) and solve(), the counts set to 0 just before
+     the pilot and read just after the solve: models 0 and 1 through the
+     wide tier, models 2-9 through K1, each tier's launches equal to its
+     chunk evaluations; five more solves timed (median, min, max); max_rel_err
+     < 0.01, MLBLUE's q_int within 4 error bars of a 2^17-draw f64 MC of
+     model 0 through the wide tier, and that MC's q_energy = q_int.
+The second-to-last line is the kernel report as JSON, an entry for K1
+and one for its wide tier; the last line is {"ok": true, "device": {...}}.
 
 With --profile, one more budget solve after phase 4 runs under
 torch.profiler and a line gives K1's device time, the device's busy share
@@ -164,6 +189,19 @@ OTHER_FLOPS = {4: 67e12, 8: 34e12}
 HBM_BYTES_PER_S = 3.35e12
 K1_SOURCE = "bluest_tpu_torch/csrc/diffusion.cu"
 K1_REPLACES = "bluest_tpu/ops/pallas_diffusion.py:151"
+# phase 3, K1's wide tier: the grids past K1's reach, the modes, the
+# batches (at most WIDE_MAX_B past 4097 cells, the plain version's time),
+# a shape K1 refuses for its n_kl, and the grids timed at N_KL_DEEP modes
+WIDE_GRIDS = (1026, 1500, 2048, 4096, 4097, 8192, 16385)
+WIDE_N_KL = (32, 1024)
+WIDE_MAX_B = 1024
+WIDE_K1_REFUSED = (1024, 3000)
+WIDE_TIMED = (4096, 2048)
+# phase 10: the deep-grid flagship (f64), repeated solves, MC draws
+DEEP_GRIDS = (4096, 2048, 1024, 512, 256, 128, 64, 32, 16, 8)
+N_KL_DEEP = 1024
+DEEP_REPS = 5
+DEEP_MC = 1 << 17
 # phase 6: user models
 DEV = "cuda"
 MATERN_PILOT = 4096
@@ -273,11 +311,24 @@ def k1_bound_ms(n, n_kl, B, dtype):
                                  else "bytes"), product + other, nbytes
 
 
+def _deep_cases(which):
+    """Phase 10's (n, n_kl, B) for one tier: each DEEP_GRIDS grid that
+    tier() gives `which` at N_KL_DEEP modes in f64 (and in f32: the
+    caller checks it), B the pilot, the chunk and the edge sizes."""
+    import torch
+    from bluest_tpu_torch.ops.diffusion import tier
+    batches = sorted(set(CHECK_BATCHES) | {PILOT, BATCH})
+    return [(n, N_KL_DEEP, B) for n in DEEP_GRIDS
+            if tier(n, N_KL_DEEP, torch.float64) == which for B in batches]
+
+
 def phase_kernel_check():
-    """K1 against the plain version on the same card and inputs, then
-    K1's times (CUDA events after warm-up) at the main path's shapes."""
+    """K1 against the plain version on the same card and inputs, at every
+    shape a main path gives K1, then K1's times (CUDA events after
+    warm-up) at the main path's shapes."""
     import numpy as np
     import torch
+    from bluest_tpu_torch.ops import diffusion as k1
     from bluest_tpu_torch.ops.diffusion import (diffusion_outputs,
                                                 diffusion_outputs_plain)
     from bluest_tpu_torch.problem import default_params
@@ -285,63 +336,78 @@ def phase_kernel_check():
     rng = np.random.default_rng(0)
     worst = 0.0
     max_abs = {torch.float32: 0.0, torch.float64: 0.0}   # kernel vs plain
-    # the edge cases, and every grid and chunk size that a main path
-    # (the flagship's, and the diffusion example's of phase 9) gives K1
+    # the edge cases, every grid and chunk size that a main path (the
+    # flagship's, and the diffusion example's of phase 9) gives K1 at
+    # N_KL modes, and phase 10's K1 grids at N_KL_DEEP modes
     example = _front_door_module("single_output_diffusion")
     grids = sorted(set(CHECK_GRIDS) | set(GRIDS) | set(example.GRIDS))
     batches = sorted(set(CHECK_BATCHES) | {
         BATCH, int(default_params["device_batch_size"])})
-    log("K1 check: n in %s, B in %s" % (grids, batches))
-    for n in grids:
-        for B in batches:
-            xi64 = torch.as_tensor(rng.standard_normal((B, N_KL)),
-                                   dtype=torch.float64, device=dev)
-            ref64 = diffusion_outputs_plain(xi64, n, SIGMA, NU)
-            got64 = diffusion_outputs(xi64, n, SIGMA, NU)
-            xi32 = xi64.to(torch.float32)
-            got32 = diffusion_outputs(xi32, n, SIGMA, NU)
-            pl32 = diffusion_outputs_plain(xi32, n, SIGMA, NU)
-            torch.cuda.synchronize()
-            r = ref64.cpu().numpy()
-            denom = np.abs(r) + 1e-9
-            e64 = np.abs(got64.cpu().numpy() - r) / denom
-            e32 = np.abs(got32.double().cpu().numpy() - r) / denom
-            eref = np.abs(pl32.double().cpu().numpy() - r) / denom
-            if got64.shape != (B, 3) or got32.shape != (B, 3):
-                raise AssertionError("K1 output shape at n=%d B=%d" % (n, B))
-            if not (np.isfinite(got64.cpu().numpy()).all()
-                    and np.isfinite(got32.cpu().numpy()).all()):
-                raise AssertionError("K1 non-finite at n=%d B=%d" % (n, B))
-            if n == 1 and (np.abs(got64.cpu().numpy()).max() != 0
-                           or np.abs(got32.cpu().numpy()).max() != 0):
-                raise AssertionError("K1 n=1 must give zeros")
-            if e64.max() > 1e-10:
-                raise AssertionError(
-                    "K1 f64 vs plain f64: max rel err %.3e > 1e-10 at n=%d "
-                    "B=%d" % (e64.max(), n, B))
-            if not (np.median(e32) <= 10 * np.median(eref) + 1e-6
-                    and e32.max() <= 10 * eref.max() + 1e-5):
-                raise AssertionError(
-                    "K1 f32 outside the f32 error class at n=%d B=%d: "
-                    "median %.3e (plain %.3e), max %.3e (plain %.3e)"
-                    % (n, B, np.median(e32), np.median(eref), e32.max(),
-                       eref.max()))
-            a64 = float((got64 - ref64).abs().max())
-            a32 = float((got32 - pl32).abs().max())
-            if a64 != 0 or a32 != 0:
-                raise AssertionError(
-                    "K1 is not bit-equal to its plain version at n=%d B=%d: "
-                    "max abs err f64 %.3e, f32 %.3e" % (n, B, a64, a32))
-            log("K1 n=%4d B=%4d  f64 max rel %.2e abs %.2e | f32 median "
-                "%.2e max %.2e (plain f32 %.2e / %.2e) abs vs plain f32 %.2e"
-                % (n, B, e64.max(), a64, np.median(e32), e32.max(),
-                   np.median(eref), eref.max(), a32))
-            worst = max(worst, float(e64.max()))
-            max_abs[torch.float64] = max(max_abs[torch.float64], a64)
-            max_abs[torch.float32] = max(max_abs[torch.float32], a32)
-    log("K1 vs plain, same dtype: max abs err f32 %.3e, f64 %.3e; f64 max "
-        "rel err %.3e" % (max_abs[torch.float32], max_abs[torch.float64],
-                          worst))
+    deep = _deep_cases("k1")
+    cases = [(n, N_KL, B) for n in grids for B in batches] + deep
+    log("K1 check: n in %s, B in %s at n_kl %d; phase 10's K1 grids %s at "
+        "n_kl %d, B in %s" % (grids, batches, N_KL,
+                              sorted({c[0] for c in deep}), N_KL_DEEP,
+                              sorted({c[2] for c in deep})))
+    by_tier = k1.diffusion_outputs.launches_by_tier
+    for n, n_kl, B in cases:
+        xi64 = torch.as_tensor(rng.standard_normal((B, n_kl)),
+                               dtype=torch.float64, device=dev)
+        xi32 = xi64.to(torch.float32)
+        if {k1.tier(n, n_kl, x.dtype) for x in (xi64, xi32)} != {"k1"}:
+            raise AssertionError("n=%d n_kl=%d is not K1's" % (n, n_kl))
+        before = by_tier["k1"]
+        got64 = diffusion_outputs(xi64, n, SIGMA, NU)
+        got32 = diffusion_outputs(xi32, n, SIGMA, NU)
+        torch.cuda.synchronize()
+        if by_tier["k1"] != before + 2:
+            raise AssertionError("K1 did not launch at n=%d n_kl=%d"
+                                 % (n, n_kl))
+        ref64 = diffusion_outputs_plain(xi64, n, SIGMA, NU)
+        pl32 = diffusion_outputs_plain(xi32, n, SIGMA, NU)
+        r = ref64.cpu().numpy()
+        denom = np.abs(r) + 1e-9
+        e64 = np.abs(got64.cpu().numpy() - r) / denom
+        e32 = np.abs(got32.double().cpu().numpy() - r) / denom
+        eref = np.abs(pl32.double().cpu().numpy() - r) / denom
+        if got64.shape != (B, 3) or got32.shape != (B, 3):
+            raise AssertionError("K1 output shape at n=%d n_kl=%d B=%d"
+                                 % (n, n_kl, B))
+        if not (np.isfinite(got64.cpu().numpy()).all()
+                and np.isfinite(got32.cpu().numpy()).all()):
+            raise AssertionError("K1 non-finite at n=%d n_kl=%d B=%d"
+                                 % (n, n_kl, B))
+        if n == 1 and (np.abs(got64.cpu().numpy()).max() != 0
+                       or np.abs(got32.cpu().numpy()).max() != 0):
+            raise AssertionError("K1 n=1 must give zeros")
+        if e64.max() > 1e-10:
+            raise AssertionError(
+                "K1 f64 vs plain f64: max rel err %.3e > 1e-10 at n=%d "
+                "n_kl=%d B=%d" % (e64.max(), n, n_kl, B))
+        if not (np.median(e32) <= 10 * np.median(eref) + 1e-6
+                and e32.max() <= 10 * eref.max() + 1e-5):
+            raise AssertionError(
+                "K1 f32 outside the f32 error class at n=%d n_kl=%d B=%d: "
+                "median %.3e (plain %.3e), max %.3e (plain %.3e)"
+                % (n, n_kl, B, np.median(e32), np.median(eref), e32.max(),
+                   eref.max()))
+        a64 = float((got64 - ref64).abs().max())
+        a32 = float((got32 - pl32).abs().max())
+        if a64 != 0 or a32 != 0:
+            raise AssertionError(
+                "K1 is not bit-equal to its plain version at n=%d n_kl=%d "
+                "B=%d: max abs err f64 %.3e, f32 %.3e" % (n, n_kl, B, a64,
+                                                          a32))
+        log("K1 n=%4d n_kl=%4d B=%4d  f64 max rel %.2e abs %.2e | f32 "
+            "median %.2e max %.2e (plain f32 %.2e / %.2e) abs vs plain f32 "
+            "%.2e" % (n, n_kl, B, e64.max(), a64, np.median(e32), e32.max(),
+                      np.median(eref), eref.max(), a32))
+        worst = max(worst, float(e64.max()))
+        max_abs[torch.float64] = max(max_abs[torch.float64], a64)
+        max_abs[torch.float32] = max(max_abs[torch.float32], a32)
+    log("K1 vs plain, same dtype, %d shapes: max abs err f32 %.3e, f64 "
+        "%.3e; f64 max rel err %.3e" % (len(cases), max_abs[torch.float32],
+                                        max_abs[torch.float64], worst))
 
     def normal(B, dtype):
         return torch.as_tensor(rng.standard_normal((B, N_KL)), dtype=dtype,
@@ -380,6 +446,130 @@ def phase_kernel_check():
         % (n, BATCH, t64, b64, 100 * b64 / t64))
     return {"max_abs_err": max(max_abs.values()), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+
+
+def _bit_equal(a, b):
+    """Equal bit for bit, NaN where the other is NaN."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def phase_wide_check():
+    """Phase 3, the wide tier: against the plain version on the card at
+    every grid of WIDE_GRIDS, at phase 10's wide grids and batches, and
+    at a shape K1 refuses for its n_kl, both dtypes (bit-equal; f64
+    within 1e-10 of the plain f64); then its times at the deep
+    flagship's wide grids beside K1's bound, which counts the same
+    function, and both tiers' times at two shapes that are K1's."""
+    import numpy as np
+    import torch
+    from bluest_tpu_torch.ops import diffusion as k1
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    cases = [(n, n_kl, B if n <= 4097 else min(B, WIDE_MAX_B))
+             for n in WIDE_GRIDS for n_kl in WIDE_N_KL
+             for B in CHECK_BATCHES]
+    cases += [WIDE_K1_REFUSED + (B,) for B in CHECK_BATCHES]
+    cases = sorted(set(cases) | set(_deep_cases("wide")))  # + phase 10's
+    log("wide tier check: %d shapes (n, n_kl, B), f64 and f32" % len(cases))
+    max_abs, worst = 0.0, 0.0
+    by_tier = k1.diffusion_outputs.launches_by_tier
+    for n, n_kl, B in cases:
+        xi64 = torch.as_tensor(rng.standard_normal((B, n_kl)),
+                               dtype=torch.float64, device=dev)
+        xi32 = xi64.to(torch.float32)
+        if {k1.tier(n, n_kl, x.dtype) for x in (xi64, xi32)} != {"wide"}:
+            raise AssertionError("n=%d n_kl=%d is not the wide tier's"
+                                 % (n, n_kl))
+        before = by_tier["wide"]
+        got64 = k1.diffusion_outputs(xi64, n, SIGMA, NU)
+        ws64 = k1.diffusion_outputs.workspace_bytes
+        got32 = k1.diffusion_outputs(xi32, n, SIGMA, NU)
+        ws32 = k1.diffusion_outputs.workspace_bytes
+        torch.cuda.synchronize()
+        if by_tier["wide"] != before + 2:
+            raise AssertionError("the wide tier did not launch at n=%d "
+                                 "n_kl=%d" % (n, n_kl))
+        ref64 = k1.diffusion_outputs_plain(xi64, n, SIGMA, NU)
+        pl32 = k1.diffusion_outputs_plain(xi32, n, SIGMA, NU)
+        if got64.shape != (B, 3) or got32.shape != (B, 3):
+            raise AssertionError("wide output shape at n=%d B=%d" % (n, B))
+        if not bool(torch.isfinite(got64).all()):
+            raise AssertionError("wide f64 non-finite at n=%d n_kl=%d B=%d"
+                                 % (n, n_kl, B))
+        r = ref64.cpu().numpy()
+        e64 = np.abs(got64.cpu().numpy() - r) / (np.abs(r) + 1e-9)
+        e32 = np.abs(got32.double().cpu().numpy() - r) / (np.abs(r) + 1e-9)
+        if e64.max() > 1e-10:
+            raise AssertionError("wide f64 vs plain f64: max rel err %.3e > "
+                                 "1e-10 at n=%d n_kl=%d B=%d"
+                                 % (e64.max(), n, n_kl, B))
+        if not (_bit_equal(got64, ref64) and _bit_equal(got32, pl32)):
+            raise AssertionError("the wide tier is not bit-equal to the plain "
+                                 "version at n=%d n_kl=%d B=%d" % (n, n_kl, B))
+        a64 = float((got64 - ref64).abs().max())
+        a32 = float((got32 - pl32).nan_to_num().abs().max())
+        log("wide n=%5d n_kl=%4d B=%4d  f64 max rel %.2e abs %.2e | f32 vs "
+            "f64 plain median %.2e max %.2e, abs vs plain f32 %.2e | "
+            "workspace f64 %d B, f32 %d B"
+            % (n, n_kl, B, e64.max(), a64, np.nanmedian(e32), np.nanmax(e32),
+               a32, ws64, ws32))
+        worst = max(worst, float(e64.max()))
+        max_abs = max(max_abs, a64, a32)
+    log("wide vs plain, same dtype: max abs err %.3e; f64 max rel err %.3e"
+        % (max_abs, worst))
+
+    # times at the deep flagship's wide grids, B = BATCH, both dtypes
+    for n in WIDE_TIMED:
+        xi = torch.as_tensor(rng.standard_normal((BATCH, N_KL_DEEP)),
+                             device=dev)
+        for dt in (torch.float64, torch.float32):
+            x = xi.to(dt)
+            t = _time_ms(lambda: k1.diffusion_outputs(x, n, SIGMA, NU), 10)
+            bound, by, ops, nbytes = k1_bound_ms(n, N_KL_DEEP, BATCH, dt)
+            log("wide time n=%d n_kl=%d B=%d %s: %.4f ms; bound %.4g GFLOP, "
+                "%.4g MB -> %.5f ms (%s-bound), %.1f%% of it; workspace %d B "
+                "a launch" % (n, N_KL_DEEP, BATCH, str(dt)[6:], t, ops / 1e9,
+                              nbytes / 1e6, bound, by, 100 * bound / t,
+                              k1.diffusion_outputs.workspace_bytes))
+    # the deep flagship's finest model: plain, kernel, kernel, plain
+    n = DEEP_GRIDS[0]
+    x = torch.as_tensor(rng.standard_normal((BATCH, N_KL_DEEP)), device=dev)
+    run_k = lambda: k1.diffusion_outputs(x, n, SIGMA, NU)
+    run_p = lambda: k1.diffusion_outputs_plain(x, n, SIGMA, NU)
+    p1 = _time_ms(run_p, 1)
+    k_a = _time_ms(run_k, 10)
+    k_b = _time_ms(run_k, 10)
+    p2 = _time_ms(run_p, 1)
+    ms, plain_ms = min(k_a, k_b), min(p1, p2)
+    bound, by, _ops, _nbytes = k1_bound_ms(n, N_KL_DEEP, BATCH, torch.float64)
+    log("wide timing n=%d n_kl=%d B=%d f64: kernel %.4f / %.4f ms, plain "
+        "%.4f / %.4f ms (plain, kernel, kernel, plain); %.1f%% of the bound"
+        % (n, N_KL_DEEP, BATCH, k_a, k_b, p1, p2, 100 * bound / ms))
+    workspace = k1.diffusion_outputs.workspace_bytes
+
+    # both tiers at shapes tier() gives K1 -- the flagship's finest, and
+    # phase 10's finest K1 grid -- in turns: K1, wide, wide, K1
+    at_k1 = {}
+    for n, n_kl in ((GRIDS[0], N_KL), (DEEP_GRIDS[2], N_KL_DEEP)):
+        for dt in (torch.float32, torch.float64):
+            x = torch.as_tensor(rng.standard_normal((BATCH, n_kl)),
+                                dtype=dt, device=dev)
+            run_1 = lambda: k1.launch("k1", x, n, SIGMA, NU)
+            run_w = lambda: k1.launch("wide", x, n, SIGMA, NU)
+            t_1a, t_wa = _time_ms(run_1, 20), _time_ms(run_w, 20)
+            t_wb, t_1b = _time_ms(run_w, 20), _time_ms(run_1, 20)
+            key = "n%d_nkl%d_%s" % (n, n_kl, str(dt)[6:])
+            at_k1[key] = {"k1_ms": min(t_1a, t_1b),
+                          "wide_ms": min(t_wa, t_wb)}
+            log("tiers at K1's shape n=%d n_kl=%d B=%d %s: K1 %.4f / %.4f "
+                "ms, wide %.4f / %.4f ms (K1, wide, wide, K1): wide/K1 = "
+                "%.2f; bound %.5f ms" % (
+                    n, n_kl, BATCH, str(dt)[6:], t_1a, t_1b, t_wa, t_wb,
+                    min(t_wa, t_wb) / min(t_1a, t_1b),
+                    k1_bound_ms(n, n_kl, BATCH, dt)[0]))
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "workspace_bytes": workspace,
+            "ms_at_k1_shapes": at_k1}
 
 
 def _total_samples(problem):
@@ -447,6 +637,23 @@ def _both_paths(problem, budget, smi, graph):
         % (per_chunk * 1e6, chunks, per_chunk * chunks * 1e3))
 
 
+def _calibrated_allocation(problem):
+    """setup_solver(K) with the budget calibrated to ~TARGET_SAMPLES
+    samples as bench.py:211-231 does (up to four continuous set-ups, then
+    the integer one); returns the budget and the wall of all of it."""
+    t0 = time.perf_counter()
+    budget = 2.0e4
+    problem.setup_solver(K=K, budget=budget, continuous_relaxation=True)
+    for _ in range(3):
+        n0 = _total_samples(problem)
+        if 0.85 <= n0 / TARGET_SAMPLES <= 1.15:
+            break
+        budget = budget * TARGET_SAMPLES / max(n0, 1)
+        problem.setup_solver(K=K, budget=budget, continuous_relaxation=True)
+    problem.setup_solver(K=K, budget=budget)
+    return budget, time.perf_counter() - t0
+
+
 def phase_flagship(smi, graph):
     """The bench.py flagship through the port's public entry points, on
     the default sampling device; its graph (covariances and costs) is
@@ -494,18 +701,7 @@ def phase_flagship(smi, graph):
     log("model path (mask + K1, f32) within the f32 error class of the "
         "f64 reference for all %d models" % len(GRIDS))
 
-    # allocation, budget calibrated to ~1e6 samples as bench.py:211-231
-    t0 = time.perf_counter()
-    budget = 2.0e4
-    problem.setup_solver(K=K, budget=budget, continuous_relaxation=True)
-    for _ in range(3):
-        n0 = _total_samples(problem)
-        if 0.85 <= n0 / TARGET_SAMPLES <= 1.15:
-            break
-        budget = budget * TARGET_SAMPLES / max(n0, 1)
-        problem.setup_solver(K=K, budget=budget, continuous_relaxation=True)
-    problem.setup_solver(K=K, budget=budget)
-    alloc_s = time.perf_counter() - t0
+    budget, alloc_s = _calibrated_allocation(problem)
     L = problem.MOSAP.L
     certs = problem.MOSAP_output["certificates"]
     log("allocation: L=%d, budget %.6g, %d samples, %.3f s, certificates %s"
@@ -1771,15 +1967,18 @@ def _run_script(name, argv, times):
 def counting_chunk_evals():
     """Count, in the list it yields, the chunk evaluations that sampling
     asks for: every device sampling call passes through
-    BLUEProblem._device_sums, at the problem's own chunk size."""
+    BLUEProblem._device_sums, at the problem's own chunk size.  Item 0 is
+    the count, item 1 the count per model index."""
     from bluest_tpu_torch import BLUEProblem
-    need = [0]
+    need = [0, {}]
     real = BLUEProblem._device_sums
 
     def counted(self, key_ls, N, *args, **kwargs):
         if N > 0:
-            need[0] += len(key_ls) * math.ceil(
-                N / int(self.params["device_batch_size"]))
+            chunks = math.ceil(N / int(self.params["device_batch_size"]))
+            need[0] += len(key_ls) * chunks
+            for l in key_ls:
+                need[1][l] = need[1].get(l, 0) + chunks
         return real(self, key_ls, N, *args, **kwargs)
 
     BLUEProblem._device_sums = counted
@@ -1943,6 +2142,129 @@ def phase_front_door(launches_by_path):
                                              for k, v in times.items()})))
 
 
+def phase_deep_flagship(smi):
+    """Phase 10: the deep-grid flagship (DEEP_GRIDS, N_KL_DEEP modes, f64)
+    end to end on the default device: models 0 and 1 through K1's wide
+    tier, the rest through K1.  Pilot, calibrated K=4 budget allocation
+    and solve(), with the counts set to 0 just before the pilot and read
+    just after the solve (launches per tier = chunk evaluations per
+    tier), DEEP_REPS more solves timed, and the gates: max_rel_err <
+    0.01, MLBLUE's q_int within 4 error bars of an f64 MC of model 0
+    through the wide tier (DEEP_MC draws), and that MC's q_energy =
+    q_int."""
+    import numpy as np
+    import torch
+    from bluest_tpu_torch.models.diffusion import DiffusionProblem
+    from bluest_tpu_torch.ops import diffusion as k1
+    t_phase = time.perf_counter()
+    tiers = [k1.tier(g, N_KL_DEEP, torch.float64) for g in DEEP_GRIDS]
+    if tiers[:2] != ["wide", "wide"] or set(tiers[2:]) != {"k1"}:
+        raise AssertionError("deep flagship tiers %s" % tiers)
+    by_tier = k1.diffusion_outputs.launches_by_tier
+    # the counted run: pilot, allocation and the first solve
+    with counting_chunk_evals() as need:
+        k1.diffusion_outputs.launches = 0
+        for t in by_tier:
+            by_tier[t] = 0
+        t0 = time.perf_counter()
+        problem = DiffusionProblem(
+            grids=DEEP_GRIDS, n_kl=N_KL_DEEP, sigma=SIGMA, nu=NU,
+            multi_output=True, covariance_estimation_samples=PILOT,
+            dtype=torch.float64, device_batch_size=BATCH, verbose=False)
+        torch.cuda.synchronize()
+        pilot_s = time.perf_counter() - t0
+        pilot_launches = dict(by_tier)
+        budget, alloc_s = _calibrated_allocation(problem)
+        t0 = time.perf_counter()
+        mus, errs, cost = problem.solve(K=K, budget=budget)
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        launches = dict(by_tier)
+    _check_on_sampling_device(problem)
+    C0 = problem.get_covariance(0)
+    log("10 pilot (%d samples x %d models, n_kl %d, f64) + SPD projection: "
+        "%.3f s, launches per tier %s; covariance eigenvalues (q_int) min "
+        "%.3e max %.3e" % (PILOT, len(DEEP_GRIDS), N_KL_DEEP, pilot_s,
+                           pilot_launches, np.linalg.eigvalsh(C0).min(),
+                           np.linalg.eigvalsh(C0).max()))
+    out = problem.MOSAP_output
+    certs = out["certificates"]
+    groups = [list(g) for g, n in zip(out["flattened_groups"], out["samples"])
+              if n > 0]
+    ns = [int(n) for n in out["samples"] if n > 0]
+    log("10 allocation: L=%d, budget %.6g, %d samples, alloc_s %.3f, "
+        "certificates %s; %d active groups %s"
+        % (problem.MOSAP.L, budget, _total_samples(problem), alloc_s,
+           [(c["form"], c["status"], c["iterations"]) for c in certs],
+           len(groups), list(zip(groups, ns))))
+    if problem.MOSAP.L != 385:
+        raise AssertionError("expected L=385 groups, got %d"
+                             % problem.MOSAP.L)
+    if not certs or any(c["status"] not in ("optimal", "inaccurate")
+                        for c in certs):
+        raise AssertionError("IPM certificate not ok: %s" % certs)
+    need_tier = {t: sum(c for l, c in need[1].items() if tiers[l] == t)
+                 for t in by_tier}
+    n_evals = sum(len(g) * n for g, n in zip(groups, ns))
+    log("10 first solve: %d samples, %d model evaluations in %.3f s = %.0f "
+        "evals/s; pilot + solve launches per tier %s, chunk evaluations per "
+        "tier %s" % (sum(ns), n_evals, sample_s, n_evals / sample_s,
+                     launches, need_tier))
+    if launches != need_tier or not all(launches.values()):
+        raise AssertionError("10: launches per tier %s, chunk evaluations "
+                             "per tier %s" % (launches, need_tier))
+
+    walls = []
+    for _ in range(DEEP_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        problem.solve(K=K, budget=budget)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    log("10 sample_s through solve: median %.6f s, min %.6f, max %.6f over "
+        "%d runs (%s)" % (statistics.median(walls), min(walls), max(walls),
+                          len(walls), smi))
+
+    mus = np.asarray(mus, dtype=float)
+    errs = np.asarray(errs, dtype=float)
+    rel_err = float(np.max(errs) / abs(mus[0]))
+    log("10 mus %s errs %s max_rel_err %.4g"
+        % (mus.tolist(), errs.tolist(), rel_err))
+    if not (np.all(np.isfinite(mus)) and np.all(np.isfinite(errs))):
+        raise AssertionError("10: non-finite estimates")
+    if not rel_err < 0.01:
+        raise AssertionError("10: max(errs)/|mus[0]| = %.4g >= 0.01"
+                             % rel_err)
+
+    # the reference: an f64 MC of model 0, through the wide tier
+    gen = torch.Generator(device=DEV).manual_seed(10)
+    s1 = torch.zeros(4, dtype=torch.float64, device=DEV)
+    s2 = torch.zeros_like(s1)
+    wide0 = by_tier["wide"]
+    t0 = time.perf_counter()
+    for c in range(math.ceil(DEEP_MC / BATCH)):
+        q = problem.evaluate_model(0, problem.sample_inputs(
+            gen, min(BATCH, DEEP_MC - c * BATCH)))
+        q = torch.cat([q, (q[:, 2] - q[:, 0])[:, None]], dim=1)
+        s1 += q.sum(dim=0)
+        s2 += (q * q).sum(dim=0)
+    mean = (s1 / DEEP_MC).cpu().numpy()
+    se = np.sqrt(np.maximum((s2 / DEEP_MC).cpu().numpy() - mean ** 2, 0.0)
+                 / DEEP_MC)
+    log("10 MC of model 0: %d draws through the wide tier (%d launches) in "
+        "%.3f s: mean %s se %s; q_energy - q_int per draw: mean %.3e"
+        % (DEEP_MC, by_tier["wide"] - wide0, time.perf_counter() - t0,
+           mean[:3].tolist(), se[:3].tolist(), mean[3]))
+    _within_bars("10 MLBLUE q_int vs MC of model 0", mus[:1], errs[:1],
+                 mean[:1], se[:1])
+    if not abs(mean[2] - mean[0]) <= 4 * float(np.max(se[:3])):
+        raise AssertionError("10 MC: q_energy %.10g and q_int %.10g "
+                             "disagree" % (mean[2], mean[0]))
+    log("phase 10: %.3f s" % (time.perf_counter() - t_phase))
+    return {"launches": launches, "pilot_s": pilot_s, "alloc_s": alloc_s,
+            "sample_s": sample_s, "walls": walls}
+
+
 def write_ns_graph(path, seed=0):
     """A model graph in the shape of the reference's Navier-Stokes study
     (12 models, 6 outputs, costs 2^(11-l)), written in the reference npz
@@ -1971,6 +2293,7 @@ def main():
     name, smi = phase_device()
     phase_build()
     k = phase_kernel_check()
+    w = phase_wide_check()
     with tempfile.TemporaryDirectory() as d:
         graph = os.path.join(d, "flagship_graph.npz")
         f = phase_flagship(smi, graph)
@@ -1982,6 +2305,8 @@ def main():
         phase_allocation_families(f, matern, launches_by_path)
         phase_distribution(f, graph, launches_by_path)
     phase_front_door(launches_by_path)
+    deep = phase_deep_flagship(smi)["launches"]
+    launches_by_path["deep_flagship"] = deep["k1"]
     print(json.dumps({"kernels": [{
         "name": "diffusion_outputs", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
@@ -1989,11 +2314,19 @@ def main():
         "launches_by_path": launches_by_path,
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}]}), flush=True)
+        "bound_by": k["bound_by"], "library_ms": None}, {
+        "name": "diffusion_outputs_wide", "route": "cuda",
+        "source": K1_SOURCE, "replaces": K1_REPLACES,
+        "launches": deep["wide"],
+        "launches_by_path": {"deep_flagship": deep["wide"]},
+        "max_abs_err": w["max_abs_err"], "ms": w["ms"],
+        "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+        "bound_by": w["bound_by"], "library_ms": None,
+        "workspace_bytes": w["workspace_bytes"],
+        "ms_at_k1_shapes": w["ms_at_k1_shapes"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
-
 
 if __name__ == "__main__":
     main()

@@ -1,6 +1,6 @@
-"""The port on the card: K1 against its plain version, the user models'
-card outputs against their CPU outputs, the group engine's resample and
-the snapshot-collecting path through K1.
+"""The port on the card: K1 and its wide tier against their plain
+version, the user models' card outputs against their CPU outputs, the
+group engine's resample and the snapshot-collecting path through K1.
 
 These tests need a CUDA card and nvcc; without a card they skip.  They
 import neither jax nor the JAX package, so they also run on a machine
@@ -75,13 +75,103 @@ def test_kernel_matches_plain_long_lanes(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [1026, 4097])
 def test_kernel_refuses_past_max_cells(cuda, n, dtype):
-    """Past 1025 cells a lane would own more than 32 rows: the launcher
-    refuses the shape and the wrapper raises, naming the limit."""
-    xi = torch.zeros((77, 32), dtype=dtype, device=cuda)
+    """Past 1025 cells, where K1 has no tile, the wrapper launches the
+    wide tier instead of refusing the shape: the launch succeeds, is
+    counted (in all and for the wide tier) and is bit-equal to the plain
+    version."""
+    xi = torch.as_tensor(np.random.default_rng(n).standard_normal((77, 32)),
+                         dtype=dtype, device=cuda)
+    assert k1.tier(n, 32, dtype) == "wide"
     before = k1.diffusion_outputs.launches
-    with pytest.raises(ValueError, match="n_cells <= 1025"):
-        k1.diffusion_outputs(xi, n, SIGMA, NU)
-    assert k1.diffusion_outputs.launches == before
+    wide = k1.diffusion_outputs.launches_by_tier["wide"]
+    got = k1.diffusion_outputs(xi, n, SIGMA, NU)
+    torch.cuda.synchronize()
+    assert k1.diffusion_outputs.launches == before + 1
+    assert k1.diffusion_outputs.launches_by_tier["wide"] == wide + 1
+    assert got.shape == (77, 3) and got.dtype == dtype
+    assert torch.equal(got, k1.diffusion_outputs_plain(xi, n, SIGMA, NU))
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,n_kl", [(1024, 3000), (100, 3700), (2048, 1024),
+                                    (3, 5000)])
+@pytest.mark.parametrize("B", [1, 77, 1500])
+def test_wide_tier_matches_plain(cuda, n, n_kl, B, dtype):
+    """The wide tier on the shapes K1 refuses for their n_kl (its row
+    store in a workspace at n=1024, in shared memory at n=100 and n=3)
+    and on a deep grid with many modes: bit-equal to the plain version,
+    one wide launch each."""
+    xi = torch.as_tensor(np.random.default_rng(n + n_kl + B).standard_normal(
+        (B, n_kl)), dtype=dtype, device=cuda)
+    assert k1.tier(n, n_kl, dtype) == "wide"
+    wide = k1.diffusion_outputs.launches_by_tier["wide"]
+    got = k1.diffusion_outputs(xi, n, SIGMA, NU)
+    torch.cuda.synchronize()
+    assert k1.diffusion_outputs.launches_by_tier["wide"] == wide + 1
+    assert torch.equal(got, k1.diffusion_outputs_plain(xi, n, SIGMA, NU))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,n_kl", [(8, 32), (1024, 32), (1024, 1024)])
+def test_wide_tier_takes_k1_shapes(cuda, n, n_kl, dtype):
+    """launch() runs either tier by name: at a shape that tier() gives
+    K1, the wide tier's result equals K1's and the plain version's, and
+    each launch is counted for its own tier; K1 named past its reach
+    raises."""
+    xi = torch.as_tensor(np.random.default_rng(n + n_kl).standard_normal(
+        (77, n_kl)), dtype=dtype, device=cuda)
+    assert k1.tier(n, n_kl, dtype) == "k1"
+    before = dict(k1.diffusion_outputs.launches_by_tier)
+    got_k1 = k1.launch("k1", xi, n, SIGMA, NU)
+    got_wide = k1.launch("wide", xi, n, SIGMA, NU)
+    torch.cuda.synchronize()
+    after = k1.diffusion_outputs.launches_by_tier
+    assert after == {"k1": before["k1"] + 1, "wide": before["wide"] + 1}
+    plain = k1.diffusion_outputs_plain(xi, n, SIGMA, NU)
+    assert torch.equal(got_k1, plain) and torch.equal(got_wide, plain)
+    with pytest.raises(RuntimeError, match="refused"):
+        k1.launch("k1", xi, 2048, SIGMA, NU)
+
+
+@pytest.mark.gpu
+def test_tier_predicate_matches_library(cuda):
+    """tier(), which the CPU path also takes, names K1 exactly where the
+    library's own test of K1's tile says it fits."""
+    lib = k1.build_library()
+    for dtype, itemsize in ((torch.float32, 4), (torch.float64, 8)):
+        for n in (1, 2, 33, 1000, 1024, 1025, 1026, 2048, 4097):
+            for n_kl in (1, 32, 1024, 2577, 2578, 3000, 4000):
+                fits = bool(lib.bluest_diffusion_k1_fits(itemsize, n_kl, n))
+                assert (k1.tier(n, n_kl, dtype) == "k1") == fits
+
+
+@pytest.mark.gpu
+def test_deep_grid_problem_runs_both_tiers(cuda):
+    """DiffusionProblem on a deep hierarchy, f64, 1024 modes, on the card:
+    the grids past 1025 cells go through the wide tier, the rest through
+    K1, one launch each, and every model's outputs equal the plain
+    version's on the same masked inputs."""
+    from bluest_tpu_torch.models.diffusion import DiffusionProblem
+    grids = (4096, 2048, 1024, 512, 256, 128, 64, 32, 16, 8)
+    p = DiffusionProblem(grids=grids, n_kl=1024, sigma=SIGMA, nu=NU,
+                         multi_output=True, verbose=False,
+                         C=[np.eye(len(grids)) + 0.5] * 3, device="cuda",
+                         dtype=torch.float64)
+    xi = p.sample_inputs(torch.Generator(device=cuda).manual_seed(0), 300)
+    for l, n in enumerate(grids):
+        want = "wide" if n > 1025 else "k1"
+        before = dict(k1.diffusion_outputs.launches_by_tier)
+        out = p.evaluate_model(l, xi)
+        torch.cuda.synchronize()
+        after = k1.diffusion_outputs.launches_by_tier
+        assert after[want] == before[want] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        mask = (torch.arange(1024, device=cuda) < p.n_modes[l]).double()
+        assert torch.equal(out, k1.diffusion_outputs_plain(xi * mask, n,
+                                                           SIGMA, NU))
 
 
 @pytest.mark.gpu
@@ -108,9 +198,12 @@ def test_wrapper_checks_on_card(cuda):
                                          device=cuda), 8)
     empty = k1.diffusion_outputs(torch.zeros(0, 4, device=cuda), 8)
     assert empty.shape == (0, 3)
-    with pytest.raises(ValueError):     # a and xi overflow shared memory
-        k1.diffusion_outputs(torch.zeros(4, 4000, dtype=torch.float64,
-                                         device=cuda), 1024)
+    # K1's tile of a and xi would overflow shared memory: the wide tier
+    # takes the shape instead of a refusal
+    xi = torch.zeros(4, 4000, dtype=torch.float64, device=cuda)
+    got = k1.diffusion_outputs(xi, 1024)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k1.diffusion_outputs_plain(xi, 1024))
 
 
 @pytest.mark.gpu

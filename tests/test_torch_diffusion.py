@@ -5,15 +5,23 @@ The same numpy-seeded KL coefficients go through
 interpret mode) and the port's K1 wrapper, which runs its plain PyTorch
 version for CPU tensors.  Tolerances:
 
-* plain f64 vs the JAX f64 oracle: max relative 1e-9, median 1e-11.  The
-  JAX oracle solves by cyclic reduction at n = 2^p and by Thomas
-  otherwise, the port by a partitioned Thomas solve (csrc/diffusion.cu);
-  the lognormal coefficient makes the system ill-conditioned, and the
-  two differ by up to ~5e-10 max / ~5e-12 median at n=1024.
+* plain f64 vs the JAX f64 oracle: max relative 1e-9, median 1e-11, both
+  times max(1, (n/1024)^2).  The JAX oracle solves by cyclic reduction at
+  n = 2^p and by Thomas otherwise, the port by a partitioned Thomas solve
+  (csrc/diffusion.cu); the lognormal coefficient makes the system
+  ill-conditioned, its condition grows with n^2, and the two differ by up
+  to ~5e-10 max / ~5e-12 median at n=1024, 2.7e-9 / 3.1e-11 at n=4096.
 * f32 vs the f64 oracle: the error-class bound of
   tests/test_pallas_diffusion.py:34-36 (the f32 JAX path is the incumbent).
 * plain f32 vs the Pallas kernel (interpret mode): rtol 2e-3, atol 1e-6,
-  as tests/test_pallas_diffusion.py:48-49.
+  as tests/test_pallas_diffusion.py:48-49, on grids where f32 is that
+  close; on finer grids (n >= 2048, where both f32 solves are off the f64
+  oracle by up to ~1e-1) the error-class bound of
+  tests/test_pallas_diffusion.py:34-36 against the Pallas kernel's own.
+
+The plain version is the arithmetic of both kernels on the card, K1 and
+its wide tier (n_cells > 1025 or an oversize n_kl); ``tier`` says which
+one runs, and the CPU path takes the same decision.
 """
 
 import numpy as np
@@ -44,12 +52,15 @@ def _rel(got, ref):
     return np.abs(np.asarray(got, np.float64) - ref) / (np.abs(ref) + 1e-9)
 
 
-@pytest.mark.parametrize("n", [2, 3, 8, 9, 33, 64, 100, 256, 1024])
+@pytest.mark.parametrize("n", [2, 3, 8, 9, 33, 64, 100, 256, 1024, 1026,
+                               1500, 2048, 4096])
 def test_plain_matches_jax(n):
     """f64 against the f64 oracle at B = 1, 77 and 200 (the oracle is per
     sample, so its B=200 run is sliced); f32 within the f32 error class,
     a property of a batch, at B = 77 and 200, and every B's f32 rows
-    bit-equal to the same rows of the B=200 run."""
+    bit-equal to the same rows of the B=200 run.  Past 1025 cells the
+    card runs the wide tier on this arithmetic."""
+    scale = max(1.0, (n / 1024) ** 2)
     xis = np.random.default_rng(0).standard_normal((200, 32))
     x32 = xis.astype(np.float32)
     ref64 = _jax_ref(xis, n)
@@ -61,8 +72,8 @@ def test_plain_matches_jax(n):
                                    NU).numpy()
         assert got.shape == (B, 3)
         err = np.abs(got - ref64[:B]) / np.abs(ref64[:B])
-        assert err.max() <= 1e-9
-        assert np.median(err) <= 1e-11
+        assert err.max() <= 1e-9 * scale
+        assert np.median(err) <= 1e-11 * scale
 
         got = k1.diffusion_outputs(torch.as_tensor(x32[:B]), n, SIGMA,
                                    NU).numpy()
@@ -84,6 +95,43 @@ def test_plain_f32_matches_pallas_interpret(n):
     got = k1.diffusion_outputs(torch.as_tensor(xis), n, SIGMA, NU).numpy()
     assert got.shape == (77, 3)
     np.testing.assert_allclose(got, ref, rtol=2e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [2048])
+def test_plain_f32_in_pallas_error_class(n):
+    """Past K1's reach (the wide tier's grids) the f32 model is far from
+    the f64 oracle in both packages (~0.1 max relative at n=2048): the
+    port's f32 error stays in the class of the Pallas kernel's own, the
+    bound of tests/test_pallas_diffusion.py:34-36."""
+    xis = np.random.default_rng(7).standard_normal((77, 32)).astype(
+        np.float32)
+    pal = np.asarray(diffusion_outputs_pallas(xis, n, SIGMA, NU,
+                                              interpret=True), np.float64)
+    ref64 = _jax_ref(xis, n)
+    got = k1.diffusion_outputs(torch.as_tensor(xis), n, SIGMA, NU).numpy()
+    assert got.shape == (77, 3) and got.dtype == np.float32
+    err, err_pal = _rel(got, ref64), _rel(pal, ref64)
+    assert np.median(err) <= 10 * np.median(err_pal) + 1e-6
+    assert err.max() <= 10 * err_pal.max() + 1e-5
+
+
+@pytest.mark.parametrize("n,n_kl,dtype,want", [
+    (1, 32, torch.float32, "k1"), (1024, 32, torch.float32, "k1"),
+    (1025, 32, torch.float64, "k1"), (1026, 32, torch.float32, "wide"),
+    (1026, 32, torch.float64, "wide"), (4096, 1024, torch.float64, "wide"),
+    (1024, 2577, torch.float64, "k1"), (1024, 2578, torch.float64, "wide"),
+    (1024, 2578, torch.float32, "wide"), (100, 3700, torch.float64, "wide"),
+    (1, 4000, torch.float64, "wide")])
+def test_tier_predicate(n, n_kl, dtype, want):
+    """K1 where its tile fits (n <= 1025 and S (padded n + n_kl) values in
+    one block's 232,448 bytes of shared memory, S = 16 in f32 and 8 in
+    f64), the wide tier everywhere else; the CPU path gives the plain
+    version's result whichever tier it names."""
+    assert k1.tier(n, n_kl, dtype) == want
+    xi = torch.as_tensor(np.random.default_rng(n).standard_normal(
+        (3, n_kl)), dtype=dtype)
+    got = k1.diffusion_outputs(xi, n, SIGMA, NU)
+    assert torch.equal(got, k1.diffusion_outputs_plain(xi, n, SIGMA, NU))
 
 
 def test_edge_cases_plain():
@@ -112,6 +160,20 @@ def test_wrapper_rejects_bad_input():
         k1.diffusion_outputs(torch.zeros(3, 4).T, 8)
     with pytest.raises(ValueError):
         k1.diffusion_outputs(torch.zeros(4, 3), 0)
+
+
+def test_launch_needs_the_card_and_a_tier():
+    """launch() names a kernel, so it has no plain fallback: a CPU tensor
+    or an unknown tier raises, and nothing is counted."""
+    before = k1.diffusion_outputs.launches
+    with pytest.raises(ValueError, match="device"):
+        k1.launch("wide", torch.zeros(4, 3, dtype=torch.float64), 8)
+    with pytest.raises(TypeError):
+        k1.launch("k1", torch.zeros(4, 3, dtype=torch.int64), 8)
+    if torch.cuda.is_available():
+        with pytest.raises(ValueError, match="tier"):
+            k1.launch("k2", torch.zeros(4, 3, device="cuda"), 8)
+    assert k1.diffusion_outputs.launches == before
 
 
 def test_thomas_solve_matches_numpy():
@@ -154,13 +216,14 @@ def test_problem_hooks_match_jax(multi_output):
 
 
 @pytest.mark.parametrize("n,lanes", [(1, 1), (2, 2), (3, 4), (8, 8), (9, 16),
-                                     (32, 32), (33, 32), (1024, 32)])
+                                     (32, 32), (33, 32), (1024, 32),
+                                     (1026, 32), (4096, 32)])
 def test_partition_lanes(n, lanes):
     """Lanes per sample: the power of two >= n, at most a warp."""
     assert k1.lanes_per_sample(n) == lanes
 
 
-@pytest.mark.parametrize("n", [3, 9, 100])
+@pytest.mark.parametrize("n", [3, 9, 100, 1026, 2048])
 def test_partitioned_solve_solves_the_system(n):
     """The QoIs are those of the tridiagonal system itself: solve it
     densely in f64 (numpy) from the same face coefficients."""
@@ -180,12 +243,13 @@ def test_partitioned_solve_solves_the_system(n):
         np.testing.assert_allclose(got[b], want, rtol=1e-11)
 
 
-@pytest.mark.parametrize("n", [2, 3, 9, 33, 64, 100, 1024, 1025, 4097])
+@pytest.mark.parametrize("n", [2, 3, 9, 33, 64, 100, 1024, 1025, 1026, 1500,
+                               2048, 4096, 4097])
 def test_partition_covers_every_row(n):
     """Every lane of the partition below P owns one or more consecutive
     rows, together exactly the m = n-1 unknowns; a lane owns at most 32
-    rows up to n = 1025, the kernel's limit (the plain version takes any
-    n, and past 1025 a lane owns more)."""
+    rows up to n = 1025, K1's reach (past it the wide tier's lanes own
+    more, the rows in its row store)."""
     L = k1.lanes_per_sample(n)
     P, s, e = k1.partition(n, L)
     assert P == min(L, n - 1)
