@@ -12,16 +12,21 @@ for any n_cells >= 1 and any n_kl >= 1.
   and loaded through ctypes.  :func:`tier` picks it: K1 where K1 has a
   tile (n_cells <= 1025, a lane's rows in registers, and the tile's
   coefficients and xi in one block's shared memory), the wide tier
-  everywhere else (the rows in shared memory or in a workspace that the
-  wrapper allocates).  Nothing falls back: a build or launch failure of
-  either tier raises.
-* A CPU tensor runs :func:`diffusion_outputs_plain`, the kernels'
-  partitioned tridiagonal solve with the same partition of rows among
-  lanes, loop order and reduction trees, in PyTorch ops over
-  ``(B, lanes)``.  It is the plain version of both tiers: the wide tier
-  keeps K1's partition and arithmetic, so :func:`tier` decides which
-  kernel runs, never which arithmetic.  The tests use it on the CPU, and
-  ``chip_smoke.py`` holds both kernels against it on the card.
+  everywhere else.  The wide tier runs two stages over slabs of samples
+  whose coefficients fit ~32 MB: stage 1 synthesizes a = exp(xis @
+  mck^T) into a buffer that the wrapper allocates (FP64 tensor cores in
+  f64), stage 2 solves each sample from it.  Nothing falls back: a build
+  or launch failure of either tier raises.
+* A CPU tensor runs :func:`diffusion_outputs_plain`, which is
+  :func:`solve_plain` of :func:`synthesize_plain`: the mode sum taken in
+  order, then the kernels' partitioned tridiagonal solve with the same
+  partition of rows among lanes (:func:`lanes_per_sample`), loop order
+  and reduction trees, in PyTorch ops over ``(B, lanes)``.  K1 and the
+  wide tier in f32 are bit-equal to it; the wide tier in f64 is
+  bit-equal to :func:`solve_plain` of its own stage 1, whose tensor-core
+  sum differs from the in-order one within the bound of a sum taken in
+  any order.  The tests use it on the CPU, and ``chip_smoke.py`` holds
+  the kernels and each wide stage against it on the card.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ["diffusion_outputs", "diffusion_outputs_plain", "mode_matrix",
+__all__ = ["diffusion_outputs", "diffusion_outputs_plain", "synthesize_plain",
+           "solve_plain", "synthesize", "solve", "mode_matrix",
            "lanes_per_sample", "partition", "tier", "launch",
            "build_library"]
 
@@ -50,6 +56,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _NO_TILE = -1              # the launcher's return for a shape it refuses
 K1_MAX_CELLS = 32 * 32 + 1  # K1's reach: a lane keeps <= 32 rows in registers
+MAX_LANES = 1024            # lanes of one sample at most (one block)
 _MAX_SMEM = 232448          # opt-in shared memory of one block (H100)
 
 _lib = None
@@ -115,6 +122,22 @@ def build_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_int, ctypes.c_int,
                            ctypes.POINTER(ctypes.c_longlong)]
+        for name in ("bluest_diffusion_synth_f32",
+                     "bluest_diffusion_synth_f64"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p]
+        for name in ("bluest_diffusion_solve_f32",
+                     "bluest_diffusion_solve_f64"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [
+                ctypes.c_int] * 2 + [ctypes.c_double] * 2 + [ctypes.c_void_p]
+        lib.bluest_diffusion_wide_lanes.restype = ctypes.c_int
+        lib.bluest_diffusion_wide_lanes.argtypes = [ctypes.c_int]
+        lib.bluest_diffusion_wide_store.restype = ctypes.c_longlong
+        lib.bluest_diffusion_wide_store.argtypes = [ctypes.c_int]
         lib.bluest_diffusion_max_cells.restype = ctypes.c_int
         lib.bluest_diffusion_max_cells.argtypes = []
         lib.bluest_diffusion_k1_fits.restype = ctypes.c_int
@@ -152,10 +175,13 @@ def _check(xis: torch.Tensor, n_cells: int):
 
 
 def lanes_per_sample(n_cells: int) -> int:
-    """Lanes that share one sample in K1's solve: the power of two >= n,
-    at most a warp (32)."""
+    """L(n): lanes that share one sample in the solve -- the smallest power
+    of two that is >= min(n, 32) and >= ceil((n-1)/32), at most 1024.  A
+    warp (32) for 33 <= n <= 1025, K1's reach; past it a lane still owns
+    <= 32 rows up to n = 32769 (128 lanes at n = 4096)."""
+    need = max(min(int(n_cells), 32), -(-(int(n_cells) - 1) // 32))
     lanes = 1
-    while lanes < n_cells and lanes < 32:
+    while lanes < need and lanes < MAX_LANES:
         lanes <<= 1
     return lanes
 
@@ -207,26 +233,37 @@ def _shift(v: torch.Tensor, k: int, fill: float) -> torch.Tensor:
     return out
 
 
-def diffusion_outputs_plain(xis: torch.Tensor, n_cells: int,
-                            sigma: float = 1.0,
-                            nu: float = 1.5) -> torch.Tensor:
-    """Plain PyTorch version of both tiers: the kernels' partitioned solve
-    with their partition of rows among lanes, loop order and reduction
-    trees, vectorized over (B, lanes).  See csrc/diffusion.cu for the
-    method."""
+def synthesize_plain(xis: torch.Tensor, n_cells: int, sigma: float = 1.0,
+                     nu: float = 1.5) -> torch.Tensor:
+    """a (B, n) = exp(xis @ mck^T), each cell's sum taken mode by mode in
+    order k = 0, 1, ... with separate multiplies and adds: the plain
+    version of the wide tier's stage 1 (and of K1's synthesis)."""
     _check(xis, n_cells)
     n = int(n_cells)
-    dt, dev = xis.dtype, xis.device
     B, n_kl = xis.shape
-    if n == 1 or B == 0:
-        return torch.zeros((B, 3), dtype=dt, device=dev)
-    m = n - 1
-    mck = mode_matrix(n, n_kl, float(sigma), float(nu), dt, dev)
+    mck = mode_matrix(n, n_kl, float(sigma), float(nu), xis.dtype,
+                      xis.device)
     log_a = xis[:, 0:1] * mck[:, 0]                       # (B, n), k in order
     for k in range(1, n_kl):
         log_a = log_a + xis[:, k:k + 1] * mck[:, k]
-    a = torch.exp(log_a)
+    return torch.exp(log_a)
 
+
+def solve_plain(a: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """(B, n) coefficients a -> (B, 3) QoIs: the kernels' partitioned
+    tridiagonal solve with their partition of rows among L(n) lanes, loop
+    order and reduction trees, vectorized over (B, lanes) -- the plain
+    version of the wide tier's stage 2 (and of K1's solve).  See
+    csrc/diffusion.cu for the method."""
+    n = int(n_cells)
+    dt, dev = a.dtype, a.device
+    B = a.shape[0]
+    if a.dim() != 2 or a.shape[1] != n:
+        raise ValueError("a must be (B, n_cells=%d), got %s"
+                         % (n, tuple(a.shape)))
+    if n == 1 or B == 0:
+        return torch.zeros((B, 3), dtype=dt, device=dev)
+    m = n - 1
     L = lanes_per_sample(n)
     P, s, e = partition(n, L)
     s, e = s.to(dev), e.to(dev)
@@ -245,15 +282,23 @@ def diffusion_outputs_plain(xis: torch.Tensor, n_cells: int,
         return a[:, idx.clamp(max=n - 1)]
 
     # interior rows s .. e-2 of each lane: Thomas down the rows for the
-    # unit load (dpy) and the load w_s at the first row (dpa)
+    # unit load (dpy) and the load w_s at the first row (dpa).  Past K1's
+    # lanes (L > 32) each pivot is wi1 + e, its excess e = wi e' r' over the
+    # next coefficient formed from the row before without cancellation
+    # (the same value as (wi + wi1) - wi^2 r'); K1's form up to 32 lanes
+    flux = L > 32
     CM = int(ni.max())
-    cp, dpy, dpa, dpb = Z, Z, Z, Z
+    cp, dpy, dpa, dpb, ex, r = Z, Z, Z, Z, Z, Z
     CP, DPY, DPA = [], [], []
     for t in range(CM):
         act = t < ni
         wi, wi1 = w(s + t), w(s + t + 1)
         lo = -wi
-        r = one / ((wi + wi1) - lo * cp)
+        if flux:
+            ex = wi if t == 0 else torch.where(act, (wi * r) * ex, ex)
+            r = torch.where(act, one / (wi1 + ex), r)
+        else:
+            r = one / ((wi + wi1) - lo * cp)
         cp = torch.where(act, -wi1 * r, cp)
         dpy = torch.where(act, (h2 - lo * dpy) * r, dpy)
         dpa = torch.where(act, ((wi if t == 0 else Z) - lo * dpa) * r, dpa)
@@ -320,6 +365,21 @@ def diffusion_outputs_plain(xis: torch.Tensor, n_cells: int,
     n_t = torch.tensor(float(n), dtype=dt, device=dev)
     return torch.stack([h_t * _fold(s_int), _fold(x_mid),
                         n_t * _fold(eng)], dim=1)
+
+
+
+
+def diffusion_outputs_plain(xis: torch.Tensor, n_cells: int,
+                            sigma: float = 1.0,
+                            nu: float = 1.5) -> torch.Tensor:
+    """Plain PyTorch version of both tiers: :func:`solve_plain` of
+    :func:`synthesize_plain`."""
+    _check(xis, n_cells)
+    n = int(n_cells)
+    if n == 1 or xis.shape[0] == 0:
+        return torch.zeros((xis.shape[0], 3), dtype=xis.dtype,
+                           device=xis.device)
+    return solve_plain(synthesize_plain(xis, n, sigma, nu), n)
 
 
 @functools.lru_cache(maxsize=64)
@@ -406,4 +466,70 @@ def launch(which: str, xis: torch.Tensor, n_cells: int, sigma: float = 1.0,
 
 diffusion_outputs.launches = 0          # every launch, both tiers
 diffusion_outputs.launches_by_tier = {"k1": 0, "wide": 0}
-diffusion_outputs.workspace_bytes = 0   # the last wide launch's workspace
+diffusion_outputs.workspace_bytes = 0   # the last wide launch's slab buffer
+
+
+def synthesize(xis: torch.Tensor, n_cells: int, sigma: float = 1.0,
+               nu: float = 1.5) -> torch.Tensor:
+    """The wide tier's stage 1 alone: a (B, n) = exp(xis @ mck^T).  CUDA
+    tensors launch it (FP64 tensor cores in f64, so the sum's order is
+    the hardware's; f32 on CUDA cores, bit-equal to the plain version),
+    counted in ``synthesize.launches``; CPU tensors run
+    :func:`synthesize_plain`.  For holding each stage on its own."""
+    _check(xis, n_cells)
+    if xis.device.type == "cpu":
+        return synthesize_plain(xis, n_cells, sigma, nu)
+    n = int(n_cells)
+    B, n_kl = xis.shape
+    a = torch.empty((B, n), dtype=xis.dtype, device=xis.device)
+    if B == 0:
+        return a
+    lib = build_library()
+    mckT = _mode_matrix_t(n, n_kl, float(sigma), float(nu), xis.dtype,
+                          xis.device)
+    fn = (lib.bluest_diffusion_synth_f32 if xis.dtype == torch.float32
+          else lib.bluest_diffusion_synth_f64)
+    with torch.cuda.device(xis.device):
+        rc = fn(xis.data_ptr(), mckT.data_ptr(), a.data_ptr(), B, n_kl, n,
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError("wide tier stage 1 launch failed: CUDA error %d "
+                           "(B=%d, n_kl=%d, n_cells=%d)" % (rc, B, n_kl, n))
+    synthesize.launches += 1
+    return a
+
+
+def solve(a: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """The wide tier's stage 2 alone: (B, n) a -> (B, 3) QoIs, bit-equal
+    to :func:`solve_plain` in both dtypes.  CUDA tensors launch it,
+    counted in ``solve.launches``; CPU tensors run :func:`solve_plain`."""
+    n = int(n_cells)
+    if (a.dim() != 2 or a.shape[1] != n or not a.is_contiguous()
+            or a.dtype not in (torch.float32, torch.float64)):
+        raise ValueError("a must be contiguous float32/float64 (B, %d), got "
+                         "%s %s" % (n, a.dtype, tuple(a.shape)))
+    if a.device.type == "cpu":
+        return solve_plain(a, n)
+    B = a.shape[0]
+    out = torch.empty((B, 3), dtype=a.dtype, device=a.device)
+    if B == 0:
+        return out
+    lib = build_library()
+    store = torch.empty(B * lib.bluest_diffusion_wide_store(n),
+                        dtype=a.dtype, device=a.device)
+    fn = (lib.bluest_diffusion_solve_f32 if a.dtype == torch.float32
+          else lib.bluest_diffusion_solve_f64)
+    h = 1.0 / n
+    with torch.cuda.device(a.device):
+        rc = fn(a.data_ptr(), out.data_ptr(),
+                store.data_ptr() if store.numel() else None, store.numel(),
+                B, n, h * h, h, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError("wide tier stage 2 launch failed: error %d "
+                           "(B=%d, n_cells=%d)" % (rc, B, n))
+    solve.launches += 1
+    return out
+
+
+synthesize.launches = 0
+solve.launches = 0

@@ -17,17 +17,27 @@ Phases (any failure raises, so the exit code is non-zero):
      the f32 error class of the f64 plain version; time both at the
      flagship shape (n=1024, B=8192, f32) beside K1's bound, then K1 on
      every flagship grid, over B at n=1024, and in f64; then the wide
-     tier (the kernel for every shape K1 has no tile for) against the same
-     plain version for n in {1026, 1500, 2048, 4096, 4097, 8192, 16385},
-     n_kl in {32, 1024}, B in {1, 77, 8192} (at most 1024 past 4097
-     cells), phase 10's pilot (B 4096 at n 4096 and 2048, 1024 modes),
-     and n=1024 with n_kl=3000, both dtypes: bit-equal, f64 within
-     1e-10, each launch counted for the wide tier; its time at n=4096 and
-     2048, n_kl=1024, B=8192 in both dtypes beside its bound (K1's, the
-     same function) and its workspace bytes, and the plain version's time
-     beside it at n=4096 in f64; last, both tiers timed in turns at two
-     shapes tier() gives K1 (n=1024 with 32 and with 1024 modes, B=8192,
-     both dtypes), the wide tier launched by name (ops.diffusion.launch);
+     tier (the two-stage kernel pair for every shape K1 has no tile for)
+     for n in {1026, 1500, 2048, 4096, 4097, 8192, 16385}, n_kl in
+     {32, 1024}, B in {1, 77, 8192} (at most 1024 past 4097 cells), at
+     n=40000 (32 modes, B 1 and 77: past the rows a lane keeps in
+     registers), phase 10's pilot (B 4096 at n 4096 and 2048, 1024
+     modes), and n=1024 with n_kl=3000, both dtypes, each launch counted
+     for the wide tier and held stage by stage (wide_stages_hold): stage
+     1 bit-equal to synthesize_plain in f32 and within the bound of a sum
+     taken in any order in f64 (its tensor cores sum in their own order),
+     stage 2 bit-equal to solve_plain on stage 1's a in both dtypes, the
+     call equal to its stages, f32 end to end bit-equal to the plain
+     version and f64's max and median relative difference printed; its
+     time at n=4096 and 2048, n_kl=1024, and n=4096, n_kl=32, B=8192,
+     in both dtypes beside its bound (K1's, the same function), each
+     stage's time,
+     torch.matmul's for stage 1's product alone (TF32 off) and its slab
+     buffer's bytes, and the plain version's time beside it at n=4096 in
+     f64; last, both tiers timed in turns at shapes tier() gives K1
+     (n=1024 with 32 and 1024 modes in both dtypes, n=512 and 256 with
+     1024 modes in f64, B=8192), the wide tier launched by name
+     (ops.diffusion.launch);
   4. drive the flagship end to end on the default device (the card):
      pilot (4096 samples) + SPD projection, setup_solver(K=4) with the
      budget calibrated to ~1e6 samples, solve() (all groups dispatched,
@@ -147,6 +157,12 @@ Phases (any failure raises, so the exit code is non-zero):
 The second-to-last line is the kernel report as JSON, an entry for K1
 and one for its wide tier; the last line is {"ok": true, "device": {...}}.
 
+With --parent-source PATH (another csrc/diffusion.cu with the same C
+interface to its wide tier, e.g. the previous commit's, written out
+under build/: the copy the chip runs is no git checkout), phase 3 times
+that wide tier in turns with this one (parent, new, new, parent) at its
+timed shapes.
+
 With --profile, one more budget solve after phase 4 runs under
 torch.profiler and a line gives K1's device time, the device's busy share
 of the solve's wall and the largest device items; a further solve runs
@@ -196,7 +212,11 @@ WIDE_GRIDS = (1026, 1500, 2048, 4096, 4097, 8192, 16385)
 WIDE_N_KL = (32, 1024)
 WIDE_MAX_B = 1024
 WIDE_K1_REFUSED = (1024, 3000)
-WIDE_TIMED = (4096, 2048)
+# (n, n_kl) timed at B = BATCH: the deep flagship's wide grids at its
+# modes, and n=4096 at 32 modes, where the synthesis is ~3% of the work
+WIDE_TIMED = ((4096, 1024), (2048, 1024), (4096, 32))
+# (n, n_kl, B) past 32769 cells, where a lane owns more than 32 rows
+WIDE_PAST_REGS = ((40000, 32, 1), (40000, 32, 77))
 # phase 10: the deep-grid flagship (f64), repeated solves, MC draws
 DEEP_GRIDS = (4096, 2048, 1024, 512, 256, 128, 64, 32, 16, 8)
 N_KL_DEEP = 1024
@@ -448,18 +468,124 @@ def phase_kernel_check():
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
 
 
+def parent_wide(src):
+    """The wide tier of another csrc/diffusion.cu with the same C
+    interface (bluest_diffusion_wide_workspace_* and bluest_diffusion_wide_*,
+    as the earlier one-kernel design has), built with the package's nvcc flags
+    into build/chip_smoke/parent/, as a launcher (xis, n) -> (B, 3) on the
+    current stream.  For timing in turns only: it is counted nowhere and
+    never on a path."""
+    import ctypes
+    import hashlib
+    import torch
+    from bluest_tpu_torch.ops import diffusion as k1
+    with open(src, "rb") as f:
+        tag = hashlib.sha1(f.read()).hexdigest()[:16]
+    out_dir = os.path.join(os.path.dirname(k1.BUILD_DIR), "chip_smoke",
+                           "parent")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, "libparent_wide_%s.so" % tag)
+    if not os.path.exists(so):
+        proc = subprocess.run([k1._find_nvcc()] + k1.NVCC_FLAGS
+                              + ["-o", so, src], capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed on the parent source %s:\n%s"
+                               % (src, proc.stdout + proc.stderr))
+    lib = ctypes.CDLL(so)
+    for sfx in ("f32", "f64"):
+        fn = getattr(lib, "bluest_diffusion_wide_" + sfx)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 3 + [ctypes.c_double, ctypes.c_double,
+                                 ctypes.c_void_p]
+        plan = getattr(lib, "bluest_diffusion_wide_workspace_" + sfx)
+        plan.restype = ctypes.c_int
+        plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                         ctypes.POINTER(ctypes.c_longlong)]
+
+    def run(xis, n):
+        B, n_kl = xis.shape
+        sfx = "f32" if xis.dtype == torch.float32 else "f64"
+        mckT = k1._mode_matrix_t(n, n_kl, SIGMA, NU, xis.dtype, xis.device)
+        elems = ctypes.c_longlong(0)
+        rc = getattr(lib, "bluest_diffusion_wide_workspace_" + sfx)(
+            B, n, ctypes.byref(elems))
+        ws = torch.empty(max(elems.value, 1), dtype=xis.dtype,
+                         device=xis.device)
+        out = torch.empty((B, 3), dtype=xis.dtype, device=xis.device)
+        if rc == 0:
+            rc = getattr(lib, "bluest_diffusion_wide_" + sfx)(
+                xis.data_ptr(), mckT.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), elems.value, B, n_kl, n, 1.0 / n ** 2,
+                1.0 / n, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError("parent wide tier: error %d at n=%d n_kl=%d"
+                               % (rc, n, n_kl))
+        return out
+    return run
+
+
 def _bit_equal(a, b):
     """Equal bit for bit, NaN where the other is NaN."""
     return bool(((a == b) | (a.isnan() & b.isnan())).all())
 
 
-def phase_wide_check():
-    """Phase 3, the wide tier: against the plain version on the card at
-    every grid of WIDE_GRIDS, at phase 10's wide grids and batches, and
-    at a shape K1 refuses for its n_kl, both dtypes (bit-equal; f64
-    within 1e-10 of the plain f64); then its times at the deep
-    flagship's wide grids beside K1's bound, which counts the same
-    function, and both tiers' times at two shapes that are K1's."""
+def wide_stages_hold(xi, n, got):
+    """Hold a wide-tier result ``got`` for xi at n by its stages: stage 1
+    (the kernel's own a) against synthesize_plain, stage 2 on that a
+    bit-equal to solve_plain in both dtypes, and the call equal to its two
+    stages.  Stage 1 is bit-equal in f32 (the same in-order _rn sum).  In
+    f64 it runs on the tensor cores, which take the sum in their own order:
+    a sum of n_kl terms taken in any order, with or without FMA, is within
+    n_kl u sum_k |mck_ik xi_bk| of the exact one (u = 2^-53), so two such
+    sums differ by at most twice that, and exp turns a difference d of log a
+    into a relative difference of ~d, plus an ulp of each exp (4u):
+    |a_k - a_p| / a_p <= 2 n_kl u sum_k |mck_ik xi_bk| + 4u for each
+    element.  Returns stage 1's largest relative difference and its largest
+    share of that bound (0 in f32)."""
+    import torch
+    from bluest_tpu_torch.ops import diffusion as k1
+    where = "n=%d n_kl=%d B=%d %s" % (n, xi.shape[1], xi.shape[0],
+                                     str(xi.dtype)[6:])
+    a_k = k1.synthesize(xi, n, SIGMA, NU)
+    a_p = k1.synthesize_plain(xi, n, SIGMA, NU)
+    rel, share = 0.0, 0.0
+    if xi.dtype == torch.float32:
+        if not _bit_equal(a_k, a_p):
+            raise AssertionError("wide stage 1 (f32) is not bit-equal to "
+                                 "synthesize_plain at " + where)
+    else:
+        u = 2.0 ** -53
+        mckT = k1._mode_matrix_t(n, xi.shape[1], SIGMA, NU, xi.dtype,
+                                 xi.device)
+        bound = 2 * xi.shape[1] * u * (xi.abs() @ mckT.abs()) + 4 * u
+        r = (a_k - a_p).abs() / a_p
+        rel, share = float(r.max()), float((r / bound).max())
+        if not (share <= 1.0):
+            raise AssertionError(
+                "wide stage 1 (f64) outside the bound of a sum in any order "
+                "at %s: max rel %.3e, %.3f of the bound" % (where, rel, share))
+    o2 = k1.solve(a_k, n)
+    if not _bit_equal(o2, k1.solve_plain(a_k, n)):
+        raise AssertionError("wide stage 2 is not bit-equal to solve_plain "
+                             "on its stage 1's a at " + where)
+    if not _bit_equal(got, o2):
+        raise AssertionError("the wide call is not its two stages at "
+                             + where)
+    return rel, share
+
+
+def phase_wide_check(parent=None):
+    """Phase 3, the wide tier: at every grid of WIDE_GRIDS, past 32769
+    cells, at phase 10's wide grids and batches, and at a shape K1 refuses
+    for its n_kl, both dtypes: each stage held (wide_stages_hold), f32 end
+    to end bit-equal to the plain version, f64 end to end against it
+    printed (max and median relative difference); then its times at the
+    deep flagship's wide grids -- the call, each stage, torch.matmul for
+    stage 1's product, and an earlier wide tier (``parent``, a launcher
+    from parent_wide) in turns -- beside K1's bound, which counts the same
+    function, and K1 and the wide tier in turns at shapes that are K1's."""
     import numpy as np
     import torch
     from bluest_tpu_torch.ops import diffusion as k1
@@ -469,9 +595,10 @@ def phase_wide_check():
              for n in WIDE_GRIDS for n_kl in WIDE_N_KL
              for B in CHECK_BATCHES]
     cases += [WIDE_K1_REFUSED + (B,) for B in CHECK_BATCHES]
+    cases += list(WIDE_PAST_REGS)
     cases = sorted(set(cases) | set(_deep_cases("wide")))  # + phase 10's
     log("wide tier check: %d shapes (n, n_kl, B), f64 and f32" % len(cases))
-    max_abs, worst = 0.0, 0.0
+    max_abs, e2e = 0.0, []
     by_tier = k1.diffusion_outputs.launches_by_tier
     for n, n_kl, B in cases:
         xi64 = torch.as_tensor(rng.standard_normal((B, n_kl)),
@@ -496,41 +623,74 @@ def phase_wide_check():
         if not bool(torch.isfinite(got64).all()):
             raise AssertionError("wide f64 non-finite at n=%d n_kl=%d B=%d"
                                  % (n, n_kl, B))
+        s1_64, share = wide_stages_hold(xi64, n, got64)
+        wide_stages_hold(xi32, n, got32)
+        if not _bit_equal(got32, pl32):
+            raise AssertionError("the wide tier (f32) is not bit-equal to "
+                                 "the plain version at n=%d n_kl=%d B=%d"
+                                 % (n, n_kl, B))
         r = ref64.cpu().numpy()
         e64 = np.abs(got64.cpu().numpy() - r) / (np.abs(r) + 1e-9)
         e32 = np.abs(got32.double().cpu().numpy() - r) / (np.abs(r) + 1e-9)
-        if e64.max() > 1e-10:
-            raise AssertionError("wide f64 vs plain f64: max rel err %.3e > "
-                                 "1e-10 at n=%d n_kl=%d B=%d"
-                                 % (e64.max(), n, n_kl, B))
-        if not (_bit_equal(got64, ref64) and _bit_equal(got32, pl32)):
-            raise AssertionError("the wide tier is not bit-equal to the plain "
-                                 "version at n=%d n_kl=%d B=%d" % (n, n_kl, B))
         a64 = float((got64 - ref64).abs().max())
-        a32 = float((got32 - pl32).nan_to_num().abs().max())
-        log("wide n=%5d n_kl=%4d B=%4d  f64 max rel %.2e abs %.2e | f32 vs "
-            "f64 plain median %.2e max %.2e, abs vs plain f32 %.2e | "
-            "workspace f64 %d B, f32 %d B"
-            % (n, n_kl, B, e64.max(), a64, np.nanmedian(e32), np.nanmax(e32),
-               a32, ws64, ws32))
-        worst = max(worst, float(e64.max()))
-        max_abs = max(max_abs, a64, a32)
-    log("wide vs plain, same dtype: max abs err %.3e; f64 max rel err %.3e"
-        % (max_abs, worst))
+        log("wide n=%5d n_kl=%4d B=%4d  f64 vs plain max rel %.2e median "
+            "%.2e (stage 1 max rel %.2e, %.3f of its bound; stage 2 "
+            "bit-equal) | f32 bit-equal, vs f64 plain median %.2e max %.2e "
+            "| buffer f64 %d B, f32 %d B"
+            % (n, n_kl, B, e64.max(), np.median(e64), s1_64, share,
+               np.nanmedian(e32), np.nanmax(e32), ws64, ws32))
+        e2e.append((n, n_kl, B, float(e64.max()), float(np.median(e64))))
+        max_abs = max(max_abs, a64)
+    log("wide f64 vs plain over %d shapes: max rel %.3e, largest median "
+        "%.3e, max abs %.3e; f32 bit-equal at all"
+        % (len(cases), max(e[3] for e in e2e), max(e[4] for e in e2e),
+           max_abs))
 
-    # times at the deep flagship's wide grids, B = BATCH, both dtypes
-    for n in WIDE_TIMED:
-        xi = torch.as_tensor(rng.standard_normal((BATCH, N_KL_DEEP)),
-                             device=dev)
-        for dt in (torch.float64, torch.float32):
-            x = xi.to(dt)
-            t = _time_ms(lambda: k1.diffusion_outputs(x, n, SIGMA, NU), 10)
-            bound, by, ops, nbytes = k1_bound_ms(n, N_KL_DEEP, BATCH, dt)
-            log("wide time n=%d n_kl=%d B=%d %s: %.4f ms; bound %.4g GFLOP, "
-                "%.4g MB -> %.5f ms (%s-bound), %.1f%% of it; workspace %d B "
-                "a launch" % (n, N_KL_DEEP, BATCH, str(dt)[6:], t, ops / 1e9,
-                              nbytes / 1e6, bound, by, 100 * bound / t,
-                              k1.diffusion_outputs.workspace_bytes))
+    # the call, each stage and stage 1's library product at the deep
+    # flagship's wide grids, B = BATCH, both dtypes; the parent's wide tier
+    # in turns (parent, new, new, parent) where one is given
+    timed = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False    # full f32 for matmul
+    try:
+        for n, n_kl in WIDE_TIMED:
+            xi = torch.as_tensor(rng.standard_normal((BATCH, n_kl)),
+                                 device=dev)
+            for dt in (torch.float64, torch.float32):
+                x = xi.to(dt)
+                run = lambda: k1.diffusion_outputs(x, n, SIGMA, NU)
+                turns = {}
+                if parent is not None:
+                    turns["parent_1"] = _time_ms(lambda: parent(x, n), 10)
+                turns["new_1"] = _time_ms(run, 10)
+                turns["new_2"] = _time_ms(run, 10)
+                if parent is not None:
+                    turns["parent_2"] = _time_ms(lambda: parent(x, n), 10)
+                ws = k1.diffusion_outputs.workspace_bytes
+                a = k1.synthesize(x, n, SIGMA, NU)
+                s1 = _time_ms(lambda: k1.synthesize(x, n, SIGMA, NU), 10)
+                s2 = _time_ms(lambda: k1.solve(a, n), 10)
+                mckT = k1._mode_matrix_t(n, n_kl, SIGMA, NU, dt, dev)
+                lib_ms = _time_ms(lambda: torch.matmul(x, mckT), 10)
+                del a
+                bound, by, ops, nbytes = k1_bound_ms(n, n_kl, BATCH, dt)
+                ms = min(turns["new_1"], turns["new_2"])
+                key = "n%d_nkl%d_%s" % (n, n_kl, str(dt)[6:])
+                timed[key] = {"ms": ms, "turns_ms": turns,
+                              "stage_ms": {"synthesis": s1, "solve": s2},
+                              "synthesis_library_ms": lib_ms,
+                              "bound_ms": bound, "workspace_bytes": ws}
+                log("wide time n=%d n_kl=%d B=%d %s: %s ms; %.1f%% of the "
+                    "bound %.5f ms (%.4g GFLOP, %.4g MB, %s-bound); stages: "
+                    "synthesis %.4f ms (%.1f TFLOP/s), solve %.4f ms; "
+                    "torch.matmul (synthesis only, no exp, TF32 off) %.4f "
+                    "ms; buffer %d B a launch"
+                    % (n, n_kl, BATCH, str(dt)[6:],
+                       " / ".join("%s %.4f" % kv for kv in turns.items()),
+                       100 * bound / ms, bound, ops / 1e9, nbytes / 1e6, by,
+                       s1, 2 * BATCH * n * n_kl / s1 / 1e9, s2, lib_ms, ws))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     # the deep flagship's finest model: plain, kernel, kernel, plain
     n = DEEP_GRIDS[0]
     x = torch.as_tensor(rng.standard_normal((BATCH, N_KL_DEEP)), device=dev)
@@ -545,13 +705,17 @@ def phase_wide_check():
     log("wide timing n=%d n_kl=%d B=%d f64: kernel %.4f / %.4f ms, plain "
         "%.4f / %.4f ms (plain, kernel, kernel, plain); %.1f%% of the bound"
         % (n, N_KL_DEEP, BATCH, k_a, k_b, p1, p2, 100 * bound / ms))
-    workspace = k1.diffusion_outputs.workspace_bytes
 
     # both tiers at shapes tier() gives K1 -- the flagship's finest, and
-    # phase 10's finest K1 grid -- in turns: K1, wide, wide, K1
+    # phase 10's three finest K1 grids at its modes -- in turns: K1, wide,
+    # wide, K1
     at_k1 = {}
-    for n, n_kl in ((GRIDS[0], N_KL), (DEEP_GRIDS[2], N_KL_DEEP)):
-        for dt in (torch.float32, torch.float64):
+    for n, n_kl, dts in ((GRIDS[0], N_KL, (torch.float32, torch.float64)),
+                         (DEEP_GRIDS[2], N_KL_DEEP,
+                          (torch.float32, torch.float64)),
+                         (DEEP_GRIDS[3], N_KL_DEEP, (torch.float64,)),
+                         (DEEP_GRIDS[4], N_KL_DEEP, (torch.float64,))):
+        for dt in dts:
             x = torch.as_tensor(rng.standard_normal((BATCH, n_kl)),
                                 dtype=dt, device=dev)
             run_1 = lambda: k1.launch("k1", x, n, SIGMA, NU)
@@ -567,9 +731,13 @@ def phase_wide_check():
                     n, n_kl, BATCH, str(dt)[6:], t_1a, t_1b, t_wa, t_wb,
                     min(t_wa, t_wb) / min(t_1a, t_1b),
                     k1_bound_ms(n, n_kl, BATCH, dt)[0]))
+    head = timed["n%d_nkl%d_float64" % (DEEP_GRIDS[0], N_KL_DEEP)]
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "workspace_bytes": workspace,
-            "ms_at_k1_shapes": at_k1}
+            "bound_ms": bound, "bound_by": by,
+            "workspace_bytes": head["workspace_bytes"],
+            "stage_ms": head["stage_ms"],
+            "synthesis_library_ms": head["synthesis_library_ms"],
+            "timed": timed, "f64_vs_plain": e2e, "ms_at_k1_shapes": at_k1}
 
 
 def _total_samples(problem):
@@ -2288,12 +2456,20 @@ def write_ns_graph(path, seed=0):
                 verbose=False).save_graph_data(path)
 
 
+def _option(name):
+    """The value after ``name`` on the command line, or None."""
+    argv = sys.argv[1:]
+    return argv[argv.index(name) + 1] if name in argv[:-1] else None
+
+
 def main():
     import torch
     name, smi = phase_device()
     phase_build()
     k = phase_kernel_check()
-    w = phase_wide_check()
+    parent = (parent_wide(_option("--parent-source"))
+              if _option("--parent-source") else None)
+    w = phase_wide_check(parent)
     with tempfile.TemporaryDirectory() as d:
         graph = os.path.join(d, "flagship_graph.npz")
         f = phase_flagship(smi, graph)
@@ -2322,7 +2498,9 @@ def main():
         "max_abs_err": w["max_abs_err"], "ms": w["ms"],
         "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
         "bound_by": w["bound_by"], "library_ms": None,
-        "workspace_bytes": w["workspace_bytes"],
+        "synthesis_library_ms": w["synthesis_library_ms"],
+        "stage_ms": w["stage_ms"],
+        "workspace_bytes": w["workspace_bytes"], "timed": w["timed"],
         "ms_at_k1_shapes": w["ms_at_k1_shapes"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

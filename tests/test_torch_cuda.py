@@ -31,6 +31,19 @@ def _rel(got, ref):
     return np.abs(got - ref) / (np.abs(ref) + 1e-9)
 
 
+def _holds(xi, n, got, wide):
+    """K1, and the wide tier in f32: bit-equal to the plain version.  The
+    wide tier in f64 takes its mode sums on the tensor cores in their own
+    order, so it is held by its stages, as chip_smoke.py phase 3 holds it:
+    stage 1 within the bound of a sum in any order, stage 2 bit-equal to
+    solve_plain on stage 1's a, the call equal to the two stages."""
+    if wide and xi.dtype == torch.float64:
+        from chip_smoke import wide_stages_hold
+        wide_stages_hold(xi, n, got)
+    else:
+        assert torch.equal(got, k1.diffusion_outputs_plain(xi, n, SIGMA, NU))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [1, 2, 3, 33, 64, 100, 512, 1024])
@@ -77,8 +90,8 @@ def test_kernel_matches_plain_long_lanes(cuda, dtype):
 def test_kernel_refuses_past_max_cells(cuda, n, dtype):
     """Past 1025 cells, where K1 has no tile, the wrapper launches the
     wide tier instead of refusing the shape: the launch succeeds, is
-    counted (in all and for the wide tier) and is bit-equal to the plain
-    version."""
+    counted (in all and for the wide tier) and holds against the plain
+    version (bit-equal in f32, by its stages in f64)."""
     xi = torch.as_tensor(np.random.default_rng(n).standard_normal((77, 32)),
                          dtype=dtype, device=cuda)
     assert k1.tier(n, 32, dtype) == "wide"
@@ -89,7 +102,7 @@ def test_kernel_refuses_past_max_cells(cuda, n, dtype):
     assert k1.diffusion_outputs.launches == before + 1
     assert k1.diffusion_outputs.launches_by_tier["wide"] == wide + 1
     assert got.shape == (77, 3) and got.dtype == dtype
-    assert torch.equal(got, k1.diffusion_outputs_plain(xi, n, SIGMA, NU))
+    _holds(xi, n, got, wide=True)
     assert bool(torch.isfinite(got).all())
 
 
@@ -99,10 +112,9 @@ def test_kernel_refuses_past_max_cells(cuda, n, dtype):
                                     (3, 5000)])
 @pytest.mark.parametrize("B", [1, 77, 1500])
 def test_wide_tier_matches_plain(cuda, n, n_kl, B, dtype):
-    """The wide tier on the shapes K1 refuses for their n_kl (its row
-    store in a workspace at n=1024, in shared memory at n=100 and n=3)
-    and on a deep grid with many modes: bit-equal to the plain version,
-    one wide launch each."""
+    """The wide tier on the shapes K1 refuses for their n_kl (n=1024, 100
+    and 3) and on a deep grid with many modes: bit-equal to the plain
+    version in f32 and held by its stages in f64, one wide launch each."""
     xi = torch.as_tensor(np.random.default_rng(n + n_kl + B).standard_normal(
         (B, n_kl)), dtype=dtype, device=cuda)
     assert k1.tier(n, n_kl, dtype) == "wide"
@@ -110,7 +122,7 @@ def test_wide_tier_matches_plain(cuda, n, n_kl, B, dtype):
     got = k1.diffusion_outputs(xi, n, SIGMA, NU)
     torch.cuda.synchronize()
     assert k1.diffusion_outputs.launches_by_tier["wide"] == wide + 1
-    assert torch.equal(got, k1.diffusion_outputs_plain(xi, n, SIGMA, NU))
+    _holds(xi, n, got, wide=True)
 
 
 @pytest.mark.gpu
@@ -118,9 +130,9 @@ def test_wide_tier_matches_plain(cuda, n, n_kl, B, dtype):
 @pytest.mark.parametrize("n,n_kl", [(8, 32), (1024, 32), (1024, 1024)])
 def test_wide_tier_takes_k1_shapes(cuda, n, n_kl, dtype):
     """launch() runs either tier by name: at a shape that tier() gives
-    K1, the wide tier's result equals K1's and the plain version's, and
-    each launch is counted for its own tier; K1 named past its reach
-    raises."""
+    K1, K1's result equals the plain version's, the wide tier's does in
+    f32 and holds by its stages in f64, and each launch is counted for its
+    own tier; K1 named past its reach raises."""
     xi = torch.as_tensor(np.random.default_rng(n + n_kl).standard_normal(
         (77, n_kl)), dtype=dtype, device=cuda)
     assert k1.tier(n, n_kl, dtype) == "k1"
@@ -130,8 +142,8 @@ def test_wide_tier_takes_k1_shapes(cuda, n, n_kl, dtype):
     torch.cuda.synchronize()
     after = k1.diffusion_outputs.launches_by_tier
     assert after == {"k1": before["k1"] + 1, "wide": before["wide"] + 1}
-    plain = k1.diffusion_outputs_plain(xi, n, SIGMA, NU)
-    assert torch.equal(got_k1, plain) and torch.equal(got_wide, plain)
+    _holds(xi, n, got_k1, wide=False)
+    _holds(xi, n, got_wide, wide=True)
     with pytest.raises(RuntimeError, match="refused"):
         k1.launch("k1", xi, 2048, SIGMA, NU)
 
@@ -152,8 +164,9 @@ def test_tier_predicate_matches_library(cuda):
 def test_deep_grid_problem_runs_both_tiers(cuda):
     """DiffusionProblem on a deep hierarchy, f64, 1024 modes, on the card:
     the grids past 1025 cells go through the wide tier, the rest through
-    K1, one launch each, and every model's outputs equal the plain
-    version's on the same masked inputs."""
+    K1, one launch each, and every model's outputs hold against the plain
+    version on the same masked inputs (K1 bit-equal; the wide tier in f64
+    by its stages)."""
     from bluest_tpu_torch.models.diffusion import DiffusionProblem
     grids = (4096, 2048, 1024, 512, 256, 128, 64, 32, 16, 8)
     p = DiffusionProblem(grids=grids, n_kl=1024, sigma=SIGMA, nu=NU,
@@ -170,8 +183,59 @@ def test_deep_grid_problem_runs_both_tiers(cuda):
         assert after[want] == before[want] + 1
         assert sum(after.values()) == sum(before.values()) + 1
         mask = (torch.arange(1024, device=cuda) < p.n_modes[l]).double()
-        assert torch.equal(out, k1.diffusion_outputs_plain(xi * mask, n,
-                                                           SIGMA, NU))
+        _holds(xi * mask, n, out, wide=want == "wide")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 77])
+def test_wide_tier_past_register_rows(cuda, B, dtype):
+    """At n=40000 a sample's 1024 lanes own 40 rows each, past the 32 a
+    lane keeps in registers: the rows go to the row store beside the
+    slab's coefficients, and the result still holds."""
+    n = 40000
+    xi = torch.as_tensor(np.random.default_rng(B).standard_normal((B, 32)),
+                         dtype=dtype, device=cuda)
+    assert k1.lanes_per_sample(n) == 1024
+    lib = k1.build_library()
+    assert lib.bluest_diffusion_wide_store(n) == 3 * 39 * 1024
+    got = k1.diffusion_outputs(xi, n, SIGMA, NU)
+    torch.cuda.synchronize()
+    assert got.shape == (B, 3) and bool(torch.isfinite(got).all())
+    _holds(xi, n, got, wide=True)
+
+
+@pytest.mark.gpu
+def test_wide_lanes_match_library(cuda):
+    """L(n) of the plain version is the kernels' (wide_lanes), and the row
+    store is used exactly past 256 lanes (n > 8193)."""
+    lib = k1.build_library()
+    for n in (1, 2, 3, 33, 1025, 1026, 2049, 2050, 4096, 8193, 8194, 16385,
+              16386, 32769, 40000, 100000):
+        L = k1.lanes_per_sample(n)
+        assert lib.bluest_diffusion_wide_lanes(n) == L
+        assert (lib.bluest_diffusion_wide_store(n) > 0) == (L > 256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wide_buffer_within_slab(cuda, dtype):
+    """The wide tier's buffer holds one slab's coefficients, ~32 MB, not a
+    store per sample: at n=4096, B=8192 it is 32 MiB in both dtypes, and
+    the call allocates little else beside its output."""
+    n, B = 4096, 8192
+    xi = torch.as_tensor(np.random.default_rng(0).standard_normal((B, 64)),
+                         dtype=dtype, device=cuda)
+    k1.diffusion_outputs(xi, n, SIGMA, NU)              # build, cache mck
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    out = k1.diffusion_outputs(xi, n, SIGMA, NU)
+    torch.cuda.synchronize()
+    assert k1.diffusion_outputs.workspace_bytes == 32 << 20
+    assert (torch.cuda.max_memory_allocated(cuda) - base
+            <= (32 << 20) + (2 << 20))
+    assert out.shape == (B, 3)
 
 
 @pytest.mark.gpu
