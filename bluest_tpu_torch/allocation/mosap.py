@@ -14,6 +14,11 @@ candidate race with its KKT screen), with or without per-model caps, and
 the scipy trust-constr NLP both as ``solver="scipy"``/``"ipopt"`` and as
 the fallback when every cone solve fails.
 
+A MOSAP allocates on the allocation device of its construction
+(``self.device``; a ``BLUEProblem``'s own device): its solves, cleanup
+walk and integer projection run in a scope of it.  The cleanup walk's
+null space is scipy's on the host, as in the JAX package.
+
 The cone programs run on either cone backend: the interior-point solver
 (``"sdp"``/``"cvxopt"``/``"cvxpy"``) or the operator-splitting one
 (``"admm"``/``"scs"``, solvers/admm.py).  ``solver="spg"`` is the third
@@ -29,6 +34,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..config import allocation_device, on_own_device
 from ..core import psi as psimod
 from ..solvers.integer import best_integer_blue_multi
 from ..solvers.sdp import solve_cone_lp
@@ -56,6 +62,9 @@ class MOSAP:
                  groups, multi_groups, costs: np.ndarray,
                  multi_costs: Sequence[np.ndarray], verbose: bool = False):
         self.verbose = verbose
+        # the device every part of this allocation runs on: the allocation
+        # device of its construction (a problem's device, under its scope)
+        self.device = allocation_device()
         self.n_outputs = len(C)
         self.C = [np.asarray(Cn, dtype=float) for Cn in C]
         self.N = self.C[0].shape[0]
@@ -159,7 +168,8 @@ class MOSAP:
         Xs = []
         for n in range(self.n_outputs):
             Xn = psimod.cleanup_matrix(self.SAPS[n].data,
-                                       _f64(m[self.mappings[n]]), delta)
+                                       _f64(m[self.mappings[n]], self.device),
+                                       delta)
             X = np.zeros((self.N, self.L))
             X[:, self.mappings[n]] = Xn.cpu().numpy()
             Xs.append(X)
@@ -190,6 +200,7 @@ class MOSAP:
 
     # ------------------------------ solve ----------------------------- #
 
+    @on_own_device
     def solve(self, budget=None, eps=None, solver: str = "sdp", x0=None,
               continuous_relaxation: bool = False, max_model_samples=None,
               solver_params: Optional[dict] = None):
@@ -351,6 +362,7 @@ class MOSAP:
             self.SAPS[n].samples = samples[self.mappings[n]]
         return samples
 
+    @on_own_device
     def sdp_solve(self, budget=None, eps=None, max_model_samples=None,
                   solver_params=None, backend="ipm"):
         es, rhs = self.get_max_sample_constraints(max_model_samples)
@@ -627,6 +639,7 @@ class MOSAP:
                 m = m * budget
             self._sdp_guess = m
 
+    @on_own_device
     def spg_solve(self, budget=None, eps=None, max_model_samples=None):
         """Third continuous solver family (projected spectral gradient on
         the smoothed max-variance, solvers/spg_alloc.py) for
@@ -873,6 +886,7 @@ class MOSAP:
 
     # ------------------------ cleanup sparsifier ----------------------- #
 
+    @on_own_device
     def cleanup_solution(self, m, delta: float = 0.0, tol: float = 0.0):
         """Null-space walk reducing the number of active groups without
         worsening the max variance (reference mosap.py:125-210)."""
@@ -940,6 +954,7 @@ class MOSAP:
 
     # ------------------------ integer projection ----------------------- #
 
+    @on_own_device
     def integer_projection(self, samples, budget=None, eps=None,
                            max_model_samples=None):
         """(reference mosap.py:212-289)"""

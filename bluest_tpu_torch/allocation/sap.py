@@ -9,9 +9,10 @@ operator-splitting cone solver; ``"scipy"``: the trust-constr NLP;
 ``"spg"``: projected spectral gradient), the corner-search integer
 projection with its fallback ladder, the BLUE estimator assembly, and the
 helpers MOSAP shares with it (the cone backend table, the budget level
-bisection, the cap and NLP-point validators).  The JAX package pins these
-methods to its allocation device with a decorator; here every closure
-already builds its tensors on ``config.allocation_device()``.
+bisection, the cap and NLP-point validators).  A SAP keeps its tensors
+on the allocation device of its construction (``self.device``), and its
+solves and integer projection run in a scope of that device, as the
+JAX package's decorator pins them to its allocation device.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import allocation_device
+from ..config import allocation_device, on_own_device
 from ..core.groups import GroupStructure
 from ..core import psi as psimod
 from ..solvers.sdp import solve_cone_lp
@@ -127,9 +128,9 @@ def validated_nlp_point(r, feasible):
     return x
 
 
-def _f64(m) -> torch.Tensor:
+def _f64(m, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(m, dtype=float), dtype=torch.float64,
-                           device=allocation_device())
+                           device=device)
 
 
 class SAP:
@@ -149,7 +150,8 @@ class SAP:
         self.costs = np.asarray(costs, dtype=float)
 
         self.gs = GroupStructure(self.N, groups, C=self.C)
-        self.data = psimod.GroupData.build(self.gs)
+        self.device = allocation_device()
+        self.data = psimod.GroupData.build(self.gs, device=self.device)
         self.psi = self.data.psi.cpu().numpy()
 
         self.sizes = self.gs.sizes
@@ -175,22 +177,25 @@ class SAP:
         try:
             return psimod.host_variance(self.gs, self.psi, m, delta=delta)
         except np.linalg.LinAlgError:
-            return float(psimod.variance(self.data, _f64(m), delta))
+            return float(psimod.variance(self.data, _f64(m, self.device),
+                                         delta))
 
     def variance_GH(self, m, delta: float = 0.0, nohess: bool = False):
         m = np.asarray(m, dtype=float)
         if np.abs(m).max() < 0.05:
             return np.inf, np.inf * np.ones(self.L), None
-        v, g, H = psimod.variance_grad_hess(self.data, _f64(m), delta=delta,
-                                            nohess=nohess)
+        v, g, H = psimod.variance_grad_hess(self.data, _f64(m, self.device),
+                                            delta=delta, nohess=nohess)
         return (float(v), g.cpu().numpy(),
                 None if H is None else H.cpu().numpy())
 
     def get_cleanup_matrix(self, m, delta: float = 0.0) -> np.ndarray:
-        return psimod.cleanup_matrix(self.data, _f64(m), delta).cpu().numpy()
+        return psimod.cleanup_matrix(self.data, _f64(m, self.device),
+                                     delta).cpu().numpy()
 
     def get_phi(self, m, delta: float = 0.0) -> np.ndarray:
-        return psimod.phi_of_m(self.data.psi, _f64(m), delta).cpu().numpy()
+        return psimod.phi_of_m(self.data.psi, _f64(m, self.device),
+                               delta).cpu().numpy()
 
     def kkt_certificate(self, m=None, eps=None):
         """Independent first-order KKT report for a continuous allocation
@@ -231,6 +236,7 @@ class SAP:
 
     # ----------------------------- solvers ---------------------------- #
 
+    @on_own_device
     def solve(self, budget: Optional[float] = None, eps: Optional[float] = None,
               solver: str = "sdp", x0=None, continuous_relaxation: bool = False,
               max_model_samples=None, solver_params: Optional[dict] = None):
@@ -294,6 +300,7 @@ class SAP:
         self.tot_cost = samples @ self.costs
         return samples
 
+    @on_own_device
     def sdp_solve(self, budget=None, eps=None, max_model_samples=None,
                   solver_params=None, backend="ipm"):
         es, rhs = self.get_max_sample_constraints(max_model_samples)
@@ -489,6 +496,7 @@ class SAP:
             return np.inf
         return v if np.isfinite(v) else np.inf
 
+    @on_own_device
     def spg_solve(self, budget=None, eps=None, max_model_samples=None):
         """Third continuous solver family (projected spectral gradient,
         solvers/spg_alloc.py) for cross-validation against the IPM and
@@ -652,6 +660,7 @@ class SAP:
 
     # ------------------------ integer projection ---------------------- #
 
+    @on_own_device
     def integer_projection(self, samples, budget=None, eps=None,
                            max_model_samples=None):
         """(reference sap.py:145-187; ladder bug fixed, see module doc)"""

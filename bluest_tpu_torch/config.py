@@ -6,14 +6,18 @@ reference; the Monte Carlo model evaluations run in the model's own dtype
 and the sample sums always accumulate in float64.
 
 A problem samples on the card (``device="cuda"``, the default of
-``BLUEProblem``) unless the caller passes ``device="cpu"``; nothing falls
-back from one to the other.  The allocation runs on
-:func:`allocation_device`.
+``BLUEProblem``) unless the caller passes ``device="cpu"``, and it
+allocates on the same device (:func:`allocation_device`, under
+``allocation_device_scope(problem.device)``); nothing falls back from
+one to the other.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import os
+import threading
 
 import numpy as np
 import torch
@@ -33,17 +37,51 @@ SPD_THRESHOLD = 5.0e-14
 def allocation_device() -> torch.device:
     """Device the allocation optimization runs on.
 
-    The MLBLUE allocation problems are tiny (a few hundred variables,
-    PSD blocks of size M+1) and their interior-point iterations are a
-    Python loop of small f64 factorizations, so they run on the host
-    CPU, as in the JAX package.  Whether the card's hardware f64 beats
-    the host here is an open measurement, not a decided one."""
-    return torch.device("cpu")
+    The rule, read at each call:
+
+    * ``BLUEST_TPU_ALLOC_DEVICE=cpu``: the host, whatever the scope;
+    * inside :func:`allocation_device_scope`: the innermost scope's
+      device (``BLUEProblem`` enters one with its own ``device`` around
+      everything that allocates, so a problem allocates where it samples);
+    * outside any scope: ``cuda`` under ``BLUEST_TPU_ALLOC_DEVICE=default``,
+      else the host.  Allocation objects built directly (``MOSAP``,
+      ``SAP``, ``solve_cone_lp``) carry no device of their own and so
+      stay on the host, the JAX package's default for them.
+
+    Nothing falls back: a card that the rule names and the process does
+    not have raises ``RuntimeError``."""
+    env = os.environ.get("BLUEST_TPU_ALLOC_DEVICE", "")
+    if env == "cpu":
+        return torch.device("cpu")
+    if _SCOPES.stack:
+        device = _SCOPES.stack[-1]
+    elif env == "default":
+        device = torch.device("cuda")
+    else:
+        device = torch.device("cpu")
+    return _checked(device)
 
 
-# Names of the JAX package's device policy that callers' scripts use.  The
-# port's allocation is eager f64 numpy/torch on the host, so nothing has
-# to be pinned, probed or compiled: they are kept and do nothing.
+def _checked(device: torch.device) -> torch.device:
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "allocation device %s: no CUDA card is available; construct the "
+            "problem with device=\"cpu\" or set BLUEST_TPU_ALLOC_DEVICE=cpu "
+            "to allocate on the host CPU" % device)
+    return device
+
+
+class _ScopeStack(threading.local):
+    def __init__(self):
+        self.stack = []
+
+
+_SCOPES = _ScopeStack()     # per thread: a scope never leaks across threads
+
+
+# The JAX package probes, pins and compiles for its accelerator here; a
+# CUDA card is local and eager torch compiles nothing, so
+# ``ensure_responsive_device`` has nothing to do.
 
 def ensure_responsive_device(timeout: float = 240.0, retries: int = 0,
                              fallback: str = "cpu"):
@@ -57,12 +95,41 @@ def ensure_responsive_device(timeout: float = 240.0, retries: int = 0,
 
 
 @contextlib.contextmanager
-def allocation_device_scope():
-    """Context form of :func:`on_allocation_device`: a null context."""
-    yield
+def allocation_device_scope(device=None):
+    """Run the allocation inside on ``device`` (a ``torch.device`` or its
+    name; None keeps the device :func:`allocation_device` gives now).
+    Scopes nest, the innermost wins, and ``BLUEST_TPU_ALLOC_DEVICE=cpu``
+    overrides them all.  Entering a scope for a card the process does not
+    have raises."""
+    if device is None:
+        device = allocation_device()
+    device = torch.device(device)
+    if os.environ.get("BLUEST_TPU_ALLOC_DEVICE", "") != "cpu":
+        _checked(device)
+    _SCOPES.stack.append(device)
+    try:
+        yield device
+    finally:
+        _SCOPES.stack.pop()
 
 
 def on_allocation_device(fn):
-    """Decorator that pins a function's work to ``allocation_device()``
-    in the JAX package; here the identity."""
-    return fn
+    """Decorator form of :func:`allocation_device_scope`: each call of
+    ``fn`` runs in a scope of the device :func:`allocation_device` gives
+    when the call starts, so the whole call allocates on one device."""
+    @functools.wraps(fn)
+    def pinned(*args, **kwargs):
+        with allocation_device_scope():
+            return fn(*args, **kwargs)
+    return pinned
+
+
+def on_own_device(method):
+    """Method form of :func:`allocation_device_scope`: each call runs in
+    a scope of ``self.device``, so an object that owns a device (a
+    ``BLUEProblem``, a ``MOSAP``) allocates there."""
+    @functools.wraps(method)
+    def scoped(self, *args, **kwargs):
+        with allocation_device_scope(self.device):
+            return method(self, *args, **kwargs)
+    return scoped

@@ -148,7 +148,7 @@ def scatter_group_sums(data: GroupData, sums_flat: List) -> torch.Tensor:
         k = E.shape[1]
         s = torch.as_tensor(np.array(sums_flat[gidx:gidx + Lk],
                                      dtype=np.float64).reshape(Lk, k),
-                            device=device)
+                            dtype=F64, device=device)
         u = torch.einsum('gjl,gl->gj', ic, s)
         y = y + torch.einsum('gj,gjm->m', u, E)
         gidx += Lk

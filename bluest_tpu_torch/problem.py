@@ -32,8 +32,16 @@ to the CPU.  Black-box models run on the host by nature.  Construction
 with known covariances and costs samples nothing.  Covariances with
 unknown or uncouplable entries (NaN / inf sentinels) are projected by
 the masked SPG projection.  ``samplefile`` streams sample snapshots in
-the JAX package's npz format on every path.  The allocation runs on
-``config.allocation_device()``.
+the JAX package's npz format on every path.
+
+A problem allocates on its own device too: the SPD projection, the psi
+assembly, the cone solves, the cleanup walk and the integer projection
+of ``setup_solver`` (and of ``solve`` when it sets up, and of
+``prewarm_solver``) run inside ``config.allocation_device_scope(
+self.device)``, so ``device="cpu"`` allocates on the host and the
+default on the card; ``BLUEST_TPU_ALLOC_DEVICE=cpu`` moves every
+allocation to the host whatever the problem's device.  Without a card a
+card-device problem raises at its first allocation (or sampling call).
 
 ``solve``, ``solve_mlmc`` and ``solve_mfmc`` dispatch the sampling of
 every group before they fetch anything: the sums of all groups reach the
@@ -60,6 +68,7 @@ import numpy as np
 import torch
 
 from .allocation import MOSAP, BLUESTError
+from .config import allocation_device, on_own_device
 from .estimators.closed_forms import (mfmc_allocation, mfmc_check,
                                       mlmc_allocation, mlmc_bounds_batch)
 from .graph import CovarianceGraph, cliques
@@ -460,6 +469,7 @@ class BLUEProblem:
         for n in range(self.n_outputs):
             self.project_covariance(n, bypass_error_check=bypass_error_check)
 
+    @on_own_device
     def project_covariance(self, n=0, bypass_error_check: bool = False):
         """(blue_models.py:348-433): the eigenvalue clip when the
         covariance is fully known, else the masked SPG projection, which
@@ -859,6 +869,7 @@ class BLUEProblem:
 
     # ----------------------------- solvers ----------------------------- #
 
+    @on_own_device
     def prewarm_solver(self, K=4, background=False, budget=None,
                        max_model_samples=None):
         """Build the allocation structure (groups, psi assembly) that a
@@ -872,7 +883,8 @@ class BLUEProblem:
 
     def _ensure_mosap(self, K, multi_groups):
         """Build (or reuse from the structure cache) the MOSAP for this
-        group configuration."""
+        group configuration, on the allocation device (its callers run
+        in the problem's allocation scope)."""
         if multi_groups is None:
             Ks = []
             multi_groups = []
@@ -927,7 +939,7 @@ class BLUEProblem:
         if self.verbose:
             print("Computing optimal sample allocation...")
         # rebuild the MOSAP only when the problem structure changed
-        cache_key = (K, tuple(Ks),
+        cache_key = (str(allocation_device()), K, tuple(Ks),
                      tuple(np.asarray(Cn).tobytes() for Cn in C),
                      repr(groups), repr(multi_groups), costs.tobytes())
         if getattr(self, "_mosap_key", None) != cache_key \
@@ -937,6 +949,7 @@ class BLUEProblem:
             self._mosap_key = cache_key
         return self.MOSAP
 
+    @on_own_device
     def setup_solver(self, K=4, budget=None, eps=None, groups=None,
                      multi_groups=None, solver=None,
                      continuous_relaxation=False, max_model_samples=None,

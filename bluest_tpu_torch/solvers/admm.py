@@ -175,14 +175,15 @@ def _admm_run(cols, coefs, Ar, D, bh, ch, drow, ecol, scb, bnorm_o, cnorm_o,
     ns = (n * (n + 1)) // 2
     iu0, iu1, wts = _svec_indices(n)
     svec_w = torch.as_tensor(wts, dtype=F64, device=dev)
-    iu0_t = torch.as_tensor(iu0, device=dev)
-    iu1_t = torch.as_tensor(iu1, device=dev)
+    iu0_t = torch.as_tensor(iu0, dtype=torch.int64, device=dev)
+    iu1_t = torch.as_tensor(iu1, dtype=torch.int64, device=dev)
     # svec^{-1} as one gather: entry (i, j) of the matrix reads svec slot
     # of (min(i,j), max(i,j)), unweighted
     slot = np.zeros((n, n), dtype=np.int64)
     slot[iu0, iu1] = np.arange(ns)
     slot[iu1, iu0] = np.arange(ns)
-    mat_idx = torch.as_tensor(slot.reshape(-1), device=dev)
+    mat_idx = torch.as_tensor(slot.reshape(-1), dtype=torch.int64,
+                              device=dev)
     inv_w = 1.0 / svec_w
 
     def Amul(x):

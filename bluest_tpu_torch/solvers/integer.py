@@ -137,7 +137,8 @@ def _batch_variances_multi(vals, psis, mappings):
     for n in range(len(mappings)):
         Phi = psis[n] @ vals[mappings[n], :].astype(np.float64)  # (M^2, B)
         M = int(round(np.sqrt(psis[n].shape[0])))
-        phis = torch.as_tensor(Phi.T.reshape(-1, M, M), device=dev)
+        phis = torch.as_tensor(Phi.T.reshape(-1, M, M), dtype=torch.float64,
+                               device=dev)
         out.append(_chunk_var00(phis).cpu().numpy())
     return out
 

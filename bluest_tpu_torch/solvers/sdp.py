@@ -12,7 +12,16 @@ and a Mehrotra predictor-corrector (see the JAX module's docstring for
 the derivation).  The iteration is the JAX package's, step for step; what
 differs is the loop around it: the fused ``lax.while_loop`` program becomes
 a Python loop over eager torch operations on ``allocation_device()``, so
-there is no trace, compile or crash-isolation worker.
+there is no trace, compile or crash-isolation worker.  The loop reads its
+device once an iteration, one packed tensor of the stopping quantities
+and the factorization status: the iteration's numbers stay 0-d f64
+tensors, its branches are selects (the Mehrotra safeguard forms both the
+corrected and the centering direction and keeps one), and its Cholesky
+factorizations report their status instead of raising.  On the host this
+gives the results of a loop that reads each number as it needs it, bit
+for bit.  On a card ``torch.linalg``'s eigenvalue and singular value
+solves (one SVD and three eigenvalue solves an iteration) still read
+their convergence status back themselves.
 
 Exact re-solves of one cone program (MOSAP rebuilds, repeated
 budget-calibration solves) start from the previous solve's final iterate:
@@ -34,6 +43,7 @@ Woodbury path (all off by default there).
 from __future__ import annotations
 
 import hashlib
+import math
 import os
 import threading
 import time
@@ -105,14 +115,55 @@ def _sym(A):
     return (A + A.transpose(-1, -2)) / 2
 
 
-def _chol_factor(H, jitter=1e-14):
+# The iteration reads nothing back from its device but one packed tensor
+# (``_read``).  Its numbers stay 0-d f64 tensors, its branches are
+# selects, and its factorizations report their status instead of raising.
+# ``torch.linalg`` reads back the convergence status of an eigenvalue or
+# singular value solve on a card itself (no flag turns that off): those
+# calls go through ``_eigvalsh`` and ``_svd``, so they can be told apart.
+
+def _read(t: torch.Tensor) -> list:
+    """The host read of one iteration: its stopping quantities and
+    factorization status, packed into one tensor."""
+    return t.tolist()
+
+
+def _eigvalsh(A):
+    return torch.linalg.eigvalsh(A)
+
+
+def _svd(A):
+    return torch.linalg.svd(A)
+
+
+def _cholesky(A, infos: list):
+    """Cholesky factor of an SPD matrix (or a batch); its status is
+    appended to ``infos`` instead of raising."""
+    L, info = torch.linalg.cholesky_ex(A)
+    infos.append(info.reshape(-1))
+    return L
+
+
+def _all_ok(infos: list) -> torch.Tensor:
+    return torch.cat(infos).eq(0).all()
+
+
+def _raise_if_failed(infos: list) -> None:
+    """Host check of factorization statuses, for code that runs once a
+    solve (the start and the final polish), where the iteration's
+    exception contract still holds."""
+    if infos and not bool(_all_ok(infos)):
+        raise torch.linalg.LinAlgError("a Cholesky factorization failed")
+
+
+def _chol_factor(H, infos, jitter=1e-14):
     """Equilibrated Cholesky factor of an SPD matrix (unit-diagonal
     scaling first, so the 1e-14 ridge is scale-invariant)."""
     n = H.shape[0]
     d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-150))
     Hs = H / d[:, None] / d[None, :]
-    L = torch.linalg.cholesky(Hs + jitter * torch.eye(n, dtype=H.dtype,
-                                                      device=H.device))
+    L = _cholesky(Hs + jitter * torch.eye(n, dtype=H.dtype, device=H.device),
+                  infos)
     return H, L, d
 
 
@@ -137,20 +188,22 @@ def _psd_lowrank_factor(Ms):
     (W W^T)[i,k] = sum_b <Ms[b,i], Ms[b,k]>_F (symmetric vectorization,
     off-diagonals weighted by sqrt(2))."""
     nb, nx, n, _ = Ms.shape
-    iu0, iu1 = np.triu_indices(n)
-    wts = torch.as_tensor(np.where(iu0 == iu1, 1.0, np.sqrt(2.0)),
-                          dtype=Ms.dtype, device=Ms.device)
+    # made on the device: a host array would be copied in, and a copy
+    # from pageable host memory waits for the card
+    iu0, iu1 = torch.triu_indices(n, n, device=Ms.device)
+    wts = torch.full(iu0.shape, math.sqrt(2.0), dtype=Ms.dtype,
+                     device=Ms.device).masked_fill(iu0 == iu1, 1.0)
     V = Ms[:, :, iu0, iu1] * wts                   # (nb, nx, ns)
     return V.permute(1, 0, 2).reshape(nx, nb * iu0.shape[0])
 
 
-def _wood_factor(d0, W, jitter=1e-14):
+def _wood_factor(d0, W, infos, jitter=1e-14):
     """Factor H = diag(d0) + W W^T via the capacitance matrix
     C = I + W^T diag(1/d0) W (equilibrated Cholesky)."""
     r = W.shape[1]
     Wd = W / d0[:, None]
     C = torch.eye(r, dtype=W.dtype, device=W.device) + W.T @ Wd
-    return d0, W, Wd, _chol_factor(C, jitter=jitter)
+    return d0, W, Wd, _chol_factor(C, infos, jitter=jitter)
 
 
 def _wood_apply(fac, RHS):
@@ -176,56 +229,55 @@ def _wood_apply(fac, RHS):
 
 # --------------------- batched PSD cone primitives ----------------------- #
 
-def _nt_scaling(S, Z):
-    """Batched NT scaling (Todd-Toh-Tutuncu): returns (Tinv, R, Rinv, lam)
-    with T = R R^T the metric geometric mean (T Z T = S)."""
-    Ls = torch.linalg.cholesky(S)
-    Lz = torch.linalg.cholesky(Z)
+def _nt_scaling(S, Z, infos):
+    """Batched NT scaling (Todd-Toh-Tutuncu): returns (Tinv, R, Rinv, lam,
+    Ls, Lz) with T = R R^T the metric geometric mean (T Z T = S) and Ls,
+    Lz the Cholesky factors of S and Z."""
+    Ls = _cholesky(S, infos)
+    Lz = _cholesky(Z, infos)
     M = Ls.transpose(-1, -2) @ Lz
-    U, sig, Vt = torch.linalg.svd(M)
+    U, sig, Vt = _svd(M)
     sig = torch.clamp(sig, min=1e-150)
     R = (Ls @ U) / torch.sqrt(sig)[:, None, :]
     LsTinvU = torch.linalg.solve_triangular(Ls.transpose(-1, -2), U,
                                             upper=True)
     Rinv = torch.sqrt(sig)[:, :, None] * LsTinvU.transpose(-1, -2)
     Tinv = Rinv.transpose(-1, -2) @ Rinv
-    return _sym(Tinv), R, Rinv, sig
+    return _sym(Tinv), R, Rinv, sig, Ls, Lz
 
 
-def _max_step_psd(S, dS):
-    """Batched sup {a : S + a dS >= 0} (min over blocks)."""
-    L = torch.linalg.cholesky(S)
+def _max_step_psd(L, dS, k=1):
+    """sup {a : S + a dS >= 0} over the blocks of each of ``k`` equal
+    parts of the batch, with L the Cholesky factors of the S blocks:
+    a (k,) tensor, from one eigenvalue solve.  The step is monotone in
+    the least eigenvalue of L^-1 dS L^-T, so the least one of a part
+    gives the part's step."""
     M1 = torch.linalg.solve_triangular(L, dS, upper=False)
     M2 = torch.linalg.solve_triangular(L, M1.transpose(-1, -2), upper=False)
-    lam_min = float(torch.min(torch.linalg.eigvalsh(_sym(M2))[:, 0]))
-    return np.inf if lam_min >= 0 else -1.0 / min(lam_min, -1e-150)
+    lam_min = _eigvalsh(_sym(M2))[:, 0].reshape(k, -1).amin(dim=1)
+    return torch.where(lam_min >= 0, np.inf,
+                       -1.0 / torch.clamp(lam_min, max=-1e-150))
 
 
 def _max_step_lp(s, ds):
-    if s.shape[0] == 0:
-        return np.inf
-    neg = ds < 0
-    if not bool(neg.any()):
-        return np.inf
-    return float(torch.min(-s[neg] / ds[neg]))
+    """sup {a : s + a ds >= 0} along the last dimension of ``ds``."""
+    return torch.where(ds < 0, -s / ds, np.inf).amin(dim=-1)
 
 
-def _max_step_scalar(t, dt):
-    return -t / dt if dt < 0 else np.inf
-
-
-def _dual_polish(GT, Gall_mul, gsolve, p, nb, n, cj, z_lp, Z, tau, beta):
+def _dual_polish(GT, Gall_mul, gsolve, p, nb, n, cj, z_lp, Z, tau, beta,
+                 infos):
     """Minimum-norm dual correction restoring G^T z + c tau = 0,
     cone-limited so z stays strictly interior; ``beta`` is the initial
-    step fraction (0.0 or 1.0)."""
+    step fraction (a 0-d tensor, 0.0 or 1.0)."""
     rd = cj * tau + GT(z_lp, Z)
     delta = -Gall_mul(gsolve(rd))
     if p:
-        beta = min(beta, 0.99 * _max_step_lp(z_lp, delta[:p]))
+        beta = torch.minimum(beta, 0.99 * _max_step_lp(z_lp, delta[:p]))
     if nb:
         dZc = _sym(delta[p:].reshape(nb, n, n))
-        beta = min(beta, 0.99 * _max_step_psd(Z, dZc))
-    beta = max(beta, 0.0)
+        beta = torch.minimum(
+            beta, 0.99 * _max_step_psd(_cholesky(Z, infos), dZc)[0])
+    beta = torch.clamp(beta, min=0.0)
     z_lp = z_lp + beta * delta[:p]
     if nb:
         Z = _sym(Z + beta * dZc)
@@ -237,11 +289,14 @@ def _dual_polish(GT, Gall_mul, gsolve, p, nb, n, cj, z_lp, Z, tau, beta):
 def _iteration_core(cj, Glj, hlj, Aj, Hj, g_ops, gsolve, cnorm, step_frac,
                     gl_diag, Rj, woodbury, x, s_lp, S, z_lp, Z, tau, kappa):
     """One NT-scaled Mehrotra step on the HSD embedding (JAX
-    ``_iteration_core`` without the opt-in Gondzio correctors).
+    ``_iteration_core`` without the opt-in Gondzio correctors), read
+    back by nothing.
 
-    Returns (step, gap_cones, pres_r, dres_r): the residual metrics of
-    the current iterate, and ``step`` = (x, s_lp, S, z_lp, Z, tau, kappa,
-    a) of the next one, or None when a factorization broke down."""
+    Returns (step, ok, gap_cones, pres_r, dres_r), the numbers 0-d
+    tensors: the residual metrics of the current iterate, ``step`` =
+    (x, s_lp, S, z_lp, Z, tau, kappa, a) of the next one and ``ok``
+    whether its factorizations held (the JAX program's NaN step when
+    not); ``step`` is None when a decomposition raised instead."""
     p = hlj.shape[0]
     nb, nx, n, _ = Aj.shape
     nu = p + nb * n + 1
@@ -263,32 +318,34 @@ def _iteration_core(cj, Glj, hlj, Aj, Hj, g_ops, gsolve, cnorm, step_frac,
     rd = GT(z_lp, Z) + cj * tau
     rp_lp = hlj * tau - Ax_lp - s_lp if p else s_lp[:0]
     Rp = (Hj * tau - Ax_psd - S) if nb else Hj
-    hz = (float(hlj @ z_lp) if p else 0.0) + (float(torch.sum(Hj * Z))
-                                              if nb else 0.0)
-    rg = -float(cj @ x) - hz - kappa
+    hz = (hlj @ z_lp if p else 0.0) + (torch.sum(Hj * Z) if nb else 0.0)
+    rg = -(cj @ x) - hz - kappa
 
-    gap_cones = float(s_lp @ z_lp) if p else 0.0
+    gap_cones = s_lp @ z_lp if p else 0.0
     if nb:
-        gap_cones = gap_cones + float(torch.sum(S * Z))
-    pres_r = float(torch.linalg.norm(
-        torch.cat([rp_lp, Rp.reshape(-1)]) if nb else rp_lp))
-    dres_r = float(torch.linalg.norm(rd))
+        gap_cones = gap_cones + torch.sum(S * Z)
+    pres_r = torch.linalg.norm(
+        torch.cat([rp_lp, Rp.reshape(-1)]) if nb else rp_lp)
+    dres_r = torch.linalg.norm(rd)
+    infos = []
     try:
         step = _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve,
                          cnorm, step_frac, gl_diag, Rj, woodbury, x, s_lp,
                          S, z_lp, Z, tau, kappa, rd, rp_lp, Rp, rg,
-                         gap_cones, nu)
+                         gap_cones, nu, infos)
+        ok = _all_ok(infos)
     except torch.linalg.LinAlgError:
-        # a factorization broke down (the JAX program's NaN step): the
-        # pre-step metrics still count, the iterate is not advanced
-        step = None
-    return step, gap_cones, pres_r, dres_r
+        # an eigenvalue or singular value solve failed on a broken-down
+        # iterate: the pre-step metrics still count
+        step, ok = None, None
+    return step, ok, gap_cones, pres_r, dres_r
 
 
 def _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve, cnorm,
               step_frac, gl_diag, Rj, woodbury, x, s_lp, S, z_lp, Z, tau,
-              kappa, rd, rp_lp, Rp, rg, gap_cones, nu):
-    """Newton directions, step length and dual polish of one iteration."""
+              kappa, rd, rp_lp, Rp, rg, gap_cones, nu, infos):
+    """Newton directions, step length and dual polish of one iteration,
+    every scalar a 0-d tensor and every branch on one a select."""
     p = hlj.shape[0]
     nb, nx, n, _ = Aj.shape
     mu = (gap_cones + tau * kappa) / nu
@@ -305,7 +362,7 @@ def _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve, cnorm,
         return H
 
     if nb:
-        Tinv, Rnt, Rinv, lam = _nt_scaling(S, Z)
+        Tinv, Rnt, Rinv, lam, Ls, Lz = _nt_scaling(S, Z, infos)
         Zinv = _sym(torch.einsum('bij,bj,bkj->bik', Rnt, 1.0 / lam, Rnt))
         TinvH = _sym(torch.einsum('bij,bjl,blm->bim', Tinv, Hj, Tinv))
         if not woodbury:
@@ -326,10 +383,10 @@ def _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve, cnorm,
             Mb = torch.einsum('baj,bijl,bcl->biac', Rinv, Aj, Rinv)
             parts.append(_psd_lowrank_factor(Mb))
         W = torch.cat(parts, dim=1)
-        Hfac = _wood_factor(d0, W)
+        Hfac = _wood_factor(d0, W, infos)
         hsolve = lambda r: _wood_apply(Hfac, r)
     else:
-        Hfac = _chol_factor(Hmat)
+        Hfac = _chol_factor(Hmat, infos)
         hsolve = lambda r: _chol_apply(Hfac, r)
 
     def Winv2(u_lp, U_psd):
@@ -340,12 +397,12 @@ def _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve, cnorm,
         return lp, psd
 
     q = GT(d_lp * hlj if p else hlj[:0], TinvH if nb else None)
-    hWh = float(hlj @ (d_lp * hlj)) if p else 0.0
+    hWh = hlj @ (d_lp * hlj) if p else 0.0
     if nb:
-        hWh = hWh + float(torch.sum(Hj * TinvH))
+        hWh = hWh + torch.sum(Hj * TinvH)
 
     v1 = hsolve(cj - q)
-    denom = float((cj + q) @ v1) + hWh + kappa / tau
+    denom = ((cj + q) @ v1) + hWh + kappa / tau
 
     def direction(fr, bs_lp, Bs_psd, bk):
         bx = fr * rd
@@ -357,9 +414,9 @@ def _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve, cnorm,
         rx = -bx + GT(wb_lp, Wb_psd)
         v2 = hsolve(rx)
         rt = (-bt - bk / tau
-              - (float(hlj @ wb_lp) if p else 0.0)
-              - (float(torch.sum(Hj * Wb_psd)) if nb else 0.0))
-        dtau = (rt + float((cj + q) @ v2)) / denom
+              - (hlj @ wb_lp if p else 0.0)
+              - (torch.sum(Hj * Wb_psd) if nb else 0.0))
+        dtau = (rt + ((cj + q) @ v2)) / denom
         dx = v2 - dtau * v1
         Adx_lp, Adx_psd = Gx(dx)
         dz_lp, dZ = Winv2(
@@ -370,14 +427,22 @@ def _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve, cnorm,
         dkappa = (-bk - kappa * dtau) / tau
         return dx, ds_lp, dS, dz_lp, dZ, dtau, dkappa
 
-    def max_steps(ds_lp, dS, dz_lp, dZ, dtau, dkappa):
-        a = min(_max_step_scalar(tau, dtau), _max_step_scalar(kappa, dkappa))
+    tk = torch.stack([tau, kappa])
+    sz = torch.cat([s_lp, z_lp]) if p else None
+
+    def max_steps(*dirs):
+        """The largest step along each direction (ds_lp, dS, dz_lp, dZ,
+        dtau, dkappa) of ``dirs``: a (len(dirs),) tensor."""
+        k = len(dirs)
+        a = _max_step_lp(tk, torch.stack([torch.stack([d[4], d[5]])
+                                          for d in dirs]))
         if p:
-            a = min(a, _max_step_lp(s_lp, ds_lp))
-            a = min(a, _max_step_lp(z_lp, dz_lp))
+            a = torch.minimum(a, _max_step_lp(sz, torch.stack(
+                [torch.cat([d[0], d[2]]) for d in dirs])))
         if nb:
-            a = min(a, _max_step_psd(S, dS))
-            a = min(a, _max_step_psd(Z, dZ))
+            a = torch.minimum(a, _max_step_psd(
+                torch.cat([Ls, Lz] * k),
+                torch.cat([t for d in dirs for t in (d[1], d[3])]), k))
         return a
 
     zero_psd = torch.zeros_like(S) if nb else S
@@ -386,16 +451,19 @@ def _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve, cnorm,
     # predictor (affine scaling)
     aff = direction(1.0, s_lp, S if nb else zero_psd, tau * kappa)
     dxa, dsa_lp, dSa, dza_lp, dZa, dtaua, dkappaa = aff
-    a_aff = min(1.0, max_steps(dsa_lp, dSa, dza_lp, dZa, dtaua, dkappaa))
+    a_aff = torch.clamp(max_steps(aff[1:])[0], max=1.0)
 
-    gap_aff = (float((s_lp + a_aff * dsa_lp) @ (z_lp + a_aff * dza_lp))
+    gap_aff = ((s_lp + a_aff * dsa_lp) @ (z_lp + a_aff * dza_lp)
                if p else 0.0)
     if nb:
-        gap_aff = gap_aff + float(torch.sum((S + a_aff * dSa)
-                                            * (Z + a_aff * dZa)))
+        gap_aff = gap_aff + torch.sum((S + a_aff * dSa) * (Z + a_aff * dZa))
     gap_aff = gap_aff + (tau + a_aff * dtaua) * (kappa + a_aff * dkappaa)
     gap_tot = gap_cones + tau * kappa
-    sigma = float(np.clip((gap_aff / gap_tot) ** 3, 1e-8, 1.0))
+    ratio = gap_aff / gap_tot
+    # pow with a tensor exponent rounds once, as float ** 3 does (for the
+    # number 3 torch cubes by two products), so the host keeps its bits
+    sigma = torch.clamp(torch.pow(ratio, torch.full_like(ratio, 3.0)),
+                        1e-8, 1.0)
 
     # Mehrotra second-order corrections
     corr_lp = dsa_lp * dza_lp / z_lp if p else zero_lp
@@ -409,27 +477,31 @@ def _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve, cnorm,
         corr_psd = zero_psd
 
     smu = sigma * mu
+    # z_inv * smu is how torch rounds a float over a tensor, which smu was
+    # when the host read it: the host keeps its bits
+    z_inv = torch.reciprocal(z_lp) if p else zero_lp
     comb = direction(1.0 - sigma,
-                     (s_lp - smu / z_lp + corr_lp) if p else zero_lp,
+                     (s_lp - z_inv * smu + corr_lp) if p else zero_lp,
                      (S - smu * Zinv + corr_psd) if nb else zero_psd,
                      tau * kappa - smu + dtaua * dkappaa)
-    a_comb = max_steps(*comb[1:])
+    # the pure centering direction, for the Mehrotra safeguard below
+    sig_c = torch.clamp(sigma, min=0.5)
+    smu2 = sig_c * mu
+    cent = direction(1.0 - sig_c,
+                     (s_lp - z_inv * smu2) if p else zero_lp,
+                     (S - smu2 * Zinv) if nb else zero_psd,
+                     tau * kappa - smu2)
+    a_comb, a_cent = max_steps(comb[1:], cent[1:])
 
     # Mehrotra safeguard: fall back to the pure centering direction when
-    # the second-order correction collapses the step
-    if a_comb < 0.2 * a_aff:
-        smu2 = max(sigma, 0.5) * mu
-        cent = direction(1.0 - max(sigma, 0.5),
-                         (s_lp - smu2 / z_lp) if p else zero_lp,
-                         (S - smu2 * Zinv) if nb else zero_psd,
-                         tau * kappa - smu2)
-        dx, ds_lp, dS, dz_lp, dZ, dtau, dkappa = cent
-        a_max = max_steps(*cent[1:])
-    else:
-        dx, ds_lp, dS, dz_lp, dZ, dtau, dkappa = comb
-        a_max = a_comb
+    # the second-order correction collapses the step (both directions
+    # are formed, and the test selects one: no host read)
+    use_cent = a_comb < 0.2 * a_aff
+    dx, ds_lp, dS, dz_lp, dZ, dtau, dkappa = (
+        torch.where(use_cent, c, m) for c, m in zip(cent, comb))
+    a_max = torch.where(use_cent, a_cent, a_comb)
 
-    a = min(1.0, step_frac * a_max)
+    a = torch.clamp(step_frac * a_max, max=1.0)
 
     x_n = x + a * dx
     s_lp_n = s_lp + a * ds_lp
@@ -441,10 +513,9 @@ def _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve, cnorm,
 
     # dual polish, gated on a small dual residual (see the JAX module)
     rd_n = cj * tau_n + GT(z_lp_n, Z_n)
-    gate = 1.0 if float(torch.linalg.norm(rd_n)) < 1e-2 * cnorm * tau_n \
-        else 0.0
+    gate = (torch.linalg.norm(rd_n) < 1e-2 * cnorm * tau_n).to(F64)
     z_lp_n, Z_n = _dual_polish(GT, Gall_mul, gsolve, p, nb, n, cj,
-                               z_lp_n, Z_n, tau_n, gate)
+                               z_lp_n, Z_n, tau_n, gate, infos)
     return x_n, s_lp_n, S_n, z_lp_n, Z_n, tau_n, kappa_n, a
 
 
@@ -459,6 +530,10 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
     convergence bookkeeping, final dual polish and (in)feasibility
     certificate data.  Also returns the de-homogenized final iterate for
     the caller's warm-start cache.
+
+    The start and the end read the device freely (they run once); each
+    iteration reads one packed tensor, and the bookkeeping runs on the
+    host on those numbers.
 
     done codes: 0 running, 1 converged, 2 non-finite, 3 stall/tiny-step,
     4 tau collapse (infeasible or numerically dead embedding)."""
@@ -502,15 +577,17 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
 
     # ----- initialization: least-squares primal/dual start at tau = 1 -----
     hall = torch.cat([hlj, Hj.reshape(nb * n * n)]) if nb else hlj
+    infos = []
     if woodbury:
         parts0 = [Rj.T]
         if nb:
             parts0.append(_psd_lowrank_factor(Aj))
-        Gfac = _wood_factor(gl_diag ** 2, torch.cat(parts0, dim=1))
+        Gfac = _wood_factor(gl_diag ** 2, torch.cat(parts0, dim=1), infos)
         gsolve = lambda r: _wood_apply(Gfac, r)
     else:
-        Gfac = _chol_factor(GtG)
+        Gfac = _chol_factor(GtG, infos)
         gsolve = lambda r: _chol_apply(Gfac, r)
+    _raise_if_failed(infos)
     x = gsolve(GallT_mul(hall))
     z_all = Gall_mul(gsolve(-cj))
     s_lp = hlj - Gl_mul(x)
@@ -535,7 +612,8 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
     z_lp = shift_lp(z_lp)
     S = shift_psd(S)
     Z = shift_psd(Z)
-    tau, kappa = np.float64(1.0), np.float64(1.0)
+    one = torch.ones((), dtype=F64, device=dev)
+    tau, kappa = one, one
 
     # ----- optional warm start -----
     # Blend a cached previous solution of the SAME program into the cold
@@ -568,7 +646,8 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
             Z = psd_floor(one_m * Z + wlam * _sym(wZ), dZ)
         mu0 = ((float(s_lp @ z_lp) if p else 0.0)
                + (float(torch.sum(S * Z)) if nb else 0.0)) / max(p + nb * n, 1)
-        kappa = np.float64(one_m + wlam * max(mu0, 1e-10))
+        kappa = torch.full((), one_m + wlam * max(mu0, 1e-10), dtype=F64,
+                           device=dev)
 
     g_ops = (Gl_mul, GlT_mul, Gall_mul)
     best = dict(merit=np.inf, x=x, gap=np.inf, pres=np.inf, dres=np.inf,
@@ -577,18 +656,26 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
     done = 0
     it = 0
     while it < max_iter and done == 0:
-        step, gap_r, pres_r, dres_r = _iteration_core(
+        step, ok, gap_r, pres_r, dres_r = _iteration_core(
             cj, Glj, hlj, Aj, Hj, g_ops, gsolve, cnorm, step_frac, gl_diag,
             Rj, woodbury, x, s_lp, S, z_lp, Z, tau, kappa)
         it += 1
-        if step is None:
-            step = (None,) * 5 + (np.float64(np.nan),) * 2 + (0.0,)
-        x_n, s_n, S_n, z_n, Z_n, tau_n, kappa_n, a = step
+        packed = [gap_r, pres_r, dres_r, cj @ x, tau, kappa]
+        if step is not None:
+            packed += [step[7], step[5], ok.to(F64)]
+        vals = _read(torch.stack([torch.as_tensor(v, dtype=F64, device=dev)
+                                  for v in packed]))
+        gap_r, pres_r, dres_r, cx, tau_h, kappa_h = vals[:6]
+        if step is None or vals[8] == 0.0:
+            x_n, tau_n, a = None, np.nan, 0.0    # no step to take
+        else:
+            x_n, s_n, S_n, z_n, Z_n, tau_t, kappa_t = step[:7]
+            a, tau_n = vals[6], vals[7]
         # de-homogenized metrics of the pre-step iterate
-        gap = gap_r / tau ** 2
-        pres = pres_r / tau / hnorm
-        dres = dres_r / tau / cnorm
-        pobj = float(cj @ x) / tau
+        gap = gap_r / tau_h ** 2
+        pres = pres_r / tau_h / hnorm
+        dres = dres_r / tau_h / cnorm
+        pobj = cx / tau_h
         finite = bool(np.isfinite(gap) and np.isfinite(pres)
                       and np.isfinite(dres) and np.isfinite(pobj))
         relgap = gap / max(1.0, abs(pobj)) if finite else np.nan
@@ -597,7 +684,7 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
         improved = finite and merit < best["merit"]
         if verbose:
             print("ipm %d: gap=%.2e pres=%.2e dres=%.2e tau=%.2e kappa=%.2e "
-                  "step=%.3f" % (it, relgap, pres, dres, tau, kappa, a))
+                  "step=%.3f" % (it, relgap, pres, dres, tau_h, kappa_h, a))
         converged = finite and pres < feastol and dres < feastol \
             and relgap < tol
         stall = 0 if improved else stall + 1
@@ -618,18 +705,22 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
                         dres=dres, pobj=pobj)
         if finite and x_n is not None:
             x, s_lp, S, z_lp, Z, tau, kappa = (x_n, s_n, S_n, z_n, Z_n,
-                                               tau_n, kappa_n)
+                                               tau_t, kappa_t)
 
     # fold in the final iterate, after an unconditional dual polish
+    tau_h, kappa_h = float(tau), float(kappa)
+
     def GT_f(zl, Zm):
         out = GlT_mul(zl) if p else torch.zeros(nx, dtype=F64, device=dev)
         if nb:
             out = out + torch.einsum('binm,bnm->i', Aj, Zm)
         return out
 
+    infos = []
     try:
         z_lp_f, Z_f = _dual_polish(GT_f, Gall_mul, gsolve, p, nb, n, cj,
-                                   z_lp, Z, tau, 1.0)
+                                   z_lp, Z, tau, one, infos)
+        _raise_if_failed(infos)
     except torch.linalg.LinAlgError:
         z_lp_f = None           # no polished point to fold in
     if z_lp_f is not None:
@@ -640,13 +731,13 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
             Rp = Hj * tau - torch.einsum('i,binm->bnm', x, Aj) - S
             parts.append(Rp.reshape(-1))
         gap_f = ((float(s_lp @ z_lp_f) if p else 0.0)
-                 + (float(torch.sum(S * Z_f)) if nb else 0.0)) / tau ** 2
-        pres_f = float(torch.linalg.norm(torch.cat(parts))) / tau / hnorm
-        dres_f = float(torch.linalg.norm(rd)) / tau / cnorm
-        pobj_f = float(cj @ x) / tau
+                 + (float(torch.sum(S * Z_f)) if nb else 0.0)) / tau_h ** 2
+        pres_f = float(torch.linalg.norm(torch.cat(parts))) / tau_h / hnorm
+        dres_f = float(torch.linalg.norm(rd)) / tau_h / cnorm
+        pobj_f = float(cj @ x) / tau_h
         relgap_f = gap_f / max(1.0, abs(pobj_f))
         merit_f = max(relgap_f * (feastol / tol), max(pres_f, dres_f))
-        if np.isfinite(merit_f) and tau > 1e-12 and merit_f < best["merit"]:
+        if np.isfinite(merit_f) and tau_h > 1e-12 and merit_f < best["merit"]:
             best = dict(merit=merit_f, x=x / tau, gap=gap_f, pres=pres_f,
                         dres=dres_f, pobj=pobj_f)
 
@@ -660,10 +751,10 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
     zres_rel = float(torch.linalg.norm(GallT_mul(uz))) / z_nrm
     xres_rel = float(torch.linalg.norm(Gall_mul(x) + s_all)) / x_nrm
     ctx_rel = float(cj @ x) / x_nrm
-    kap_rel = kappa / max(1.0, max(z_nrm, x_nrm))
+    kap_rel = kappa_h / max(1.0, max(z_nrm, x_nrm))
     # de-homogenized FINAL iterate for the warm-start cache (the caller
     # stores it only on an OK status; the tau guard is numerical safety)
-    tau_safe = max(float(tau), 1e-300)
+    tau_safe = max(tau_h, 1e-300)
     final = (x / tau_safe, s_lp / tau_safe, S / tau_safe, z_lp / tau_safe,
              Z / tau_safe)
     return (best, it, done, (kap_rel, htz_rel, zres_rel, ctx_rel, xres_rel),
@@ -672,9 +763,12 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
 
 # --------------------------- warm-start cache ----------------------------- #
 # Process-level cache of final HSD iterates keyed by a content hash of the
-# (post-equilibration) program data.  Safety: a content-hash key cannot
-# cross-seed different instances, a non-OK warm outcome falls back to the
-# bit-exact cold start, and only finite OK-status iterates are stored.
+# (post-equilibration) program data.  Entries are host numpy arrays, moved
+# to the solve's device on use, so an entry that a host solve stored may
+# seed a card solve of the same program (and the other way round).
+# Safety: a content-hash key cannot cross-seed different instances, a
+# non-OK warm outcome falls back to the bit-exact cold start, and only
+# finite OK-status iterates are stored.
 _WARM_CACHE: dict = {}
 _WARM_LOCK = threading.Lock()
 _WARM_CACHE_MAX = 8

@@ -84,8 +84,10 @@ Phases (any failure raises, so the exit code is non-zero):
          never coupled), host_workers=2: the masked SPG projection
          converges, no group of setup_solver(K=3, eps) holds 0 and 1, and
          solve_mc is within 4 error bars of exp(0.5);
-  7. the allocation's solver families (all on the host in f64, as the
-     allocation always is; the sampling that follows on the card):
+  7. the allocation's solver families (in f64 on the problems' device,
+     the card, as every allocation of phases 4-10 is; the scipy NLP and
+     the SPG family's Dykstra projection on the host; the sampling that
+     follows on the card):
      (a) on phase 6(a)'s Matern problem, setup_solver(K=4, eps, solver=s,
          continuous_relaxation=True) for s in sdp, admm, spg, scipy: every
          tolerance met, ADMM and scipy costs within 1e-3 of the IPM's,
@@ -94,8 +96,10 @@ Phases (any failure raises, so the exit code is non-zero):
          stationarity <= 1e-9 and the two polished costs within 1e-8; the
          integer ADMM allocation sampled on the card, within 4 error bars
          of phase 6(a)'s MC reference.  ADMM's set-up runs once, through
-         setup_solver with the polish and the integer projection: the
-         point it hands to the polish serves the cost comparison;
+         setup_solver with the polish and the integer projection, at
+         most 20,000 iterations a cone program (its epigraph
+         cross-check never converges): the point it hands to the polish
+         serves the cost comparison;
      (b) on phase 4's problem, two rebuilds of the budget allocation, the
          IPM's warm-start cache emptied before the first: the second
          starts warm, takes fewer iterations and gives the same
@@ -153,7 +157,28 @@ Phases (any failure raises, so the exit code is non-zero):
      wide tier, models 2-9 through K1, each tier's launches equal to its
      chunk evaluations; five more solves timed (median, min, max); max_rel_err
      < 0.01, MLBLUE's q_int within 4 error bars of a 2^17-draw f64 MC of
-     model 0 through the wide tier, and that MC's q_energy = q_int.
+     model 0 through the wide tier, and that MC's q_energy = q_int;
+ 11. the allocation on the card against the host, on problems loaded
+     from phase 4's saved graph and phase 6(b)'s HH pilot (no pilot
+     paid again): (a) the flagship setup_solver(K=4, budget) at phase
+     4's calibrated budget, (b) setup_solver(K=4, eps=eps*) at phase 5's
+     eps*, (c) HH setup_solver(K=5, budget=2e5) (its L printed), each in
+     turns card, host, host, card (the host through
+     BLUEST_TPU_ALLOC_DEVICE=cpu), every set-up cold (a fresh MOSAP, the
+     warm cache emptied): per set-up the wall and its split (psi
+     assembly, IPM, cleanup walk, integer projection, rest), the IPM's
+     iterations and ms an iteration beside ipm_iteration_flops over the
+     card's FP64 rate; gated card against host: the same status of the
+     certificate the allocation rests on (every solve's status logged),
+     continuous cost within 1e-6 relative, max-variance within 1e-3
+     relative, the budget or eps* met; (a)'s card allocation
+     sampled through K1 (the kernel line's "mlblue_alloc_on_card"
+     launches), estimates within 4 error bars of phase 4's; one card
+     set-up under torch.cuda.set_sync_debug_mode("warn"): the
+     synchronising calls left, by call site, and those in the IPM's
+     iterations an iteration; host reads an IPM iteration (<= 2).
+Each of phases 4-11 logs where its allocations ran (the device of every
+MOSAP built and of every cone solve).
 The second-to-last line is the kernel report as JSON, an entry for K1
 and one for its wide tier; the last line is {"ok": true, "device": {...}}.
 
@@ -165,9 +190,10 @@ timed shapes.
 
 With --profile, one more budget solve after phase 4 runs under
 torch.profiler and a line gives K1's device time, the device's busy share
-of the solve's wall and the largest device items; a further solve runs
-under torch.cuda.set_sync_debug_mode("warn") and a line lists the
-synchronising calls that are left, by call site.  It is the standing
+of the solve's wall and the largest device items; a further solve and
+a cold budget set-up run under torch.cuda.set_sync_debug_mode("warn")
+and a line each lists the synchronising calls that are left, by call
+site.  It is the standing
 source of PERF.md's busy-share metric (the sampling layer's), measured
 again after every change to the sampling path or K1; the plain run
 leaves it out, so the profiler's cost never enters its other numbers.
@@ -240,6 +266,12 @@ HOST_EPS = 0.02
 # phase 4: repeated solves per path; phase 8: seconds a rank waits for
 # another in a collective before it fails
 PATH_REPS = 7
+# phase 7(a)'s ADMM iteration cap: its direct form converges in ~15,000
+# iterations on both devices, and its epigraph cross-check never converges
+# (ROADMAP queue 3); at ADMM's default of 60,000 the two took 361 s with
+# the allocation on an NVIDIA H100 80GB HBM3 (~4.8 ms an iteration, where
+# the card's host CPU takes ~0.5)
+ADMM_MAX_ITER = 20000
 RANK_TIMEOUT_S = 180
 # phase 9: the front door's scripts (by directory), MC references of model
 # 0, the graph written for the Navier-Stokes study, lines echoed per part
@@ -1201,8 +1233,9 @@ def phase_profile(problem):
     """One more budget solve of phase 4's problem under torch.profiler:
     K1's device time and launches, the union of all device activity over
     the solve's wall (the busy share), and the largest device items; then
-    one under the synchronisation debug mode: the calls that still make
-    the host wait for the card, by call site."""
+    one solve and one cold budget set-up on the card under the
+    synchronisation debug mode: the calls that still make the host wait
+    for the card, by call site."""
     import torch
     from bluest_tpu_torch.profiling import device_busy, device_trace
     budget = problem.MOSAP_output["budget"]
@@ -1235,6 +1268,17 @@ def phase_profile(problem):
             sites[site] = sites.get(site, 0) + 1
     log("synchronising calls left in one pipelined solve: %d %s"
         % (sum(sites.values()), json.dumps(sites, sort_keys=True)))
+
+    # one allocation too: a cold set-up of the same budget on the card
+    # (the problem's own allocation is put back for the phases after)
+    kept = (problem.MOSAP, problem.MOSAP_output, problem._mosap_key)
+    try:
+        sites, per_it = _card_syncs(problem, dict(K=K, budget=budget))
+    finally:
+        problem.MOSAP, problem.MOSAP_output, problem._mosap_key = kept
+    log("synchronising calls left in one cold budget set-up: %d %s; in the "
+        "IPM iterations %.2f an iteration"
+        % (sum(sites.values()), json.dumps(sites, sort_keys=True), per_it))
 
 
 def _sync():
@@ -1346,8 +1390,9 @@ def _device_kernels(fn):
                if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def phase_hodgkin_huxley(times):
-    """6(b): all 12 Hodgkin-Huxley models through the group engine."""
+def phase_hodgkin_huxley(times, graph):
+    """6(b): all 12 Hodgkin-Huxley models through the group engine; the
+    pilot's graph is saved to ``graph`` for phase 11."""
     import numpy as np
     import torch
     from bluest_tpu_torch.models import hodgkin_huxley as hh
@@ -1428,6 +1473,7 @@ def phase_hodgkin_huxley(times):
     _within_bars("HH MLBLUE vs MC", np.asarray(mus, float).ravel(),
                  np.asarray(errs, float).ravel(), q.mean(axis=0),
                  q.std(axis=0) / np.sqrt(HH_MC))
+    p.save_graph_data(graph)
 
 
 def phase_snapshots(times, launches_by_path):
@@ -1562,13 +1608,13 @@ def phase_host_model(times):
     _within_bars("host model MC vs exp(0.5)", mus, errs, [TRUE_MEAN], [0.0])
 
 
-def phase_user_models(launches_by_path):
+def phase_user_models(launches_by_path, hh_graph):
     """Phase 6: every part raises on failure; nothing is caught."""
     times = {}
     kept = {}
     t0 = time.perf_counter()
     for name, run in (("a", lambda: phase_matern(times)),
-                      ("b", lambda: phase_hodgkin_huxley(times)),
+                      ("b", lambda: phase_hodgkin_huxley(times, hh_graph)),
                       ("c", lambda: phase_snapshots(times, launches_by_path)),
                       ("d", lambda: phase_host_model(times))):
         t = time.perf_counter()
@@ -1601,6 +1647,7 @@ def phase_solver_families(matern, times):
     sdp._WARM_CACHE.clear()
     p._mosap_key = None             # a fresh MOSAP: fallbacks count from 0
     polished = {"polish": True}
+    admm_params = {"polish": True, "max_iter": ADMM_MAX_ITER}
     fam, pol = {}, {}
 
     # the point each polish starts from, as setup_solver hands it over
@@ -1629,7 +1676,7 @@ def phase_solver_families(matern, times):
     try:
         for solver in ("sdp", "admm", "spg", "scipy"):
             # ADMM's set-up is the slow one (two cone programs of ~15,000
-            # and 60,000 iterations on the host): it runs once, through
+            # and ADMM_MAX_ITER iterations): it runs once, through
             # setup_solver with the polish and the integer projection, and
             # serves three checks -- the point it hands to the polish
             # stands beside the other families' here, the polished point
@@ -1641,7 +1688,7 @@ def phase_solver_families(matern, times):
             t0 = time.perf_counter()
             p.setup_solver(K=4, eps=eps, solver=solver,
                            continuous_relaxation=not admm,
-                           optimization_solver_params=polished if admm
+                           optimization_solver_params=admm_params if admm
                            else None)
             wall = time.perf_counter() - t0
             out = p.MOSAP_output
@@ -1670,7 +1717,7 @@ def phase_solver_families(matern, times):
             times["admm_setup_s"] = wall
             t0 = time.perf_counter()
             mus, errs, cost = p.solve(K=4, eps=eps, solver="admm",
-                                      optimization_solver_params=polished)
+                                      optimization_solver_params=admm_params)
             _sync()
             times["admm_solve_s"] = time.perf_counter() - t0
             log("ADMM allocation sampled: setup %.3f s, solve %.3f s, %d "
@@ -2433,6 +2480,326 @@ def phase_deep_flagship(smi):
             "sample_s": sample_s, "walls": walls}
 
 
+HH_K_CARD = 5               # phase 11's HH width (the JAX package's L=792)
+FP64_PEAK = 67e12           # FP64 tensor-core dense rate, H100 SXM (700 W)
+
+
+@contextlib.contextmanager
+def allocation_log(phase):
+    """Log where a phase's allocations ran: the device of every MOSAP
+    built and of every interior-point solve in it."""
+    from bluest_tpu_torch.allocation import mosap
+    from bluest_tpu_torch.solvers import sdp
+    built, solved = {}, {}
+    real_init, real_ipm = mosap.MOSAP.__init__, sdp._ipm_solve
+
+    def init(self, *a, **k):
+        real_init(self, *a, **k)
+        built[str(self.device)] = built.get(str(self.device), 0) + 1
+
+    def ipm(*a, **k):
+        d = str(a[0].device)
+        solved[d] = solved.get(d, 0) + 1
+        return real_ipm(*a, **k)
+
+    mosap.MOSAP.__init__, sdp._ipm_solve = init, ipm
+    try:
+        yield
+    finally:
+        mosap.MOSAP.__init__, sdp._ipm_solve = real_init, real_ipm
+        log("%s allocations: MOSAPs built on %s, cone solves on %s"
+            % (phase, json.dumps(built, sort_keys=True),
+               json.dumps(solved, sort_keys=True)))
+
+
+@contextlib.contextmanager
+def allocation_split(rec):
+    """Time the parts of one set-up into ``rec``: psi assembly, the IPM
+    (its wall and iterations), the cleanup walk, the integer projection.
+    Each part ends with a synchronise of the card, so its time is the
+    device's too."""
+    from bluest_tpu_torch.allocation import mosap
+    from bluest_tpu_torch.core import psi as psimod
+    from bluest_tpu_torch.solvers import sdp
+    for k in ("psi_s", "ipm_s", "cleanup_s", "integer_s"):
+        rec[k] = 0.0
+    rec["iterations"], rec["dims"] = 0, []
+    real = (psimod.GroupData.__dict__["build"], sdp._ipm_solve,
+            mosap.MOSAP.cleanup_solution, mosap.MOSAP.integer_projection)
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            _sync()
+            rec[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    def ipm(*a, **k):
+        out = timed("ipm_s", real[1])(*a, **k)
+        rec["iterations"] += out[1]
+        return out
+
+    psimod.GroupData.build = classmethod(timed("psi_s", real[0].__func__))
+    sdp._ipm_solve = ipm
+    mosap.MOSAP.cleanup_solution = timed("cleanup_s", real[2])
+    mosap.MOSAP.integer_projection = timed("integer_s", real[3])
+    try:
+        yield rec
+    finally:
+        psimod.GroupData.build = real[0]
+        sdp._ipm_solve = real[1]
+        mosap.MOSAP.cleanup_solution = real[2]
+        mosap.MOSAP.integer_projection = real[3]
+
+
+def _cold_setup(problem, where, how):
+    """One set-up from nothing: a fresh MOSAP (psi assembly included)
+    and an empty warm cache, on the problem's device, the card
+    (``where="card"``), or through BLUEST_TPU_ALLOC_DEVICE=cpu on the
+    host (``where="host"``)."""
+    import numpy as np
+    from bluest_tpu_torch.solvers import sdp
+    sdp._WARM_CACHE.clear()
+    problem._mosap_key = None
+    old = os.environ.pop("BLUEST_TPU_ALLOC_DEVICE", None)
+    if where == "host":
+        os.environ["BLUEST_TPU_ALLOC_DEVICE"] = "cpu"
+    rec = {}
+    try:
+        with allocation_split(rec):
+            _sync()
+            t0 = time.perf_counter()
+            problem.setup_solver(**how)
+            _sync()
+            rec["wall_s"] = time.perf_counter() - t0
+    finally:
+        os.environ.pop("BLUEST_TPU_ALLOC_DEVICE", None)
+        if old is not None:
+            os.environ["BLUEST_TPU_ALLOC_DEVICE"] = old
+    m = problem.MOSAP
+    out = problem.MOSAP_output
+    if m.device.type != (DEV if where == "card" else "cpu"):
+        raise AssertionError("a %s set-up allocated on %s" % (where, m.device))
+    certs = out["certificates"]
+    rec.update(
+        device=where, status=[c["status"] for c in certs],
+        cont_cost=float(m.continuous_solution @ m.costs),
+        maxvar=float(max(out["variances"])), cost=float(out["cost"]),
+        samples=np.array(out["samples"]), L=m.L, out=out, mosap=m,
+        dims=[c["dims"] for c in certs if "dims" in c])
+    rec["rest_s"] = rec["wall_s"] - (rec["psi_s"] + rec["ipm_s"]
+                                     + rec["cleanup_s"] + rec["integer_s"])
+    return rec
+
+
+def _iteration_bound_ms(dims):
+    """The least time of one IPM iteration: ipm_iteration_flops of the
+    program over the card's FP64 rate (ms)."""
+    from bluest_tpu_torch.solvers.sdp import ipm_iteration_flops
+    return ipm_iteration_flops(dims) / FP64_PEAK * 1e3
+
+
+def _reads_per_iteration(problem, how):
+    """Host reads an iteration on the host: every tensor method that
+    hands a number or an array to the host, counted over one host
+    set-up's IPM iterations (the set-up is not timed)."""
+    import torch
+    from bluest_tpu_torch.solvers import sdp
+    names = ("__float__", "__int__", "__index__", "__bool__", "item",
+             "tolist", "numpy", "cpu")
+    real = {n: getattr(torch.Tensor, n) for n in names}
+    count = {"reads": 0, "iterations": 0, "inside": False}
+    core, read = sdp._iteration_core, sdp._read
+
+    def counting(n):
+        def f(self, *a, **k):
+            if count["inside"]:
+                count["reads"] += 1
+            return real[n](self, *a, **k)
+        return f
+
+    def in_core(*a, **k):
+        count["iterations"] += 1
+        count["inside"] = True
+        try:
+            return core(*a, **k)
+        finally:
+            count["inside"] = False
+
+    def packed(t):
+        count["reads"] += 1
+        return read(t)
+
+    for n in names:
+        setattr(torch.Tensor, n, counting(n))
+    sdp._iteration_core, sdp._read = in_core, packed
+    try:
+        _cold_setup(problem, "host", how)
+    finally:
+        for n in names:
+            setattr(torch.Tensor, n, real[n])
+        sdp._iteration_core, sdp._read = core, read
+    return count["reads"] / max(count["iterations"], 1)
+
+
+def _card_syncs(problem, how):
+    """One card set-up under torch.cuda.set_sync_debug_mode("warn"): the
+    synchronising calls by call site, and those of the IPM's iterations
+    (sdp.py's packed read, eigenvalue and SVD calls) an iteration."""
+    import torch
+    from bluest_tpu_torch.solvers import sdp
+    sites = {}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rec = _cold_setup(problem, "card", how)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = "%s:%d" % (os.path.relpath(w.filename), w.lineno)
+            sites[site] = sites.get(site, 0) + 1
+    lines = set()
+    for fn in (sdp._read, sdp._eigvalsh, sdp._svd):
+        code = fn.__code__
+        lines |= {"%s:%d" % (os.path.relpath(code.co_filename), ln)
+                  for _, _, ln in code.co_lines() if ln}
+    in_loop = sum(n for site, n in sites.items() if site in lines)
+    return sites, in_loop / max(rec["iterations"], 1)
+
+
+_STATUS_RANK = {"optimal": 0, "inaccurate": 1, "infeasible": 2,
+                "unbounded": 2, "max_iter": 3, "failed": 4}
+
+
+def _allocation_status(rec):
+    """The status of the certificate the allocation rests on: the best
+    of the set-up's cone solves (a candidate whose solve failed is
+    dropped, and the allocation comes from an OK one)."""
+    return min(rec["status"], key=lambda st: _STATUS_RANK.get(st, 4))
+
+
+def _gate_against_host(name, card, host, how):
+    """Card against host on one program: the same status of the
+    allocation's certificate, continuous cost within 1e-6 relative,
+    max-variance within 1e-3 relative, and the budget or the tolerance
+    met by both.  A dropped candidate may end otherwise on the two
+    devices where its solve stalls at the "inaccurate" threshold (the
+    host alone flips it under 1e-15 perturbations of the program): the
+    statuses of all solves are logged, not gated."""
+    if _allocation_status(card) != _allocation_status(host):
+        raise AssertionError("%s: card statuses %s, host %s"
+                             % (name, card["status"], host["status"]))
+    dc = abs(card["cont_cost"] - host["cont_cost"]) / host["cont_cost"]
+    dv = abs(card["maxvar"] - host["maxvar"]) / host["maxvar"]
+    if not (dc <= 1e-6 and dv <= 1e-3):
+        raise AssertionError("%s: continuous cost rel diff %.3e, max-variance"
+                             " rel diff %.3e" % (name, dc, dv))
+    for r in (card, host):
+        if "budget" in how and not r["cost"] <= 1.0001 * how["budget"]:
+            raise AssertionError("%s: cost %.10g over the budget %.10g"
+                                 % (name, r["cost"], how["budget"]))
+        if "eps" in how and not r["maxvar"] <= 1.0001 * how["eps"] ** 2:
+            raise AssertionError("%s: max V/eps^2 = %.6f"
+                                 % (name, r["maxvar"] / how["eps"] ** 2))
+    return dc, dv
+
+
+def phase_allocation_on_card(flagship, graph, hh_graph, launches_by_path):
+    """Phase 11: the allocation on the card against the host, in turns
+    (card, host, host, card), each set-up cold, on problems loaded from
+    phase 4's saved graph and phase 6(b)'s HH pilot."""
+    import statistics as st
+    import numpy as np
+    from bluest_tpu_torch.models import hodgkin_huxley as hh
+    budget, eps_star = flagship["budget"], flagship["eps_star"]
+    fp = _flagship_from_graph(graph)
+    hp = hh.HodgkinHuxleyProblem(datafile=hh_graph, device_batch_size=HH_BATCH,
+                                 verbose=False)
+    programs = (("(a) flagship budget", fp, dict(K=K, budget=budget)),
+                ("(b) flagship eps*", fp, dict(K=K, eps=eps_star)),
+                ("(c) HH K=%d budget" % HH_K_CARD, hp,
+                 dict(K=HH_K_CARD, budget=HH_BUDGET)))
+    summary = {}
+    card_budget = None
+    for name, problem, how in programs:
+        turns = [_cold_setup(problem, where, how)
+                 for where in ("card", "host", "host", "card")]
+        by = {"card": [t for t in turns if t["device"] == "card"],
+              "host": [t for t in turns if t["device"] == "host"]}
+        for t in turns:
+            bound = (_iteration_bound_ms(t["dims"][0]) if t["dims"]
+                     else float("nan"))
+            log("phase 11%s on %s: L=%d wall %.3f s = psi %.3f + IPM %.3f "
+                "(%d iterations, %.3f ms an iteration, bound %.6f ms) + "
+                "cleanup %.3f + integer %.3f + rest %.3f; statuses %s, "
+                "continuous cost %.10g, max variance %.8e"
+                % (name, t["device"], t["L"], t["wall_s"], t["psi_s"],
+                   t["ipm_s"], t["iterations"],
+                   1e3 * t["ipm_s"] / max(t["iterations"], 1), bound,
+                   t["cleanup_s"], t["integer_s"], t["rest_s"], t["status"],
+                   t["cont_cost"], t["maxvar"]))
+        for c in by["card"]:
+            for h in by["host"]:
+                dc, dv = _gate_against_host(name, c, h, how)
+        log("phase 11%s: card vs host: allocation's certificate %s / %s, "
+            "all solves %s / %s, continuous cost rel diff %.3e, max-variance"
+            " rel diff %.3e, same integer samples %s"
+            % (name, _allocation_status(by["card"][0]),
+               _allocation_status(by["host"][0]), by["card"][0]["status"],
+               by["host"][0]["status"], dc, dv,
+               bool(np.array_equal(by["card"][0]["samples"],
+                                   by["host"][0]["samples"]))))
+        summary[name] = {
+            d: {k: [round(t[k], 6) for t in by[d]]
+                for k in ("wall_s", "psi_s", "ipm_s", "cleanup_s",
+                          "integer_s", "rest_s")}
+            | {"iterations": [t["iterations"] for t in by[d]],
+               "ms_per_iteration": [round(1e3 * t["ipm_s"]
+                                          / max(t["iterations"], 1), 4)
+                                    for t in by[d]]}
+            for d in ("card", "host")}
+        summary[name]["L"] = turns[0]["L"]
+        summary[name]["bound_ms_per_iteration"] = (
+            _iteration_bound_ms(turns[0]["dims"][0]) if turns[0]["dims"]
+            else None)
+        summary[name]["wall_ratio_host_over_card"] = round(
+            st.median(t["wall_s"] for t in by["host"])
+            / st.median(t["wall_s"] for t in by["card"]), 4)
+        if name.startswith("(a)"):
+            card_budget = by["card"][-1]
+    # (a)'s last card allocation, sampled through K1 (launches counted
+    # from 0 just before)
+    out = card_budget["out"]
+    fp.MOSAP, fp.MOSAP_output = card_budget["mosap"], out
+    mus, errs, cost, s, n, need = _run_path(
+        "mlblue_alloc_on_card", lambda: fp.solve(K=K, budget=budget),
+        lambda: (out["flattened_groups"], out["samples"]), launches_by_path)
+    if fp.MOSAP_output is not out:
+        raise AssertionError("solve() reran the card's allocation")
+    log("phase 11 card allocation sampled through K1: %.3f s, K1 launches %d "
+        "(chunk evaluations %d)" % (s, n, need))
+    _within_bars("phase 11 card allocation vs phase 4", mus, errs,
+                 flagship["mus"], flagship["errs"])
+    how = dict(K=K, budget=budget)
+    sites, per_it = _card_syncs(fp, how)
+    log("phase 11 synchronising calls left in one card set-up (flagship "
+        "budget): %d %s; in the IPM iterations %.2f an iteration"
+        % (sum(sites.values()), json.dumps(sites, sort_keys=True), per_it))
+    reads = _reads_per_iteration(fp, how)
+    log("phase 11 host reads an IPM iteration (host set-up, tensor reads "
+        "counted): %.2f" % reads)
+    if not reads <= 2:
+        raise AssertionError("%.2f host reads an IPM iteration" % reads)
+    summary["card_syncs_per_iteration"] = round(per_it, 4)
+    summary["host_reads_per_iteration"] = round(reads, 4)
+    log("phase 11: %s" % json.dumps(summary, sort_keys=True))
+    return summary
+
+
 def write_ns_graph(path, seed=0):
     """A model graph in the shape of the reference's Navier-Stokes study
     (12 models, 6 outputs, costs 2^(11-l)), written in the reference npz
@@ -2472,17 +2839,29 @@ def main():
     w = phase_wide_check(parent)
     with tempfile.TemporaryDirectory() as d:
         graph = os.path.join(d, "flagship_graph.npz")
-        f = phase_flagship(smi, graph)
+        hh_graph = os.path.join(d, "hh_graph.npz")
+        with allocation_log("phase 4"):
+            f = phase_flagship(smi, graph)
         launches_by_path = {"mlblue_budget": f["launches"]}
         if "--profile" in sys.argv[1:]:
             phase_profile(f["problem"])
-        phase_target_rmse(f["problem"], graph, launches_by_path)
-        matern = phase_user_models(launches_by_path)
-        phase_allocation_families(f, matern, launches_by_path)
-        phase_distribution(f, graph, launches_by_path)
-    phase_front_door(launches_by_path)
-    deep = phase_deep_flagship(smi)["launches"]
-    launches_by_path["deep_flagship"] = deep["k1"]
+        with allocation_log("phase 5"):
+            phase_target_rmse(f["problem"], graph, launches_by_path)
+        with allocation_log("phase 6"):
+            matern = phase_user_models(launches_by_path, hh_graph)
+        with allocation_log("phase 7"):
+            phase_allocation_families(f, matern, launches_by_path)
+        with allocation_log("phase 8"):
+            phase_distribution(f, graph, launches_by_path)
+        with allocation_log("phase 9"):
+            phase_front_door(launches_by_path)
+        with allocation_log("phase 10"):
+            deep = phase_deep_flagship(smi)["launches"]
+        launches_by_path["deep_flagship"] = deep["k1"]
+        t0 = time.perf_counter()
+        with allocation_log("phase 11"):
+            phase_allocation_on_card(f, graph, hh_graph, launches_by_path)
+        log("phase 11: %.3f s" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": [{
         "name": "diffusion_outputs", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,

@@ -21,8 +21,9 @@ cross-check at the end draws the same two sample streams in this
 process, without a pool, so the two covariance estimates agree.
 
 Run:  python examples/torch/nested_blackbox_parallel.py
-(--device names the sampling device of torch models; this model runs on
-the host either way.)
+(--device names the device the problem allocates on -- the covariance
+projection and the MOSAP -- and torch models sample on; this model runs
+on the host either way.)
 """
 
 import argparse
@@ -78,8 +79,9 @@ def main(argv=None):
     """Run the study; returns what it printed as a dict."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                        help="sampling device of torch models (default: "
-                             "the card); unused by this host model")
+                        help="allocation device, and sampling device of "
+                             "torch models (default: the card); this host "
+                             "model samples on the host")
     args = parser.parse_args(argv)
 
     costs = np.array([float(c) for c in CELLS])

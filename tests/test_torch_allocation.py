@@ -119,7 +119,8 @@ def flagship():
     budget = 2.0e5
     pj = J.BLUEProblem(M, C=Cs, costs=COSTS, n_outputs=3, verbose=False)
     pj.setup_solver(K=4, budget=budget)
-    pt = T.BLUEProblem(M, C=Cs, costs=COSTS, n_outputs=3, verbose=False)
+    pt = T.BLUEProblem(M, C=Cs, costs=COSTS, n_outputs=3, verbose=False,
+                       device="cpu")
     pt.setup_solver(K=4, budget=budget)
     return pj, pt, budget
 

@@ -1,6 +1,10 @@
 """The port on the card: K1 and its wide tier against their plain
 version, the user models' card outputs against their CPU outputs, the
-group engine's resample and the snapshot-collecting path through K1.
+group engine's resample, the snapshot-collecting path through K1, and
+the allocation on the card against the host (the seeded cone programs of
+the allocation and warm-cache tests, the flagship-width MOSAP, the
+integer projection from one continuous point, and one IPM iteration
+under the synchronisation debug mode).
 
 These tests need a CUDA card and nvcc; without a card they skip.  They
 import neither jax nor the JAX package, so they also run on a machine
@@ -390,3 +394,256 @@ def test_factored_collect_through_kernel(cuda, tmp_path):
         assert se[0][i] == pytest.approx(
             float(vals["values_0_%d" % i].astype(np.float64).sum()),
             rel=1e-9)
+
+
+# --------------------- the allocation on the card ------------------------ #
+# The seeded programs of tests/test_torch_allocation.py and
+# tests/test_torch_warm.py, built here from the port alone (those files
+# import jax).
+
+def _alloc_programs():
+    from itertools import combinations
+    from bluest_tpu_torch.allocation import cones
+    from bluest_tpu_torch.core import GroupStructure, psi as psimod
+
+    def group_psi(M, K, C):
+        groups = [[list(c) for c in combinations(range(M), k)]
+                  for k in range(1, K + 1)]
+        gs = GroupStructure(M, groups, C=C)
+        return gs, psimod.GroupData.build(gs, device="cpu").psi.numpy()
+
+    def mlblue(seed, form):
+        rng = np.random.default_rng(seed)
+        M, K = 4 + seed % 3, 2 + seed % 2
+        A = rng.standard_normal((M, M))
+        gs, psi = group_psi(M, K, A @ A.T + 0.5 * M * np.eye(M))
+        w = gs.group_costs(np.sort(rng.uniform(0.1, 1, M))[::-1]
+                           * np.arange(M, 0, -1))
+        mp = [np.arange(gs.L)]
+        if form == "budget":
+            return cones.build_budget_sdp([psi], mp, gs.L, w, [gs.e],
+                                          1e3)[:5]
+        return cones.build_eps_sdp([psi], mp, gs.L, w, [gs.e],
+                                   np.array([0.05]), 1.0)[:5]
+
+    def covering(seed):
+        rng = np.random.default_rng(seed)
+        nx, n, nb = 6 + 3 * seed, 3 + seed % 3, 1 + seed % 2
+        v = rng.standard_normal((nb, nx, n))
+        return (rng.random(nx) + 0.1, -np.eye(nx), np.zeros(nx),
+                -v[..., None] * v[..., None, :],
+                -np.tile(np.eye(n), (nb, 1, 1)))
+
+    def lmi(seed, L=40, No=2, n=4):
+        rng = np.random.default_rng(seed)
+        c = rng.random(L) + 0.5
+        Gl = np.vstack([-np.eye(L), -rng.random((No, L))])
+        hl = np.concatenate([np.zeros(L), -np.ones(No)])
+        v = rng.standard_normal((No, L, n))
+        return (c, Gl, hl, -v[..., None] * v[..., None, :],
+                np.tile(np.eye(n), (No, 1, 1)) * 5.0)
+
+    def mlblue_eps(seed, M=5, K=3):
+        rng = np.random.default_rng(seed)
+        A = rng.standard_normal((M, M))
+        C = A @ A.T + M * np.eye(M)
+        gs, psi = group_psi(M, K, C)
+        return cones.build_eps_sdp(
+            [psi], [np.arange(gs.L)], gs.L, np.geomspace(4.0, 1.0, gs.L),
+            [gs.e], np.array([np.sqrt(C[0, 0]) * 0.05]), 1.0)[:5]
+
+    progs = {
+        "lp": lambda: (np.array([-1.0, -2.0]),
+                       np.vstack([np.eye(2), -np.eye(2)]),
+                       np.array([1.0, 1.0, 0.0, 0.0]), None, None),
+        "min-eig": lambda: (np.array([1.0]), None, None,
+                            np.array([[[[-1.0, 0.0], [0.0, -1.0]]]]),
+                            np.array([[[0.0, 1.0], [1.0, 0.0]]])),
+        "lmi-7": lambda: lmi(7),
+        "lmi-21": lambda: lmi(21, L=60, No=3),
+        "mlblue-eps": lambda: mlblue_eps(1234)}
+    for seed in (2, 3):
+        progs["covering-%d" % seed] = lambda s=seed: covering(s)
+    for form in ("budget", "eps"):
+        for seed in (0, 1, 3):
+            progs["%s-%d" % (form, seed)] = lambda s=seed, f=form: mlblue(s, f)
+    return progs
+
+
+ALLOC_PROGRAMS = ("lp", "min-eig", "covering-2", "covering-3", "budget-0",
+                  "budget-1", "budget-3", "eps-0", "eps-1", "eps-3", "lmi-7",
+                  "lmi-21", "mlblue-eps")
+
+
+@pytest.fixture
+def cold_ipm(monkeypatch):
+    from bluest_tpu_torch.solvers import sdp
+    monkeypatch.setenv("BLUEST_TPU_IPM_WARM", "0")
+    monkeypatch.delenv("BLUEST_TPU_ALLOC_DEVICE", raising=False)
+    sdp._WARM_CACHE.clear()
+    return sdp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ALLOC_PROGRAMS)
+def test_cone_program_card_matches_host(cuda, cold_ipm, case):
+    """The same cone program solved on the card and on the host: pobj
+    within 1e-7 relative, an OK status, and the same status and
+    iterations within 1 as far as the host agrees with itself.  Near the
+    f64 floor round-off decides both (on the host alone, 1e-15 relative
+    perturbations of c flip eps-3 between "inaccurate" in 21 iterations
+    and "optimal" in 17, and move mlblue-eps between 24 and 26), so the
+    host also solves five such perturbations of the program, and the
+    card must land among the host's statuses and within 1 of its
+    iteration range; where the host is stable this is the same status
+    and iterations within 1."""
+    from bluest_tpu_torch.config import allocation_device_scope
+    prog = _alloc_programs()[case]()
+    with allocation_device_scope("cuda"):
+        rc = cold_ipm.solve_cone_lp(*prog)
+    host = []
+    with allocation_device_scope("cpu"):
+        for k in range(6):
+            c = np.asarray(prog[0], float)
+            if k:
+                c = c * (1 + 1e-15 * np.random.default_rng(k).standard_normal(
+                    c.shape))
+            host.append(cold_ipm.solve_cone_lp(c, *prog[1:]))
+    rh = host[0]
+    assert rc.status in ("optimal", "inaccurate")
+    assert abs(rc.pobj - rh.pobj) <= 1e-7 * max(1.0, abs(rh.pobj))
+    assert rc.status in {r.status for r in host}
+    its = [r.iterations for r in host]
+    assert min(its) - 1 <= rc.iterations <= max(its) + 1
+
+
+def _flagship_width(device):
+    """The flagship-width problem of the allocation tests (M=10, three
+    outputs, seeded covariances, the bench's grid costs), on ``device``."""
+    from bluest_tpu_torch import BLUEProblem
+    grids = (1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
+    rng = np.random.default_rng(2)
+    M = len(grids)
+    Cs = []
+    for _ in range(3):
+        A = rng.standard_normal((M, M)) * 0.05
+        base = 0.97 ** np.abs(np.subtract.outer(np.arange(M), np.arange(M)))
+        s = np.exp(rng.standard_normal(M) * 0.3)
+        Cs.append(base * np.outer(s, s) + A @ A.T)
+    return BLUEProblem(M, C=Cs, costs=np.array([g / 2.0 for g in grids]),
+                       n_outputs=3, verbose=False, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["budget", "eps"])
+def test_flagship_mosap_card_matches_host(cuda, cold_ipm, mode):
+    """The flagship-width MOSAP (L=385) allocated on the card and on the
+    host, at chip_smoke.py phase 11's tolerances: the same status of the
+    certificate the allocation rests on, continuous cost within 1e-6
+    relative, max-variance within 1e-3 relative, the budget or the
+    tolerance met."""
+    how = {"budget": dict(K=4, budget=2.0e5), "eps": dict(K=4, eps=1e-3)}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        p = _flagship_width(device)
+        p.setup_solver(**how[mode])
+        assert p.MOSAP.device.type == device and p.MOSAP.L == 385
+        runs[device] = p
+    c, h = runs["cuda"], runs["cpu"]
+    rank = {"optimal": 0, "inaccurate": 1}
+    # the status of the certificate the allocation rests on (a dropped
+    # candidate's solve may stall on either side of "inaccurate")
+    best = [min((x["status"] for x in p.MOSAP.certificates),
+                key=lambda st: rank.get(st, 2)) for p in (c, h)]
+    print("statuses card %s, host %s"
+          % ([x["status"] for x in c.MOSAP.certificates],
+             [x["status"] for x in h.MOSAP.certificates]))
+    assert best[0] == best[1] and best[0] in rank
+    cc = c.MOSAP.continuous_solution @ c.MOSAP.costs
+    ch = h.MOSAP.continuous_solution @ h.MOSAP.costs
+    assert abs(cc - ch) <= 1e-6 * ch
+    vc = max(c.MOSAP_output["variances"])
+    vh = max(h.MOSAP_output["variances"])
+    assert abs(vc - vh) <= 1e-3 * vh
+    for p in (c, h):
+        if mode == "budget":
+            assert p.MOSAP_output["cost"] <= 1.0001 * 2.0e5
+        else:
+            assert max(p.MOSAP_output["variances"]) <= 1.0001 * 1e-6
+
+
+@pytest.mark.gpu
+def test_integer_projection_card_matches_host(cuda, cold_ipm):
+    """From one shared continuous point (the host's, after its cleanup
+    walk), the integer projection on the card gives the host's samples,
+    or, where cuSOLVER's rounding moves a corner, variances within 1e-8
+    relative (the difference is printed)."""
+    from bluest_tpu_torch.config import allocation_device_scope
+    h = _flagship_width("cpu")
+    h.setup_solver(K=4, budget=2.0e5, continuous_relaxation=True)
+    m0 = h.MOSAP.continuous_solution.copy()
+    sparse = h.MOSAP.cleanup_solution(m0.copy(), tol=1e-7 * m0.max())
+    c = _flagship_width("cuda")
+    c.prewarm_solver(K=4)
+    assert c.MOSAP.device.type == "cuda"
+    with allocation_device_scope("cuda"):
+        ic = c.MOSAP.integer_projection(sparse.copy(), budget=2.0e5)
+    ih = h.MOSAP.integer_projection(sparse.copy(), budget=2.0e5)
+    vc = np.asarray(h.MOSAP.variances(ic.astype(float)))
+    vh = np.asarray(h.MOSAP.variances(ih.astype(float)))
+    if not np.array_equal(ic, ih):
+        print("card and host corners differ at %s; variances rel diff %s"
+              % (np.nonzero(ic != ih)[0].tolist(),
+                 (np.abs(vc - vh) / vh).tolist()))
+    np.testing.assert_allclose(vc, vh, rtol=1e-8, atol=0)
+
+
+@pytest.mark.gpu
+def test_ipm_iteration_syncs_only_at_its_read(cuda, cold_ipm, monkeypatch):
+    """The IPM's iterations on the card under
+    torch.cuda.set_sync_debug_mode("error"), lifted only for the packed
+    read of each iteration and for torch.linalg's eigenvalue and SVD
+    calls, whose convergence status ATen reads back itself: anything
+    else that makes the host wait for the card raises.  Counted: one
+    packed read, one SVD and three eigenvalue solves an iteration."""
+    from bluest_tpu_torch.config import allocation_device_scope
+    sdp = cold_ipm
+    calls = {"read": 0, "eig": 0, "svd": 0, "iterations": 0}
+
+    def lifted(name, fn):
+        """``fn`` with the mode lifted; the iteration's strict mode is
+        put back after an eigenvalue or SVD call, and left off after the
+        packed read (the host's bookkeeping follows it)."""
+        def run(*a, **k):
+            calls[name] += 1
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a, **k)
+            finally:
+                if name != "read":
+                    torch.cuda.set_sync_debug_mode(mode)
+        return run
+
+    core = sdp._iteration_core
+
+    def strict_core(*a, **k):
+        calls["iterations"] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        return core(*a, **k)
+
+    monkeypatch.setattr(sdp, "_read", lifted("read", sdp._read))
+    monkeypatch.setattr(sdp, "_eigvalsh", lifted("eig", sdp._eigvalsh))
+    monkeypatch.setattr(sdp, "_svd", lifted("svd", sdp._svd))
+    monkeypatch.setattr(sdp, "_iteration_core", strict_core)
+    prog = _alloc_programs()["budget-1"]()
+    try:
+        with allocation_device_scope("cuda"):
+            res = sdp.solve_cone_lp(*prog, max_iter=3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    it = calls["iterations"]
+    assert it == res.iterations == 3
+    assert calls["read"] == it and calls["svd"] == it
+    # three eigenvalue solves an iteration, and the final polish's one
+    assert calls["eig"] == 3 * it + 1

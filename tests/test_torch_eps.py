@@ -68,7 +68,8 @@ def _instance(seed):
 
 def _pair(seed):
     M, K, No, Cs, costs, eps = _instance(seed)
-    pt = T.BLUEProblem(M, C=Cs, costs=costs, n_outputs=No, verbose=False)
+    pt = T.BLUEProblem(M, C=Cs, costs=costs, n_outputs=No, verbose=False,
+                       device="cpu")
     pj = J.BLUEProblem(M, C=Cs, costs=costs, n_outputs=No, verbose=False)
     return pt, pj, K, eps
 
@@ -113,7 +114,8 @@ def flagship():
         base = 0.97 ** np.abs(np.subtract.outer(np.arange(M), np.arange(M)))
         s = np.exp(rng.standard_normal(M) * 0.3)
         Cs.append(base * np.outer(s, s) + A @ A.T)
-    pt = T.BLUEProblem(M, C=Cs, costs=COSTS, n_outputs=3, verbose=False)
+    pt = T.BLUEProblem(M, C=Cs, costs=COSTS, n_outputs=3, verbose=False,
+                       device="cpu")
     pj = J.BLUEProblem(M, C=Cs, costs=COSTS, n_outputs=3, verbose=False)
     return pt, pj
 

@@ -121,7 +121,7 @@ def test_problem_blue_fn_matches_jax(batch):
     C = np.eye(3) + 0.5
     kw = dict(C=C.copy(), costs=np.array([4.0, 2.0, 1.0]),
               sample_batch_size=batch, verbose=False)
-    pt, pj = PortHost(3, **kw), JaxHost(3, **kw)
+    pt, pj = PortHost(3, device="cpu", **kw), JaxHost(3, **kw)
     assert not pt._has_torch_model()
     rt = pt.blue_fn([0, 1, 2], 300, compute_mlmc_differences=True)
     rj = pj.blue_fn([0, 1, 2], 300, compute_mlmc_differences=True)
@@ -166,11 +166,13 @@ def test_host_workers_equal_merged_serial_sums():
     C = np.eye(3) + 0.5
     costs = np.array([4.0, 2.0, 1.0])
     p = ExpSeriesHostProblem(3, C=C.copy(), costs=costs, host_workers=2,
-                             sample_batch_size=16, verbose=False)
+                             sample_batch_size=16, verbose=False,
+                             device="cpu")
     N, ls = 101, [0, 1, 2]
     got = p.blue_fn(ls, N, compute_mlmc_differences=True)
     q = ExpSeriesHostProblem(3, C=C.copy(), costs=costs,
-                             sample_batch_size=16, verbose=False)
+                             sample_batch_size=16, verbose=False,
+                             device="cpu")
     acc = None
     for wid, n in enumerate((51, 50)):
         q.set_worker_id(wid)
@@ -205,9 +207,11 @@ class NestedHost(BLUEProblem):
 def test_model_workers_nested_groups():
     C = np.eye(2) + 0.5
     p = NestedHost(2, C=C.copy(), costs=np.array([2.0, 1.0]),
-                   host_workers=2, model_workers=2, verbose=False)
+                   host_workers=2, model_workers=2, verbose=False,
+                   device="cpu")
     sumse, sumsc, _ = p.blue_fn([0, 1], 40)
-    q = NestedHost(2, C=C.copy(), costs=np.array([2.0, 1.0]), verbose=False)
+    q = NestedHost(2, C=C.copy(), costs=np.array([2.0, 1.0]), verbose=False,
+                   device="cpu")
     se = 0.0
     for wid in (0, 1):
         q.set_worker_id(wid)
@@ -300,7 +304,8 @@ def test_black_box_kind_runs_every_estimator():
     setup_mlmc/solve_mlmc and setup_mfmc/solve_mfmc, on the host."""
     from bluest_tpu_torch.models.analytic import TRUE_MEAN
     p = ExpSeriesHostProblem(4, covariance_estimation_samples=1024,
-                             sample_batch_size=256, verbose=False)
+                             sample_batch_size=256, verbose=False,
+                             device="cpu")
     eps = 0.03
     p.setup_solver(K=3, eps=eps)
     runs = {"mlblue": p.solve(K=3, eps=eps), "mc": p.solve_mc(eps=eps),

@@ -162,19 +162,30 @@ def test_factored_model_api_with_cost_estimation():
     assert r.params["no_such_parameter"] == 1
 
 
-def test_default_sampling_device_is_the_card():
-    """Without device= a problem samples on the card: construction from
-    known covariances and costs samples nothing, and on a host without a
-    card the first sampling call raises instead of running on the CPU."""
+def test_default_sampling_device_is_the_card(monkeypatch):
+    """Without device= a problem samples and allocates on the card:
+    construction from known covariances and costs samples nothing but
+    projects them on the card, so on a host without a card it raises;
+    under BLUEST_TPU_ALLOC_DEVICE=cpu the problem allocates on the host,
+    and its first sampling call raises instead of running on the CPU."""
     C = (np.outer(_Quadratic.a, _Quadratic.a)
          + 2 * np.outer(_Quadratic.b, _Quadratic.b))
-    p = Quadratic(3, C=C, costs=[3.0, 2.0, 1.0], verbose=False)
-    assert p.device.type == "cuda"
-    p.setup_solver(K=2, budget=100.0)
+    monkeypatch.delenv("BLUEST_TPU_ALLOC_DEVICE", raising=False)
     if torch.cuda.is_available():
+        p = Quadratic(3, C=C, costs=[3.0, 2.0, 1.0], verbose=False)
+        assert p.device.type == "cuda"
+        p.setup_solver(K=2, budget=100.0)
+        assert p.MOSAP.device.type == "cuda"
         mus, _, _ = p.solve(K=2, budget=100.0)
         assert np.all(np.isfinite(np.asarray(mus, float)))
     else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            Quadratic(3, C=C, costs=[3.0, 2.0, 1.0], verbose=False)
+        monkeypatch.setenv("BLUEST_TPU_ALLOC_DEVICE", "cpu")
+        p = Quadratic(3, C=C, costs=[3.0, 2.0, 1.0], verbose=False)
+        assert p.device.type == "cuda"
+        p.setup_solver(K=2, budget=100.0)
+        assert p.MOSAP.device.type == "cpu"
         with pytest.raises(RuntimeError, match='device="cpu"'):
             p.solve(K=2, budget=100.0)
     d = DiffusionProblem(C=[np.eye(4)] * 3, **KW)
@@ -295,7 +306,8 @@ def test_kept_names_behave_as_the_jax_package_s():
         with cfg.allocation_device_scope():
             assert cfg.on_allocation_device(lambda a, b=1: a + b)(2, b=3) == 5
     f = lambda x: x
-    assert ct.on_allocation_device(f) is f
+    pinned = ct.on_allocation_device(f)      # runs f in a device scope
+    assert pinned.__wrapped__ is f and pinned(7) == 7
     assert st.prewarm_mlblue(3, 1, 3) is None
     assert st.prewarm_mlblue(3, 1, 3, budget_epigraph=True, n_caps=2) is None
     # the port compiles no cone program, so it has none to warm; the JAX

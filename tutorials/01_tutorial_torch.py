@@ -229,9 +229,10 @@ def main(argv=None):
     # sample_batch_size passes N samples per evaluate call when the
     # overloads accept a batch argument (reference blue_fn.py:112-167);
     # spg_params tunes the SPG covariance-projection optimizer (reference
-    # blue_models.py:13-20).
+    # blue_models.py:13-20).  The model runs on the host; ``device`` names
+    # where the problem allocates (its covariance projection and MOSAP).
 
-    hproblem = MyHostProblem(n_models, costs=costs,
+    hproblem = MyHostProblem(n_models, costs=costs, device=device,
                              covariance_estimation_samples=1024,
                              sample_batch_size=256,      # vectorized batches
                              spg_params={"maxit": 500},  # projection budget
