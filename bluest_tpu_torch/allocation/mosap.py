@@ -14,9 +14,10 @@ candidate race with its KKT screen), with or without per-model caps, and
 the scipy trust-constr NLP both as ``solver="scipy"``/``"ipopt"`` and as
 the fallback when every cone solve fails.
 
-A MOSAP allocates on the allocation device of its construction
-(``self.device``; a ``BLUEProblem``'s own device): its solves, cleanup
-walk and integer projection run in a scope of it.  The cleanup walk's
+A MOSAP allocates on ``self.device``: its ``device`` argument, else the
+allocation device of its construction (a ``BLUEProblem``'s own device;
+the card outside any scope): its solves, cleanup walk and integer
+projection run in a scope of it.  The cleanup walk's
 null space is scipy's on the host, as in the JAX package.
 
 The cone programs run on either cone backend: the interior-point solver
@@ -34,7 +35,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from ..config import allocation_device, on_own_device
+from ..config import (allocation_device, on_allocation_device,
+                      on_own_device)
 from ..core import psi as psimod
 from ..solvers.integer import best_integer_blue_multi
 from ..solvers.sdp import solve_cone_lp
@@ -58,12 +60,15 @@ def prewarm_forms_for(budget, max_model_samples, L: int,
 
 
 class MOSAP:
+    @on_allocation_device
     def __init__(self, C: Sequence[np.ndarray], K: int, Ks: Sequence[int],
                  groups, multi_groups, costs: np.ndarray,
-                 multi_costs: Sequence[np.ndarray], verbose: bool = False):
+                 multi_costs: Sequence[np.ndarray], verbose: bool = False,
+                 *, device=None):
         self.verbose = verbose
-        # the device every part of this allocation runs on: the allocation
-        # device of its construction (a problem's device, under its scope)
+        # the device every part of this allocation runs on: ``device``, or
+        # the allocation device of its construction (a problem's device,
+        # under its scope), the card by default (config.allocation_device)
         self.device = allocation_device()
         self.n_outputs = len(C)
         self.C = [np.asarray(Cn, dtype=float) for Cn in C]
@@ -82,7 +87,7 @@ class MOSAP:
         self.L = int(self.cumsizes[-1])
 
         self.SAPS = [SAP(self.C[n], self.Ks[n], multi_groups[n],
-                         multi_costs[n], verbose=verbose)
+                         multi_costs[n], verbose=verbose, device=self.device)
                      for n in range(self.n_outputs)]
 
         ES = np.zeros((self.N, self.L))

@@ -10,9 +10,11 @@ operator-splitting cone solver; ``"scipy"``: the trust-constr NLP;
 projection with its fallback ladder, the BLUE estimator assembly, and the
 helpers MOSAP shares with it (the cone backend table, the budget level
 bisection, the cap and NLP-point validators).  A SAP keeps its tensors
-on the allocation device of its construction (``self.device``), and its
-solves and integer projection run in a scope of that device, as the
-JAX package's decorator pins them to its allocation device.
+on ``self.device``: its ``device`` argument, else the allocation device
+of its construction (``config.allocation_device``: the card unless a
+scope or the caller says otherwise), and its solves and integer
+projection run in a scope of that device, as the JAX package's decorator
+pins them to its allocation device.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import allocation_device, on_own_device
+from ..config import (allocation_device, on_allocation_device,
+                      on_own_device)
 from ..core.groups import GroupStructure
 from ..core import psi as psimod
 from ..solvers.sdp import solve_cone_lp
@@ -140,9 +143,10 @@ class SAP:
     group lists, ``costs`` the per-group sampling costs (reference
     sap.py:53)."""
 
+    @on_allocation_device
     def __init__(self, C: np.ndarray, K: int,
                  groups: Sequence[Sequence[Sequence[int]]],
-                 costs: np.ndarray, verbose: bool = False):
+                 costs: np.ndarray, verbose: bool = False, *, device=None):
         self.verbose = verbose
         self.C = np.asarray(C, dtype=float)
         self.N = self.C.shape[0]

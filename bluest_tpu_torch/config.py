@@ -34,32 +34,28 @@ UNCORRELATED_RHO_TOL = 1.0e-7
 SPD_THRESHOLD = 5.0e-14
 
 
-def allocation_device() -> torch.device:
+def allocation_device(device=None) -> torch.device:
     """Device the allocation optimization runs on.
 
     The rule, read at each call:
 
-    * ``BLUEST_TPU_ALLOC_DEVICE=cpu``: the host, whatever the scope;
+    * ``BLUEST_TPU_ALLOC_DEVICE=cpu``: the host, whatever the scope or
+      ``device`` (the caller asks for the CPU);
+    * ``device`` (a ``torch.device`` or its name) when given: the device
+      an allocation object (``MOSAP``, ``SAP``, ``solve_cone_lp``) was
+      asked to run on;
     * inside :func:`allocation_device_scope`: the innermost scope's
       device (``BLUEProblem`` enters one with its own ``device`` around
       everything that allocates, so a problem allocates where it samples);
-    * outside any scope: ``cuda`` under ``BLUEST_TPU_ALLOC_DEVICE=default``,
-      else the host.  Allocation objects built directly (``MOSAP``,
-      ``SAP``, ``solve_cone_lp``) carry no device of their own and so
-      stay on the host, the JAX package's default for them.
+    * else the card, ``cuda``, as a ``BLUEProblem``'s default device.
 
     Nothing falls back: a card that the rule names and the process does
     not have raises ``RuntimeError``."""
-    env = os.environ.get("BLUEST_TPU_ALLOC_DEVICE", "")
-    if env == "cpu":
+    if os.environ.get("BLUEST_TPU_ALLOC_DEVICE", "") == "cpu":
         return torch.device("cpu")
-    if _SCOPES.stack:
-        device = _SCOPES.stack[-1]
-    elif env == "default":
-        device = torch.device("cuda")
-    else:
-        device = torch.device("cpu")
-    return _checked(device)
+    if device is None:
+        device = _SCOPES.stack[-1] if _SCOPES.stack else "cuda"
+    return _checked(torch.device(device))
 
 
 def _checked(device: torch.device) -> torch.device:
@@ -99,13 +95,9 @@ def allocation_device_scope(device=None):
     """Run the allocation inside on ``device`` (a ``torch.device`` or its
     name; None keeps the device :func:`allocation_device` gives now).
     Scopes nest, the innermost wins, and ``BLUEST_TPU_ALLOC_DEVICE=cpu``
-    overrides them all.  Entering a scope for a card the process does not
-    have raises."""
-    if device is None:
-        device = allocation_device()
-    device = torch.device(device)
-    if os.environ.get("BLUEST_TPU_ALLOC_DEVICE", "") != "cpu":
-        _checked(device)
+    makes every scope the host's.  Entering a scope for a card the
+    process does not have raises."""
+    device = allocation_device(device)
     _SCOPES.stack.append(device)
     try:
         yield device
@@ -115,11 +107,12 @@ def allocation_device_scope(device=None):
 
 def on_allocation_device(fn):
     """Decorator form of :func:`allocation_device_scope`: each call of
-    ``fn`` runs in a scope of the device :func:`allocation_device` gives
-    when the call starts, so the whole call allocates on one device."""
+    ``fn`` runs in a scope of its ``device`` keyword argument, or without
+    one of the device :func:`allocation_device` gives when the call
+    starts, so the whole call allocates on one device."""
     @functools.wraps(fn)
     def pinned(*args, **kwargs):
-        with allocation_device_scope():
+        with allocation_device_scope(kwargs.get("device")):
             return fn(*args, **kwargs)
     return pinned
 

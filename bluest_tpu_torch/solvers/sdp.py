@@ -21,7 +21,10 @@ factorizations report their status instead of raising.  On the host this
 gives the results of a loop that reads each number as it needs it, bit
 for bit.  On a card ``torch.linalg``'s eigenvalue and singular value
 solves (one SVD and three eigenvalue solves an iteration) still read
-their convergence status back themselves.
+their convergence status back themselves.  One choice differs from the
+JAX package: the normal equations are factored dense up to nx = 4096
+(``_DENSE_MAX_NX``), where the JAX package takes its Woodbury path from
+nx = 256, because the Woodbury endgame leaves the status to round-off.
 
 Exact re-solves of one cone program (MOSAP rebuilds, repeated
 budget-calibration solves) start from the previous solve's final iterate:
@@ -52,12 +55,20 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..config import allocation_device
+from ..config import allocation_device, on_allocation_device
 
 __all__ = ["ConeLPResult", "solve_cone_lp"]
 
 F64 = torch.float64
 _WOOD_REFINE = 4      # Woodbury refinement steps (JAX package default)
+# Largest program that factors the dense normal matrix by default.  Past
+# the JAX package's nx >= 256 the Woodbury path's endgame is unreliable:
+# there the diagonal spans ~1e18 (groups at zero against active ones),
+# the refinement stops converging, and the iterate stalls where round-off
+# picks the status (HH at K=5, nx=1585: "failed" or "inaccurate" under
+# 1e-15 perturbations; dense: "inaccurate" with a 60x margin every time).
+# The dense matrix is 128 MiB at this size.
+_DENSE_MAX_NX = 4096
 
 
 class ConeLPResult(NamedTuple):
@@ -366,7 +377,10 @@ def _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve, cnorm,
         Zinv = _sym(torch.einsum('bij,bj,bkj->bik', Rnt, 1.0 / lam, Rnt))
         TinvH = _sym(torch.einsum('bij,bjl,blm->bim', Tinv, Hj, Tinv))
         if not woodbury:
-            Y = torch.einsum('bij,bkjl,blm->bkim', Tinv, Aj, Tinv)
+            # Tinv A_i Tinv for every i as batched matmuls: the einsum
+            # of the same products took ~30x longer on the host
+            Y = torch.matmul(torch.matmul(Tinv[:, None], Aj),
+                             Tinv[:, None])
             Hmat = torch.einsum('binm,bknm->ik', Aj, Y)
             if p:
                 Hmat = Hmat + hmat_lp()
@@ -789,6 +803,7 @@ def _warm_fingerprint(c_np, Gl_np, hl_np, As_np, Hs_np, gl_diag, R_np,
     return h.hexdigest()
 
 
+@on_allocation_device
 def solve_cone_lp(c: np.ndarray,
                   Gl: Optional[np.ndarray],
                   hl: Optional[np.ndarray],
@@ -800,12 +815,14 @@ def solve_cone_lp(c: np.ndarray,
                   step_frac: float = 0.99,
                   equilibrate: bool = True,
                   verbose: bool = False,
-                  woodbury: Optional[bool] = None) -> ConeLPResult:
+                  woodbury: Optional[bool] = None,
+                  *, device=None) -> ConeLPResult:
     """Solve  min c^T x  s.t.  Gl x <= hl,  sum_i x_i As[b,i] <= Hs[b].
 
     ``As``: (nb, nx, n, n) symmetric coefficient slices; ``Hs``: (nb, n, n).
-    Host numpy in, host numpy out; the iteration runs on
-    ``allocation_device()`` in float64."""
+    Host numpy in, host numpy out; the solve runs in float64 in an
+    allocation scope of ``device`` (None: the current allocation device,
+    the card outside any scope)."""
     c_np = np.asarray(c, dtype=np.float64)
     nx = c_np.shape[0]
     if Gl is None:
@@ -849,10 +866,11 @@ def solve_cone_lp(c: np.ndarray,
         R_np = np.zeros((0, nx))
     diag_ok = gl_diag.shape[0] == nx and bool(np.all(gl_diag != 0))
 
-    # Woodbury fast path: normal matrix = diag + rank-r with structured Gl
+    # Woodbury path: normal matrix = diag + rank-r with structured Gl, for
+    # programs too large for the dense one (_DENSE_MAX_NX)
     rank_lr = (p - nx) + nb * (n * (n + 1)) // 2
     if woodbury is None:
-        woodbury = (diag_ok and nx >= 256
+        woodbury = (diag_ok and nx > _DENSE_MAX_NX
                     and 2 * nx >= 3 * rank_lr)
     elif woodbury and not diag_ok:
         raise ValueError("woodbury=True requires the structured "

@@ -99,7 +99,9 @@ Phases (any failure raises, so the exit code is non-zero):
          setup_solver with the polish and the integer projection, at
          most 20,000 iterations a cone program (its epigraph
          cross-check never converges): the point it hands to the polish
-         serves the cost comparison;
+         serves the cost comparison.  The cap is a depth cut: users get
+         ADMM's 60,000, which takes ~6 minutes on the card (ROADMAP
+         queue 2);
      (b) on phase 4's problem, two rebuilds of the budget allocation, the
          IPM's warm-start cache emptied before the first: the second
          starts warm, takes fewer iterations and gives the same
@@ -168,15 +170,17 @@ Phases (any failure raises, so the exit code is non-zero):
      warm cache emptied): per set-up the wall and its split (psi
      assembly, IPM, cleanup walk, integer projection, rest), the IPM's
      iterations and ms an iteration beside ipm_iteration_flops over the
-     card's FP64 rate; gated card against host: the same status of the
-     certificate the allocation rests on (every solve's status logged),
-     continuous cost within 1e-6 relative, max-variance within 1e-3
+     card's FP64 rate; gated card against host: the same status for
+     every cone solve, continuous cost within 1e-6 relative, max-variance within 1e-3
      relative, the budget or eps* met; (a)'s card allocation
      sampled through K1 (the kernel line's "mlblue_alloc_on_card"
      launches), estimates within 4 error bars of phase 4's; one card
      set-up under torch.cuda.set_sync_debug_mode("warn"): the
-     synchronising calls left, by call site, and those in the IPM's
-     iterations an iteration; host reads an IPM iteration (<= 2).
+     synchronising calls left, by call site, and all of those inside the
+     IPM's iterations, an iteration; host reads an IPM iteration (<= 2)
+     and aten operations an iteration, on the host; whether each
+     torch.linalg call of the IPM synchronises on the card, and its
+     wall a call.
 Each of phases 4-11 logs where its allocations ran (the device of every
 MOSAP built and of every cone solve).
 The second-to-last line is the kernel report as JSON, an entry for K1
@@ -190,10 +194,10 @@ timed shapes.
 
 With --profile, one more budget solve after phase 4 runs under
 torch.profiler and a line gives K1's device time, the device's busy share
-of the solve's wall and the largest device items; a further solve and
-a cold budget set-up run under torch.cuda.set_sync_debug_mode("warn")
-and a line each lists the synchronising calls that are left, by call
-site.  It is the standing
+of the solve's wall and the largest device items; a further solve runs
+under torch.cuda.set_sync_debug_mode("warn") and a line lists the
+synchronising calls that are left, by call site (those of one
+allocation are phase 11's, in every run).  It is the standing
 source of PERF.md's busy-share metric (the sampling layer's), measured
 again after every change to the sampling path or K1; the plain run
 leaves it out, so the profiler's cost never enters its other numbers.
@@ -1233,9 +1237,9 @@ def phase_profile(problem):
     """One more budget solve of phase 4's problem under torch.profiler:
     K1's device time and launches, the union of all device activity over
     the solve's wall (the busy share), and the largest device items; then
-    one solve and one cold budget set-up on the card under the
-    synchronisation debug mode: the calls that still make the host wait
-    for the card, by call site."""
+    one solve under the synchronisation debug mode: the calls that still
+    make the host wait for the card, by call site (phase 11 lists those
+    of one allocation, in every run)."""
     import torch
     from bluest_tpu_torch.profiling import device_busy, device_trace
     budget = problem.MOSAP_output["budget"]
@@ -1269,16 +1273,6 @@ def phase_profile(problem):
     log("synchronising calls left in one pipelined solve: %d %s"
         % (sum(sites.values()), json.dumps(sites, sort_keys=True)))
 
-    # one allocation too: a cold set-up of the same budget on the card
-    # (the problem's own allocation is put back for the phases after)
-    kept = (problem.MOSAP, problem.MOSAP_output, problem._mosap_key)
-    try:
-        sites, per_it = _card_syncs(problem, dict(K=K, budget=budget))
-    finally:
-        problem.MOSAP, problem.MOSAP_output, problem._mosap_key = kept
-    log("synchronising calls left in one cold budget set-up: %d %s; in the "
-        "IPM iterations %.2f an iteration"
-        % (sum(sites.values()), json.dumps(sites, sort_keys=True), per_it))
 
 
 def _sync():
@@ -2601,17 +2595,24 @@ def _iteration_bound_ms(dims):
     return ipm_iteration_flops(dims) / FP64_PEAK * 1e3
 
 
-def _reads_per_iteration(problem, how):
-    """Host reads an iteration on the host: every tensor method that
-    hands a number or an array to the host, counted over one host
-    set-up's IPM iterations (the set-up is not timed)."""
+def _host_iteration_counts(problem, how):
+    """Host reads and aten operations an IPM iteration, counted over one
+    host set-up's iterations (the set-up is not timed): the reads through
+    every tensor method that hands a number or an array to the host, the
+    operations through a dispatch mode."""
     import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
     from bluest_tpu_torch.solvers import sdp
     names = ("__float__", "__int__", "__index__", "__bool__", "item",
              "tolist", "numpy", "cpu")
     real = {n: getattr(torch.Tensor, n) for n in names}
-    count = {"reads": 0, "iterations": 0, "inside": False}
+    count = {"reads": 0, "ops": 0, "iterations": 0, "inside": False}
     core, read = sdp._iteration_core, sdp._read
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            count["ops"] += 1
+            return func(*args, **(kwargs or {}))
 
     def counting(n):
         def f(self, *a, **k):
@@ -2624,7 +2625,8 @@ def _reads_per_iteration(problem, how):
         count["iterations"] += 1
         count["inside"] = True
         try:
-            return core(*a, **k)
+            with Ops():
+                return core(*a, **k)
         finally:
             count["inside"] = False
 
@@ -2641,56 +2643,96 @@ def _reads_per_iteration(problem, how):
         for n in names:
             setattr(torch.Tensor, n, real[n])
         sdp._iteration_core, sdp._read = core, read
-    return count["reads"] / max(count["iterations"], 1)
+    it = max(count["iterations"], 1)
+    return count["reads"] / it, count["ops"] / it
+
+
+def _linalg_calls(n_x):
+    """Each torch.linalg call of the IPM on the card, at the flagship's
+    shapes (3 PSD blocks of 11 x 11, an n_x x n_x normal matrix): whether
+    it makes the host wait for the card (it raises under
+    set_sync_debug_mode("error")) and its wall a call over 50 calls."""
+    import torch
+    g = torch.Generator().manual_seed(0)
+
+    def spd(*shape):
+        A = torch.randn(*shape, generator=g, dtype=torch.float64)
+        eye = torch.eye(shape[-1], dtype=torch.float64)
+        return (A @ A.mT + shape[-1] * eye).to("cuda")
+
+    S, H = spd(3, 11, 11), spd(n_x, n_x)
+    B = torch.randn(3, 11, 11, generator=g, dtype=torch.float64).to("cuda")
+    L = torch.linalg.cholesky(S)
+    calls = {"cholesky_ex": lambda: torch.linalg.cholesky_ex(H),
+             "solve_triangular": lambda: torch.linalg.solve_triangular(
+                 L, B, upper=False),
+             "eigvalsh": lambda: torch.linalg.eigvalsh(S),
+             "svd": lambda: torch.linalg.svd(S)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            syncs = False
+        except RuntimeError:
+            syncs = True
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = {"syncs": syncs,
+                     "us": round((time.perf_counter() - t0) / 50 * 1e6, 1)}
+    return out
 
 
 def _card_syncs(problem, how):
     """One card set-up under torch.cuda.set_sync_debug_mode("warn"): the
-    synchronising calls by call site, and those of the IPM's iterations
-    (sdp.py's packed read, eigenvalue and SVD calls) an iteration."""
+    synchronising calls by call site, and every one made inside the
+    IPM's iterations (the iteration and its packed read) an iteration."""
     import torch
     from bluest_tpu_torch.solvers import sdp
     sites = {}
+    core, read = sdp._iteration_core, sdp._read
+    in_loop = [0]
+
+    def counted(fn, caught):
+        def f(*a, **k):
+            before = len(caught)
+            try:
+                return fn(*a, **k)
+            finally:
+                in_loop[0] += sum("synchroniz" in str(w.message)
+                                  for w in caught[before:])
+        return f
+
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
+            sdp._iteration_core = counted(core, caught)
+            sdp._read = counted(read, caught)
             rec = _cold_setup(problem, "card", how)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+        sdp._iteration_core, sdp._read = core, read
     for w in caught:
         if "synchroniz" in str(w.message):
             site = "%s:%d" % (os.path.relpath(w.filename), w.lineno)
             sites[site] = sites.get(site, 0) + 1
-    lines = set()
-    for fn in (sdp._read, sdp._eigvalsh, sdp._svd):
-        code = fn.__code__
-        lines |= {"%s:%d" % (os.path.relpath(code.co_filename), ln)
-                  for _, _, ln in code.co_lines() if ln}
-    in_loop = sum(n for site, n in sites.items() if site in lines)
-    return sites, in_loop / max(rec["iterations"], 1)
-
-
-_STATUS_RANK = {"optimal": 0, "inaccurate": 1, "infeasible": 2,
-                "unbounded": 2, "max_iter": 3, "failed": 4}
-
-
-def _allocation_status(rec):
-    """The status of the certificate the allocation rests on: the best
-    of the set-up's cone solves (a candidate whose solve failed is
-    dropped, and the allocation comes from an OK one)."""
-    return min(rec["status"], key=lambda st: _STATUS_RANK.get(st, 4))
+    return sites, in_loop[0] / max(rec["iterations"], 1)
 
 
 def _gate_against_host(name, card, host, how):
-    """Card against host on one program: the same status of the
-    allocation's certificate, continuous cost within 1e-6 relative,
+    """Card against host on one program: the same status for every cone
+    solve of the set-up, continuous cost within 1e-6 relative,
     max-variance within 1e-3 relative, and the budget or the tolerance
-    met by both.  A dropped candidate may end otherwise on the two
-    devices where its solve stalls at the "inaccurate" threshold (the
-    host alone flips it under 1e-15 perturbations of the program): the
-    statuses of all solves are logged, not gated."""
-    if _allocation_status(card) != _allocation_status(host):
+    met by both."""
+    if card["status"] != host["status"]:
         raise AssertionError("%s: card statuses %s, host %s"
                              % (name, card["status"], host["status"]))
     dc = abs(card["cont_cost"] - host["cont_cost"]) / host["cont_cost"]
@@ -2745,12 +2787,10 @@ def phase_allocation_on_card(flagship, graph, hh_graph, launches_by_path):
         for c in by["card"]:
             for h in by["host"]:
                 dc, dv = _gate_against_host(name, c, h, how)
-        log("phase 11%s: card vs host: allocation's certificate %s / %s, "
-            "all solves %s / %s, continuous cost rel diff %.3e, max-variance"
-            " rel diff %.3e, same integer samples %s"
-            % (name, _allocation_status(by["card"][0]),
-               _allocation_status(by["host"][0]), by["card"][0]["status"],
-               by["host"][0]["status"], dc, dv,
+        log("phase 11%s: card vs host: statuses %s / %s, continuous cost "
+            "rel diff %.3e, max-variance rel diff %.3e, same integer "
+            "samples %s"
+            % (name, by["card"][0]["status"], by["host"][0]["status"], dc, dv,
                bool(np.array_equal(by["card"][0]["samples"],
                                    by["host"][0]["samples"]))))
         summary[name] = {
@@ -2789,13 +2829,17 @@ def phase_allocation_on_card(flagship, graph, hh_graph, launches_by_path):
     log("phase 11 synchronising calls left in one card set-up (flagship "
         "budget): %d %s; in the IPM iterations %.2f an iteration"
         % (sum(sites.values()), json.dumps(sites, sort_keys=True), per_it))
-    reads = _reads_per_iteration(fp, how)
+    reads, ops = _host_iteration_counts(fp, how)
     log("phase 11 host reads an IPM iteration (host set-up, tensor reads "
-        "counted): %.2f" % reads)
+        "counted): %.2f; aten operations an iteration %.1f" % (reads, ops))
     if not reads <= 2:
         raise AssertionError("%.2f host reads an IPM iteration" % reads)
+    calls = _linalg_calls(fp.MOSAP.L)
+    log("phase 11 torch.linalg calls of the IPM on the card (flagship "
+        "shapes): %s" % json.dumps(calls, sort_keys=True))
     summary["card_syncs_per_iteration"] = round(per_it, 4)
     summary["host_reads_per_iteration"] = round(reads, 4)
+    summary["ops_per_iteration"] = round(ops, 1)
     log("phase 11: %s" % json.dumps(summary, sort_keys=True))
     return summary
 

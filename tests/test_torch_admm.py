@@ -39,8 +39,18 @@ from bluest_tpu_torch.core.groups import GroupStructure
 from bluest_tpu_torch.solvers import sdp as sdp_t
 from bluest_tpu_torch.solvers.admm import solve_cone_lp_admm as admm_t
 from bluest_tpu_torch.solvers.sdp import solve_cone_lp as ipm_t
+from bluest_tpu_torch.config import allocation_device_scope
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _host_allocation():
+    """These tests allocate on the host: they ask for it, as a caller
+    without a card does (the allocation's default device is the card)."""
+    with allocation_device_scope("cpu"):
+        yield
+
 
 SMOOTH = dict(aa_memory=0, adaptive_scale=False, max_iter=200)
 

@@ -2,16 +2,15 @@
 and the interior-point iteration's host reads.
 
 * The rule: ``BLUEST_TPU_ALLOC_DEVICE=cpu`` puts the allocation on the
-  host whatever the scope; inside ``allocation_device_scope(device)`` the
-  innermost scope's device; outside any scope the card under
-  ``BLUEST_TPU_ALLOC_DEVICE=default``, else the host.  A card that the
-  rule names and the process lacks raises; nothing falls back.  These
-  cases pretend a card exists (``torch.cuda.is_available`` patched) and
-  never make a CUDA tensor.
-* A problem allocates on its own device: ``device="cpu"`` puts every
-  cone solve, psi assembly and corner search on the host, and a
-  card-device problem on a host without a card raises at its first
-  allocation.
+  host whatever the scope; else an allocation object's own ``device``;
+  else inside ``allocation_device_scope(device)`` the innermost scope's
+  device; else the card.  A card that the rule names and the process
+  lacks raises; nothing falls back.  These cases pretend a card exists
+  (``torch.cuda.is_available`` patched) and never make a CUDA tensor.
+* A problem allocates on its own device, and ``MOSAP``, ``SAP`` and
+  ``solve_cone_lp`` on theirs: ``device="cpu"`` puts every cone solve,
+  psi assembly and corner search on the host, and a card-device problem
+  or object on a host without a card raises at its first allocation.
 * The IPM iteration reads its device once (one packed tensor): counted
   through the tensor methods that copy a number to the host, on the
   flagship-width program (M=10, 3 outputs, K=4, L=385).
@@ -65,34 +64,41 @@ def _flagship_covariances():
 CPU, CUDA = torch.device("cpu"), torch.device("cuda")
 
 
-def test_rule_outside_any_scope_is_the_host():
-    assert config.allocation_device() == CPU
+def test_rule_outside_any_scope_is_the_card(fake_card):
+    assert config.allocation_device() == CUDA
+    assert config.allocation_device("cpu") == CPU
 
 
 def test_scopes_nest_and_the_innermost_wins(fake_card):
-    with config.allocation_device_scope("cuda") as outer:
-        assert outer == CUDA and config.allocation_device() == CUDA
-        with config.allocation_device_scope("cpu"):
-            assert config.allocation_device() == CPU
+    with config.allocation_device_scope("cpu") as outer:
+        assert outer == CPU and config.allocation_device() == CPU
+        with config.allocation_device_scope("cuda"):
+            assert config.allocation_device() == CUDA
             with config.allocation_device_scope():       # keeps the device
-                assert config.allocation_device() == CPU
-        assert config.allocation_device() == CUDA
-    assert config.allocation_device() == CPU
+                assert config.allocation_device() == CUDA
+        assert config.allocation_device() == CPU
+    assert config.allocation_device() == CUDA
 
 
 def test_cpu_override_beats_a_card_scope(fake_card, monkeypatch):
     monkeypatch.setenv("BLUEST_TPU_ALLOC_DEVICE", "cpu")
+    assert config.allocation_device() == CPU
+    assert config.allocation_device("cuda") == CPU
     with config.allocation_device_scope(torch.device("cuda")):
         assert config.allocation_device() == CPU
         with config.allocation_device_scope("cuda"):
             assert config.allocation_device() == CPU
 
 
-def test_default_outside_a_scope_is_the_card(fake_card, monkeypatch):
-    monkeypatch.setenv("BLUEST_TPU_ALLOC_DEVICE", "default")
-    assert config.allocation_device() == CUDA
+def test_a_named_device_beats_the_scope(fake_card):
+    """An allocation object's own ``device`` wins over the scope it is
+    built in; without one it takes the scope's."""
+    with config.allocation_device_scope("cuda"):
+        assert config.allocation_device("cpu") == CPU
+        assert config.allocation_device(torch.device("cpu")) == CPU
+        assert config.allocation_device(None) == CUDA
     with config.allocation_device_scope("cpu"):
-        assert config.allocation_device() == CPU
+        assert config.allocation_device("cuda") == CUDA
 
 
 def test_a_missing_card_raises_and_nothing_falls_back(monkeypatch):
@@ -100,9 +106,10 @@ def test_a_missing_card_raises_and_nothing_falls_back(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         with config.allocation_device_scope("cuda"):
             pass
-    monkeypatch.setenv("BLUEST_TPU_ALLOC_DEVICE", "default")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         config.allocation_device()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        config.allocation_device("cuda")
     # the host override still allocates, on the host
     monkeypatch.setenv("BLUEST_TPU_ALLOC_DEVICE", "cpu")
     with config.allocation_device_scope("cuda"):
@@ -117,30 +124,73 @@ def test_decorator_forms_pin_a_call_to_one_device(fake_card):
         seen.append(config.allocation_device())
         return x + 1
 
-    with config.allocation_device_scope("cuda"):
+    with config.allocation_device_scope("cpu"):
         assert work(1) == 2
     assert work(2) == 3
-    assert seen == [CUDA, CPU] and work.__wrapped__(3) == 4
+    assert seen == [CPU, CUDA] and work.__wrapped__(3) == 4
 
     class Owner:
-        device = torch.device("cuda")
+        device = torch.device("cpu")
 
         @config.on_own_device
         def where(self):
             return config.allocation_device()
 
-    assert Owner().where() == CUDA
-    assert config.allocation_device() == CPU
+    assert Owner().where() == CPU
+    assert config.allocation_device() == CUDA
 
 
 def test_a_scope_belongs_to_its_thread(fake_card):
     seen = []
-    with config.allocation_device_scope("cuda"):
+    with config.allocation_device_scope("cpu"):
         t = threading.Thread(
             target=lambda: seen.append(config.allocation_device()))
         t.start()
         t.join(timeout=30)
-    assert not t.is_alive() and seen == [CPU]
+    assert not t.is_alive() and seen == [CUDA]
+
+
+def _small_program():
+    """A seeded MLBLUE budget program (M=4, K=2) and its SAP data."""
+    from itertools import combinations
+    from bluest_tpu_torch.allocation import cones
+    from bluest_tpu_torch.core import GroupStructure
+    rng = np.random.default_rng(0)
+    M = 4
+    A = rng.standard_normal((M, M))
+    C = A @ A.T + 0.5 * M * np.eye(M)
+    groups = [[list(c) for c in combinations(range(M), k)]
+              for k in (1, 2)]
+    costs = np.sort(rng.uniform(0.1, 1, M))[::-1] * np.arange(M, 0, -1)
+    gs = GroupStructure(M, groups, C=C)
+    psi = psimod.GroupData.build(gs, device="cpu").psi.numpy()
+    w = gs.group_costs(costs)
+    prog = cones.build_budget_sdp([psi], [np.arange(gs.L)], gs.L, w,
+                                  [gs.e], 1e3)[:5]
+    return C, groups, w, prog
+
+
+def test_allocation_objects_take_a_device(monkeypatch):
+    """``MOSAP``, ``SAP`` and ``solve_cone_lp`` run on the device they are
+    given; without one they take the card, and on a host without a card
+    they raise (no fallback)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    C, groups, w, prog = _small_program()
+    seen = _recording(monkeypatch)
+    assert sdp.solve_cone_lp(*prog, device="cpu").status in (
+        "optimal", "inaccurate")
+    sap = T.SAP(C, 2, groups, w, device="cpu")
+    mosap = T.MOSAP([C], 2, [2], groups, [groups], w, [w], device="cpu")
+    assert sap.device == CPU and mosap.device == CPU
+    assert all(s.device == CPU for s in mosap.SAPS)
+    sap.solve(budget=1e3)
+    assert seen and all(d == CPU and a == CPU for _, d, a in seen), seen
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        sdp.solve_cone_lp(*prog)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        T.SAP(C, 2, groups, w)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        T.MOSAP([C], 2, [2], groups, [groups], w, [w])
 
 
 def _recording(monkeypatch):
@@ -259,7 +309,7 @@ def test_ipm_iteration_reads_the_device_once(monkeypatch):
     monkeypatch.setattr(sdp, "_read", counted_read)
     monkeypatch.setattr(sdp, "_ipm_solve", counted_ipm)
     p.setup_solver(K=4, budget=2.0e5, continuous_relaxation=True)
-    assert p.MOSAP.L == 385 and dims[0] == ((3, 385, 11, 11), True)
+    assert p.MOSAP.L == 385 and dims[0] == ((3, 385, 11, 11), False)
     it = counts["iterations"]
     assert it >= 20
     per_iteration = (counts["in_iteration"] + counts["packed"]) / it

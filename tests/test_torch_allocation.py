@@ -31,8 +31,17 @@ import bluest_tpu_torch as T
 from bluest_tpu_torch.allocation import cones
 from bluest_tpu_torch.core import GroupStructure, psi as tpsi
 from bluest_tpu_torch.solvers.sdp import solve_cone_lp as torch_solve
+from bluest_tpu_torch.config import allocation_device_scope
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _host_allocation():
+    """These tests allocate on the host: they ask for it, as a caller
+    without a card does (the allocation's default device is the card)."""
+    with allocation_device_scope("cpu"):
+        yield
 
 
 @pytest.fixture(autouse=True)

@@ -538,10 +538,9 @@ def _flagship_width(device):
 @pytest.mark.parametrize("mode", ["budget", "eps"])
 def test_flagship_mosap_card_matches_host(cuda, cold_ipm, mode):
     """The flagship-width MOSAP (L=385) allocated on the card and on the
-    host, at chip_smoke.py phase 11's tolerances: the same status of the
-    certificate the allocation rests on, continuous cost within 1e-6
-    relative, max-variance within 1e-3 relative, the budget or the
-    tolerance met."""
+    host, at chip_smoke.py phase 11's tolerances: the same status for
+    every cone solve, continuous cost within 1e-6 relative, max-variance
+    within 1e-3 relative, the budget or the tolerance met."""
     how = {"budget": dict(K=4, budget=2.0e5), "eps": dict(K=4, eps=1e-3)}
     runs = {}
     for device in ("cuda", "cpu"):
@@ -550,15 +549,10 @@ def test_flagship_mosap_card_matches_host(cuda, cold_ipm, mode):
         assert p.MOSAP.device.type == device and p.MOSAP.L == 385
         runs[device] = p
     c, h = runs["cuda"], runs["cpu"]
-    rank = {"optimal": 0, "inaccurate": 1}
-    # the status of the certificate the allocation rests on (a dropped
-    # candidate's solve may stall on either side of "inaccurate")
-    best = [min((x["status"] for x in p.MOSAP.certificates),
-                key=lambda st: rank.get(st, 2)) for p in (c, h)]
-    print("statuses card %s, host %s"
-          % ([x["status"] for x in c.MOSAP.certificates],
-             [x["status"] for x in h.MOSAP.certificates]))
-    assert best[0] == best[1] and best[0] in rank
+    statuses = [[x["status"] for x in p.MOSAP.certificates] for p in (c, h)]
+    print("statuses card %s, host %s" % tuple(statuses))
+    assert statuses[0] == statuses[1]
+    assert {"optimal", "inaccurate"} & set(statuses[0])
     cc = c.MOSAP.continuous_solution @ c.MOSAP.costs
     ch = h.MOSAP.continuous_solution @ h.MOSAP.costs
     assert abs(cc - ch) <= 1e-6 * ch

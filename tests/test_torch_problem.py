@@ -288,10 +288,12 @@ def test_plot_snapshots_tool_reads_the_port_s_files(tmp_path):
     assert "model 2" in buf.getvalue()
 
 
-def test_kept_names_behave_as_the_jax_package_s():
+def test_kept_names_behave_as_the_jax_package_s(monkeypatch):
     """The device-policy and prewarm names of the JAX package exist in
     the port and give what the JAX package gives on a healthy host: None,
-    a usable context, the undecorated function's results."""
+    a usable context, the undecorated function's results.  The port's
+    scopes default to the card, so this host asks for the CPU."""
+    monkeypatch.setenv("BLUEST_TPU_ALLOC_DEVICE", "cpu")
     from bluest_tpu import config as cj
     from bluest_tpu.allocation import mosap as mj
     from bluest_tpu.solvers import sdp as sj

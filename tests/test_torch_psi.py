@@ -16,8 +16,17 @@ import torch
 from bluest_tpu.core import GroupStructure, psi as jpsi
 from bluest_tpu_torch.core import GroupStructure as TGroupStructure
 from bluest_tpu_torch.core import psi as tpsi
+from bluest_tpu_torch.config import allocation_device_scope
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _host_allocation():
+    """These tests allocate on the host: they ask for it, as a caller
+    without a card does (the allocation's default device is the card)."""
+    with allocation_device_scope("cpu"):
+        yield
 
 
 def make(M, K, seed, drop=0.0):

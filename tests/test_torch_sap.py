@@ -38,8 +38,17 @@ from bluest_tpu.solvers.integer import best_integer_blue as bib_j
 from bluest_tpu_torch.allocation.sap import SAP, caps_satisfied
 from bluest_tpu_torch.solvers import sdp as sdp_t
 from bluest_tpu_torch.solvers.integer import best_integer_blue as bib_t
+from bluest_tpu_torch.config import allocation_device_scope
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _host_allocation():
+    """These tests allocate on the host: they ask for it, as a caller
+    without a card does (the allocation's default device is the card)."""
+    with allocation_device_scope("cpu"):
+        yield
 
 
 @pytest.fixture(autouse=True)

@@ -20,8 +20,19 @@ from bluest_tpu.linalg.spg import spg as spg_jax
 from bluest_tpu_torch.linalg.spd import (mark_uncorrelated,
                                          project_covariance_masked)
 from bluest_tpu_torch.linalg.spg import spg
+from bluest_tpu_torch.config import allocation_device_scope
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _host_allocation():
+    """These tests allocate on the host: they ask for it, as a caller
+    without a card does (the allocation's default device is the card)."""
+    with allocation_device_scope("cpu"):
+        yield
+
+
 F64 = torch.float64
 
 
