@@ -1,0 +1,79 @@
+"""nvcc builds of the port's kernel sources into shared libraries.
+
+Each source under ``bluest_tpu_torch/csrc/`` is compiled at first use for
+``sm_90a`` into ``build/bluest_tpu_torch/`` next to the package, once per
+hash of its text and its flags, and loaded with ctypes by its wrapper
+module (``ops.diffusion``, ``ops.hodgkin_huxley``).  The compile writes a
+temporary file that is renamed into place, so processes that build the
+same library at once agree on it.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+__all__ = ["BUILD_DIR", "BASE_FLAGS", "find_nvcc", "build", "build_logs"]
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
+                         "bluest_tpu_torch")
+# the flags every source takes; a source adds its own after them
+BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+build_logs = {}         # library path -> nvcc's output (registers, spills)
+_locks = {}             # library path -> the lock its build holds
+_locks_lock = threading.Lock()
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the port's kernels are built from "
+            "bluest_tpu_torch/csrc/ at first use and need the CUDA toolkit "
+            "(nvcc on PATH or /usr/local/cuda/bin/nvcc)")
+    return nvcc
+
+
+def build(source: str, flags) -> str:
+    """The path of ``source`` built with ``flags`` into a shared library,
+    compiled now unless a library of the same text and flags exists.
+    Raises ``RuntimeError`` with nvcc's output when the compile fails."""
+    flags = list(flags)
+    with open(source, "rb") as f:
+        src = f.read()
+    tag = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()
+    stem = os.path.splitext(os.path.basename(source))[0]
+    path = os.path.join(BUILD_DIR, "libbluest_%s_%s.so" % (stem, tag[:16]))
+    with _locks_lock:
+        lock = _locks.setdefault(path, threading.Lock())
+    with lock:              # one build of a library at a time, others apart
+        if os.path.exists(path):
+            return path
+        nvcc = find_nvcc()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run([nvcc] + flags + ["-o", tmp, source],
+                                  capture_output=True, text=True,
+                                  timeout=600)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc failed to build %s:\n%s"
+                                   % (source, log))
+            os.replace(tmp, path)         # atomic: concurrent builds agree
+            build_logs[path] = log
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return path

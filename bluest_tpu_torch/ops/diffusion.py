@@ -33,27 +33,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 import threading
 
 import numpy as np
 import torch
+
+from . import _build
 
 __all__ = ["diffusion_outputs", "diffusion_outputs_plain", "synthesize_plain",
            "solve_plain", "synthesize", "solve", "mode_matrix",
            "lanes_per_sample", "partition", "tier", "launch",
            "build_library"]
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "diffusion.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
-                         "bluest_tpu_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_SOURCE = os.path.join(_build.CSRC_DIR, "diffusion.cu")
+BUILD_DIR = _build.BUILD_DIR
+NVCC_FLAGS = list(_build.BASE_FLAGS)    # K1 takes the base flags alone
 _NO_TILE = -1              # the launcher's return for a shape it refuses
 K1_MAX_CELLS = 32 * 32 + 1  # K1's reach: a lane keeps <= 32 rows in registers
 MAX_LANES = 1024            # lanes of one sample at most (one block)
@@ -64,45 +59,14 @@ _lib_lock = threading.Lock()
 build_log = ""          # nvcc's output (register / spill report) of the build
 
 
-def _find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        nvcc = "/usr/local/cuda/bin/nvcc"
-    if nvcc is None:
-        raise RuntimeError(
-            "nvcc not found: the K1 diffusion kernel is built from "
-            "bluest_tpu_torch/csrc/diffusion.cu at first use and needs the "
-            "CUDA toolkit (nvcc on PATH or /usr/local/cuda/bin/nvcc)")
-    return nvcc
-
-
 def build_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the K1 shared library."""
     global _lib, build_log
     with _lib_lock:
         if _lib is not None:
             return _lib
-        with open(_SOURCE, "rb") as f:
-            src = f.read()
-        tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        path = os.path.join(BUILD_DIR, "libbluest_diffusion_%s.so" % tag[:16])
-        if not os.path.exists(path):
-            nvcc = _find_nvcc()
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [nvcc] + NVCC_FLAGS + ["-o", tmp, _SOURCE],
-                    capture_output=True, text=True, timeout=600)
-                build_log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError("nvcc failed to build %s:\n%s"
-                                       % (_SOURCE, build_log))
-                os.replace(tmp, path)     # atomic: concurrent builds agree
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
+        path = _build.build(_SOURCE, NVCC_FLAGS)
+        build_log = _build.build_logs.get(path, "")
         lib = ctypes.CDLL(path)
         for name in ("bluest_diffusion_outputs_f32",
                      "bluest_diffusion_outputs_f64"):

@@ -19,13 +19,14 @@ finite, up to ``max_resample`` rounds, from the chunk's own stream
 holds depends on no chunk before it and a rank of a mesh can take any
 block of chunks): the
 finite rows keep their inputs and outputs (the JAX engine's per-sample
-``fold_in`` resample, ``jax_engine.py:42-62``).  Each round evaluates
-the whole group once, whatever its row count, and a model integrated by
-a loop of small kernels (Hodgkin-Huxley) costs its launches, not its
-rows.  So a round draws enough candidates that its finite ones are
-expected to cover the failing rows -- the deficit over the finite share
-seen so far in the chunk, with a margin -- and hands them, in draw
-order, to the failing rows in row order; the accepted draws are finite
+``fold_in`` resample, ``jax_engine.py:42-62``).  Each round draws,
+evaluates the whole group once (for Hodgkin-Huxley on the card, one
+kernel launch) and reads its count of finite rows back to the host: a
+fixed cost per round, whatever its row count.  So a round draws enough
+candidates that its finite ones are expected to cover the failing rows
+-- the deficit over the finite share seen so far in the chunk, with a
+margin -- and hands them, in draw order, to the failing rows in row
+order; the accepted draws are finite
 draws of the group's stream, as the JAX loop's are.  Rows still failing
 after the last round are masked out of the sums and counted in
 ``n_failed``.  The f64 sums come from the same combiner as the factored

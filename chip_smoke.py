@@ -5,8 +5,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: require a CUDA card; print its name and power limit;
-  2. build K1 and its wide tier (bluest_tpu_torch/csrc/diffusion.cu) with
-     nvcc;
+  2. build K1 and its wide tier (bluest_tpu_torch/csrc/diffusion.cu) and
+     K2 (bluest_tpu_torch/csrc/hodgkin_huxley.cu) with nvcc,
+     one process each, in parallel; print each kernel's registers and
+     spills;
   3. hold K1 against its plain PyTorch version on the card, for
      n in {1, 2, 3, 8, 33, 64, 100, 256, 1024}, B in {1, 77, 8192} and
      every grid and chunk size of the flagship and of the diffusion
@@ -37,7 +39,15 @@ Phases (any failure raises, so the exit code is non-zero):
      f64; last, both tiers timed in turns at shapes tier() gives K1
      (n=1024 with 32 and 1024 modes in both dtypes, n=512 and 256 with
      1024 modes in f64, B=8192), the wide tier launched by name
-     (ops.diffusion.launch);
+     (ops.diffusion.launch); then K2 against its plain version
+     (ops.hodgkin_huxley.hh_group_outputs_plain) on the same parameters:
+     each of the 12 default models alone and the 12-model group, at n in
+     {1, 77, 256, 16384, 65536}, each launch counted: the same (row,
+     model) pairs non-finite, each model's normwise relative difference
+     <= 1e-10 on the rest, and every entry bit-equal (k2_holds); K2's
+     time at n=16384 for model 0 and for the group beside its bound
+     (FP64 operations, k2_work) and the plain version's time, in turns
+     (plain, kernel, kernel, plain);
   4. drive the flagship end to end on the default device (the card):
      pilot (4096 samples) + SPD projection, setup_solver(K=4) with the
      budget calibrated to ~1e6 samples, solve() (all groups dispatched,
@@ -69,12 +79,17 @@ Phases (any failure raises, so the exit code is non-zero):
          against the CPU's on the same white noise (<= 1e-12 relative) and
          the estimates against a 2^17-sample MC estimate of model 0;
      (b) Hodgkin-Huxley, all 12 models and 5 outputs, through the
-         coupled-group engine (chunks of 16384 samples): pilot, the
-         finest model's launches per evaluation (torch.profiler),
-         setup_solver(K=3, budget) and solve(); the card's outputs
-         against the CPU's on the same parameters (<= 1e-8 relative, the
-         CPU parity tests' tolerance) and the estimates against an MC
-         estimate of model 0;
+         coupled-group engine (chunks of 16384 samples): pilot,
+         setup_solver(K=3, budget) and solve(), K2's count set to 0 just
+         before the pilot and read just after the solve (launches equal
+         to the group evaluations: the kernel line's "hh_group_engine");
+         K2 on the allocation's active groups against the plain version
+         on the K2 check's inputs; the finest model's device items per
+         evaluation (torch.profiler) for the plain version and for
+         hh_outputs (K2: at most 4); the card's outputs against the
+         CPU's on the same parameters (<= 1e-8 relative, the CPU parity
+         tests' tolerance) and the estimates against an MC estimate of
+         model 0; hh_pilot_s, hh_solve_s and hh_mc_s printed;
      (c) snapshots through K1: the flagship problem with a samplefile and
          outputs_to_save=[0], solve(K=2) at a small budget; every group
          file holds as many rows as the samples its sums cover, K1 on
@@ -139,9 +154,13 @@ Phases (any failure raises, so the exit code is non-zero):
          "example_diffusion" launches;
      (b) matern_restrictions: every allocation of the sweep meets its
          eps, and the estimate is finite with a positive error;
-     (c) multi_output_hodgkin_huxley --fast: every estimate and error
-         finite, output 0 within 4 error bars of an MC estimate of model
-         0 on the card;
+     (c) multi_output_hodgkin_huxley as it ships (the 6-model subset,
+         a pilot of 1024) and with --full (the paper's 12 models), each
+         with K2's count set to 0 just before and read just after: K2's
+         launches equal to the run's group evaluations (the kernel
+         line's "hh_example" and "hh_example_full"), every estimate and
+         error finite, output 0 within 4 error bars of an MC estimate of
+         its model 0 on the card;
      (d) navier_stokes_study, its NS_NPZ pointed at a 12-model, 6-output
          graph that the phase writes (write_ns_graph): MLBLUE's offline
          cost at most MFMC's and MLMC's, and the surrogate's estimates
@@ -183,8 +202,9 @@ Phases (any failure raises, so the exit code is non-zero):
      wall a call.
 Each of phases 4-11 logs where its allocations ran (the device of every
 MOSAP built and of every cone solve).
-The second-to-last line is the kernel report as JSON, an entry for K1
-and one for its wide tier; the last line is {"ok": true, "device": {...}}.
+The second-to-last line is the kernel report as JSON, an entry for K1,
+one for its wide tier and one for K2; the last line is {"ok": true,
+"device": {...}}.
 
 With --parent-source PATH (another csrc/diffusion.cu with the same C
 interface to its wide tier, e.g. the previous commit's, written out
@@ -235,6 +255,13 @@ OTHER_FLOPS = {4: 67e12, 8: 34e12}
 HBM_BYTES_PER_S = 3.35e12
 K1_SOURCE = "bluest_tpu_torch/csrc/diffusion.cu"
 K1_REPLACES = "bluest_tpu/ops/pallas_diffusion.py:151"
+K2_SOURCE = "bluest_tpu_torch/csrc/hodgkin_huxley.cu"
+K2_REPLACES = "bluest_tpu/models/hodgkin_huxley.py:88 (lax.scan, XLA)"
+# K2's check after phase 3: the batches (one redraw round of the group
+# engine may draw 4 x 16384), and the batch it is timed at (phase 6(b)'s
+# chunk)
+K2_CHECK_N = (1, 77, 256, 16384, 65536)
+K2_TIMED_N = 16384
 # phase 3, K1's wide tier: the grids past K1's reach, the modes, the
 # batches (at most WIDE_MAX_B past 4097 cells, the plain version's time),
 # a shape K1 refuses for its n_kl, and the grids timed at N_KL_DEEP modes
@@ -258,8 +285,8 @@ MATERN_PILOT = 4096
 MATERN_EPS_REL = 0.01       # each output's eps: this x its sd
 MATERN_MC = 1 << 17
 MATERN_MC_CHUNK = 8192
-# the HH integration is bound by launches, not rows: one chunk of 16384
-# samples costs about what one of 1024 does (PERF.md, phase 6 findings)
+# phase 6(b): a chunk of 16384 samples of the 12-model group is one K2
+# launch
 HH_BATCH = 16384
 HH_PILOT = 16384
 HH_BUDGET = 2.0e5           # in HH cost units (the cheapest model is 1)
@@ -315,15 +342,23 @@ def phase_device():
 
 
 def phase_build():
+    """Build every kernel source at once (one nvcc each, in parallel) and
+    print nvcc's registers and spills for each kernel."""
+    from concurrent.futures import ThreadPoolExecutor
     from bluest_tpu_torch.ops import diffusion as k1
+    from bluest_tpu_torch.ops import hodgkin_huxley as k2
+    mods = (("K1", k1), ("K2", k2))
     t0 = time.perf_counter()
-    k1.build_library()
+    with ThreadPoolExecutor(len(mods)) as pool:
+        for f in [pool.submit(mod.build_library) for _, mod in mods]:
+            f.result()
     dt = time.perf_counter() - t0
-    log("K1 build: %.2f s" % dt)
-    for line in k1.build_log.splitlines():
-        if ("registers" in line or "spill" in line
-                or "Compiling entry function" in line):
-            log("  nvcc:", line.strip())
+    log("K1 and K2 build, in parallel: %.2f s" % dt)
+    for name, mod in mods:
+        for line in mod.build_log.splitlines():
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry function" in line):
+                log("  %s nvcc:" % name, line.strip())
     return dt
 
 
@@ -507,27 +542,15 @@ def phase_kernel_check():
 def parent_wide(src):
     """The wide tier of another csrc/diffusion.cu with the same C
     interface (bluest_diffusion_wide_workspace_* and bluest_diffusion_wide_*,
-    as the earlier one-kernel design has), built with the package's nvcc flags
-    into build/chip_smoke/parent/, as a launcher (xis, n) -> (B, 3) on the
+    as the earlier one-kernel design has), built with K1's nvcc flags
+    beside the package's libraries, as a launcher (xis, n) -> (B, 3) on the
     current stream.  For timing in turns only: it is counted nowhere and
     never on a path."""
     import ctypes
-    import hashlib
     import torch
+    from bluest_tpu_torch.ops import _build
     from bluest_tpu_torch.ops import diffusion as k1
-    with open(src, "rb") as f:
-        tag = hashlib.sha1(f.read()).hexdigest()[:16]
-    out_dir = os.path.join(os.path.dirname(k1.BUILD_DIR), "chip_smoke",
-                           "parent")
-    os.makedirs(out_dir, exist_ok=True)
-    so = os.path.join(out_dir, "libparent_wide_%s.so" % tag)
-    if not os.path.exists(so):
-        proc = subprocess.run([k1._find_nvcc()] + k1.NVCC_FLAGS
-                              + ["-o", so, src], capture_output=True,
-                              text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed on the parent source %s:\n%s"
-                               % (src, proc.stdout + proc.stderr))
+    so = _build.build(src, k1.NVCC_FLAGS)
     lib = ctypes.CDLL(so)
     for sfx in ("f32", "f64"):
         fn = getattr(lib, "bluest_diffusion_wide_" + sfx)
@@ -774,6 +797,174 @@ def phase_wide_check(parent=None):
             "stage_ms": head["stage_ms"],
             "synthesis_library_ms": head["synthesis_library_ms"],
             "timed": timed, "f64_vs_plain": e2e, "ms_at_k1_shapes": at_k1}
+
+
+def hh_params(n, seed):
+    """(n, 3) float64 HH parameters on DEV from a numpy seed, distributed
+    as HodgkinHuxleyProblem.sample_group draws them."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    p = np.stack([8.0 + 4.0 * rng.random(n),
+                  120.0 * (1.0 + 0.1 * rng.standard_normal(n)),
+                  36.0 * (1.0 + 0.1 * rng.standard_normal(n))], axis=1)
+    return torch.as_tensor(p, dtype=torch.float64, device=DEV)
+
+
+def k2_work(models, n):
+    """The least work of the function K2 computes, from its inputs: per
+    sample and model its steps times ops.hodgkin_huxley.STEP_OPS (each
+    add, subtract, multiply, divide, exp, pow and compare one, as
+    csrc/hodgkin_huxley.cu's note counts them); the parameters read once
+    and the (n, 5, L) outputs written once."""
+    from bluest_tpu_torch.ops.hodgkin_huxley import STEP_OPS, n_steps
+    ops = n * sum(n_steps(dt) * STEP_OPS[kind] for kind, dt in models)
+    nbytes = 8 * (3 * n + 5 * n * len(models))
+    return ops, nbytes
+
+
+def k2_bound_ms(models, n):
+    """The least time the card could take for K2's work: the larger of its
+    operations over the FP64 rate outside the tensor cores and its bytes
+    over HBM bandwidth (NVIDIA H100 SXM data sheet, 700 W)."""
+    ops, nbytes = k2_work(models, n)
+    t_ops = ops / OTHER_FLOPS[8] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), ops, nbytes
+
+
+def k2_holds(got, ref, where):
+    """K2's (n, 5, L) outputs against the plain version's on the same
+    inputs: the same (row, model) pairs non-finite, on the finite ones
+    each model's normwise relative difference <= 1e-10, and every entry
+    bit-equal (NaN where the plain version has NaN): K2 rounds each
+    operation as eager PyTorch does on the card, and was bit-equal in
+    every entry of every check run on the H100.  Returns (worst normwise
+    difference, bit-equal entries, entries, max abs difference over the
+    entries finite in both)."""
+    import torch
+    if got.shape != ref.shape:
+        raise AssertionError("K2 %s: shape %s, plain %s"
+                             % (where, tuple(got.shape), tuple(ref.shape)))
+    fin = torch.isfinite(ref).all(dim=1)                     # (n, L)
+    if not torch.equal(torch.isfinite(got).all(dim=1), fin):
+        raise AssertionError("K2 %s: non-finite rows differ from the "
+                             "plain version's" % where)
+    worst = 0.0
+    for l in range(ref.shape[2]):
+        f = fin[:, l]
+        if bool(f.any()):
+            worst = max(worst, _normwise(got[f, :, l], ref[f, :, l]))
+    same = (got == ref) | (got.isnan() & ref.isnan())
+    both = torch.isfinite(got) & torch.isfinite(ref)
+    max_abs = float((got - ref)[both].abs().max()) if bool(both.any()) \
+        else 0.0
+    if not worst <= 1e-10:
+        raise AssertionError("K2 %s: normwise relative difference %.3e > "
+                             "1e-10" % (where, worst))
+    if not bool(same.all()):
+        raise AssertionError("K2 %s: %d of %d entries differ from the plain "
+                             "version's (max abs %.3e)"
+                             % (where, int((~same).sum()), same.numel(),
+                                max_abs))
+    return worst, int(same.sum()), same.numel(), max_abs
+
+
+def _plain_model_ms(models, x):
+    """K2's plain version on x, one model after another as
+    hh_group_outputs_plain runs them: each model's ms (CUDA events)."""
+    import torch
+    from bluest_tpu_torch.ops.hodgkin_huxley import hh_group_outputs_plain
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(models) + 1)]
+    ev[0].record()
+    for i, m in enumerate(models):
+        hh_group_outputs_plain((m,), x)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(len(models))]
+
+
+def phase_k2_check():
+    """K2 against its plain version on the same card and inputs: each of
+    the 12 default models alone and the 12-model group, at every n of
+    K2_CHECK_N; each launch counted.  Then K2's time (CUDA events after
+    warm-up) at n=K2_TIMED_N for model 0 and for the group, beside its
+    bound and the plain version's time, in turns (plain, kernel, kernel,
+    plain).  Returns the kernel line's numbers, and the inputs and plain
+    outputs for phase 6(b), which holds its K=3 groups against them."""
+    import torch
+    from bluest_tpu_torch.models.hodgkin_huxley import DEFAULT_MODELS
+    from bluest_tpu_torch.ops import hodgkin_huxley as k2
+    t_phase = time.perf_counter()
+    xs = [hh_params(n, 100 + i) for i, n in enumerate(K2_CHECK_N)]
+    # the plain version computes each row on its own, elementwise: one call
+    # on all the batches' rows gives each batch's outputs
+    t0 = time.perf_counter()
+    refs = torch.split(k2.hh_group_outputs_plain(DEFAULT_MODELS,
+                                                 torch.cat(xs)), K2_CHECK_N)
+    _sync()
+    log("K2 check: plain version of the 12 models on %d rows (n in %s): "
+        "%.3f s" % (sum(K2_CHECK_N), K2_CHECK_N, time.perf_counter() - t0))
+    stats = []
+    for x, ref in zip(xs, refs):
+        n = x.shape[0]
+        cases = [(str(l), (m,), [l]) for l, m in enumerate(DEFAULT_MODELS)]
+        cases.append(("group", DEFAULT_MODELS, list(range(12))))
+        for name, models, cols in cases:
+            before = k2.hh_group_outputs.launches
+            got = k2.hh_group_outputs(models, x)
+            _sync()
+            if k2.hh_group_outputs.launches != before + 1:
+                raise AssertionError("K2 did not launch once for model(s) "
+                                     "%s at n=%d" % (name, n))
+            stats.append(k2_holds(got, ref[:, :, cols],
+                                  "model(s) %s, n=%d" % (name, n)))
+        fin = int(torch.isfinite(ref).all(dim=1).sum())
+        log("K2 n=%5d: 12 models and the group hold; %d of %d (row, model) "
+            "pairs finite" % (n, fin, 12 * n))
+    worst = max(st[0] for st in stats)
+    same, total = sum(st[1] for st in stats), sum(st[2] for st in stats)
+    max_abs = max(st[3] for st in stats)
+    log("K2 vs plain, %d launches: max normwise rel diff %.3e, max abs diff "
+        "%.3e, bit-equal entries %d of %d (%.6f%%)"
+        % (len(stats), worst, max_abs, same, total, 100.0 * same / total))
+
+    # in turns: the plain version, K2 (model 0, the group), K2 again, the
+    # plain version again; a plain turn runs the 12 models one after
+    # another, as hh_group_outputs_plain does, so it times model 0 and
+    # the group at once
+    x = xs[K2_CHECK_N.index(K2_TIMED_N)]
+    cases = (("model0", DEFAULT_MODELS[:1]), ("group", DEFAULT_MODELS))
+    plain_turns, kernel_turns = [], []
+    for turn in range(4):
+        if turn in (0, 3):
+            per_model = _plain_model_ms(DEFAULT_MODELS, x)
+            plain_turns.append({"model0": per_model[0],
+                                "group": sum(per_model)})
+        else:
+            kernel_turns.append({
+                name: _time_ms(lambda: k2.hh_group_outputs(models, x), 10)
+                for name, models in cases})
+    timed = {}
+    for name, models in cases:
+        (t1, t2), (p1, p2) = ([t[name] for t in turns]
+                              for turns in (kernel_turns, plain_turns))
+        bound, by, ops, nbytes = k2_bound_ms(models, K2_TIMED_N)
+        ms = min(t1, t2)
+        log("K2 timing %s n=%d: kernel %.4f / %.4f ms, plain %.1f / %.1f ms "
+            "(plain, kernel, kernel, plain); bound %.4g GFLOP, %.4g MB -> "
+            "%.5f ms (%s-bound), kernel at %.1f%% of it"
+            % (name, K2_TIMED_N, t1, t2, p1, p2, ops / 1e9, nbytes / 1e6,
+               bound, by, 100 * bound / ms))
+        timed[name] = {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound,
+                       "bound_by": by}
+    log("K2 check: %.3f s" % (time.perf_counter() - t_phase))
+    g = timed["group"]
+    return {"xs": xs, "refs": refs, "max_abs_err": max_abs,
+            "bit_equal_share": same / total, "ms": g["ms"],
+            "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+            "bound_by": g["bound_by"], "model0": timed["model0"]}
 
 
 def _total_samples(problem):
@@ -1384,43 +1575,116 @@ def _device_kernels(fn):
                if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def phase_hodgkin_huxley(times, graph):
-    """6(b): all 12 Hodgkin-Huxley models through the group engine; the
-    pilot's graph is saved to ``graph`` for phase 11."""
+@contextlib.contextmanager
+def counting_group_evals():
+    """Count, in the list it yields, the Hodgkin-Huxley group evaluations
+    (calls of HodgkinHuxleyProblem.evaluate_group with rows, the group
+    engine's draws and redraws) and the K2 launches they need (one per
+    ops.hodgkin_huxley.MAX_MODELS models): items 0 and 1."""
+    from bluest_tpu_torch.models.hodgkin_huxley import HodgkinHuxleyProblem
+    from bluest_tpu_torch.ops.hodgkin_huxley import launch_plan
+    need = [0, 0]
+    real = HodgkinHuxleyProblem.evaluate_group
+
+    def counted(self, ls, params):
+        if params.shape[0] > 0:
+            need[0] += 1
+            need[1] += len(launch_plan([self.models[l] for l in ls]))
+        return real(self, ls, params)
+
+    HodgkinHuxleyProblem.evaluate_group = counted
+    try:
+        yield need
+    finally:
+        HodgkinHuxleyProblem.evaluate_group = real
+
+
+def phase_hodgkin_huxley(times, graph, k2c, hh_launches):
+    """6(b): all 12 Hodgkin-Huxley models through the group engine, the
+    counted run (pilot, allocation, solve) through K2; the pilot's graph
+    is saved to ``graph`` for phase 11."""
     import numpy as np
     import torch
     from bluest_tpu_torch.models import hodgkin_huxley as hh
+    from bluest_tpu_torch.ops import hodgkin_huxley as k2
     from bluest_tpu_torch.sampling.engine import finite_rows
-    t0 = time.perf_counter()
-    p = hh.HodgkinHuxleyProblem(covariance_estimation_samples=HH_PILOT,
-                                device_batch_size=HH_BATCH, verbose=False)
-    _sync()
-    times["hh_pilot_s"] = time.perf_counter() - t0
-    _check_on_sampling_device(p)
-    if p.M != 12 or p.n_outputs != 5 or not p._has_group_model():
-        raise AssertionError("HodgkinHuxleyProblem is not the 12-model, "
-                             "5-output coupled-group family")
-    log("HH pilot: %d samples x 12 models in %.3f s"
-        % (HH_PILOT, times["hh_pilot_s"]))
+    # the counted run: K2's count set to 0 just before the pilot and read
+    # just after the solve
+    with counting_group_evals() as evals:
+        k2.hh_group_outputs.launches = 0
+        t0 = time.perf_counter()
+        p = hh.HodgkinHuxleyProblem(covariance_estimation_samples=HH_PILOT,
+                                    device_batch_size=HH_BATCH,
+                                    verbose=False)
+        _sync()
+        times["hh_pilot_s"] = time.perf_counter() - t0
+        _check_on_sampling_device(p)
+        if p.M != 12 or p.n_outputs != 5 or not p._has_group_model():
+            raise AssertionError("HodgkinHuxleyProblem is not the 12-model, "
+                                 "5-output coupled-group family")
+        log("HH pilot: %d samples x 12 models in %.3f s"
+            % (HH_PILOT, times["hh_pilot_s"]))
+        t0 = time.perf_counter()
+        p.setup_solver(K=3, budget=HH_BUDGET)
+        times["hh_setup_s"] = time.perf_counter() - t0
+        out = p.MOSAP_output
+        active = [(list(g), int(n)) for g, n in zip(out["flattened_groups"],
+                                                    out["samples"]) if n > 0]
+        t0 = time.perf_counter()
+        mus, errs, cost = p.solve(K=3, budget=HH_BUDGET)
+        _sync()
+        times["hh_solve_s"] = time.perf_counter() - t0
+        launches = k2.hh_group_outputs.launches
+    hh_launches["hh_group_engine"] = launches
+    log("HH: setup_solver(K=3, budget=%.6g) %.3f s (L=%d), %d active groups "
+        "%s, solve %.3f s, cost %.8g"
+        % (HH_BUDGET, times["hh_setup_s"], p.MOSAP.L, len(active), active,
+           times["hh_solve_s"], cost))
+    log("HH K2 launches %d (group evaluations %d, launches they need %d)"
+        % (launches, evals[0], evals[1]))
+    if not launches == evals[1] == evals[0] > 0:
+        raise AssertionError("HH: K2 launched %d times for %d group "
+                             "evaluations" % (launches, evals[0]))
 
-    # launches per evaluation: the HH RK4 integration at 20 and 40 steps
-    # gives the count per step and the fixed part; the finest model takes
-    # 1000 steps
+    # K2 on this allocation's K=3 groups against the plain version, on the
+    # K2 check's inputs
+    for g, _ in active:
+        for x, ref in zip(k2c["xs"], k2c["refs"]):
+            got = k2.hh_group_outputs([p.models[l] for l in g], x)
+            _sync()
+            k2_holds(got, ref[:, :, g], "group %s, n=%d" % (g, x.shape[0]))
+    log("HH K2 holds on the %d active groups at n in %s"
+        % (len(active), K2_CHECK_N))
+
+    # device items per evaluation of the finest model: the plain version
+    # (its HH RK4 integration at 5 and 10 steps gives the count per step
+    # and the fixed part, whatever the values; the finest model takes 1000
+    # steps) and K2 (its time beside the K2 check's plain times)
     x = p.sample_group(torch.Generator(device=DEV).manual_seed(5), (0,), 256)
-    c20 = _device_kernels(lambda: hh.hh_outputs(0, 0.5, x))
-    c40 = _device_kernels(lambda: hh.hh_outputs(0, 0.25, x))
-    per_step = (c40 - c20) / 20.0
-    finest = c20 + (1000 - 20) * per_step
+    c5 = _device_kernels(lambda: k2.hh_group_outputs_plain(((0, 2.0),), x))
+    c10 = _device_kernels(lambda: k2.hh_group_outputs_plain(((0, 1.0),), x))
+    per_step = (c10 - c5) / 5.0
+    finest = c5 + (1000 - 5) * per_step
+    # K2 over several evaluations: a lone short kernel at the edge of the
+    # profiler's window can fall out of it (seen once on the H100)
+    reps = 5
+    c_k2 = _device_kernels(lambda: [hh.hh_outputs(0, 0.01, x)
+                                    for _ in range(reps)]) / reps
     t0 = time.perf_counter()
     hh.hh_outputs(0, 0.01, x)
     _sync()
-    t_finest = time.perf_counter() - t0
-    times["hh_finest_launches"] = finest
-    times["hh_finest_s"] = t_finest
-    log("HH finest model (RK4, dt 0.01, 1000 steps): %.0f device launches "
-        "per evaluation (%.2f per RK4 step + %.0f; profiled %d and %d at 20 "
-        "and 40 steps), %.3f s per evaluation of 256 samples"
-        % (finest, per_step, c20 - 20 * per_step, c20, c40, t_finest))
+    t_k2 = time.perf_counter() - t0
+    times.update(hh_finest_launches_plain=finest, hh_finest_items_k2=c_k2,
+                 hh_finest_k2_s=t_k2)
+    log("HH finest model (RK4, dt 0.01, 1000 steps), 256 samples: plain "
+        "version %.0f device launches per evaluation (%.2f per RK4 step + "
+        "%.0f; profiled %d and %d at 5 and 10 steps); hh_outputs (K2) %.1f "
+        "device items per evaluation (%d evaluations profiled), %.6f s"
+        % (finest, per_step, c5 - 5 * per_step, c5, c10, c_k2, reps, t_k2))
+    if not 0 < c_k2 <= 4:
+        raise AssertionError("hh_outputs put %.1f device items an evaluation "
+                             "on the card (K2 and the output: at most 4)"
+                             % c_k2)
 
     # card vs CPU on the same sampled parameters
     t0 = time.perf_counter()
@@ -1439,21 +1703,6 @@ def phase_hodgkin_huxley(times, graph):
     if int(fin.sum()) == 0 or not worst <= 1e-8:
         raise AssertionError("HH card vs CPU %.3e > 1e-8" % worst)
 
-    t0 = time.perf_counter()
-    p.setup_solver(K=3, budget=HH_BUDGET)
-    times["hh_setup_s"] = time.perf_counter() - t0
-    out = p.MOSAP_output
-    active = [(list(g), int(n)) for g, n in zip(out["flattened_groups"],
-                                                out["samples"]) if n > 0]
-    t0 = time.perf_counter()
-    mus, errs, cost = p.solve(K=3, budget=HH_BUDGET)
-    _sync()
-    times["hh_solve_s"] = time.perf_counter() - t0
-    log("HH: setup_solver(K=3, budget=%.6g) %.3f s (L=%d), %d active groups "
-        "%s, solve %.3f s, cost %.8g"
-        % (HH_BUDGET, times["hh_setup_s"], p.MOSAP.L, len(active), active,
-           times["hh_solve_s"], cost))
-
     # MC of model 0 (every draw finite: RK4 at dt 0.01 is stable)
     t0 = time.perf_counter()
     q = hh.hh_outputs(0, 0.01, p.sample_group(
@@ -1464,6 +1713,8 @@ def phase_hodgkin_huxley(times, graph):
     times["hh_mc_s"] = time.perf_counter() - t0
     log("HH MC reference: %d samples of model 0 in %.3f s"
         % (HH_MC, times["hh_mc_s"]))
+    log("HH walls: hh_pilot_s %.3f, hh_solve_s %.3f, hh_mc_s %.3f"
+        % (times["hh_pilot_s"], times["hh_solve_s"], times["hh_mc_s"]))
     _within_bars("HH MLBLUE vs MC", np.asarray(mus, float).ravel(),
                  np.asarray(errs, float).ravel(), q.mean(axis=0),
                  q.std(axis=0) / np.sqrt(HH_MC))
@@ -1602,13 +1853,14 @@ def phase_host_model(times):
     _within_bars("host model MC vs exp(0.5)", mus, errs, [TRUE_MEAN], [0.0])
 
 
-def phase_user_models(launches_by_path, hh_graph):
+def phase_user_models(launches_by_path, hh_graph, k2c, hh_launches):
     """Phase 6: every part raises on failure; nothing is caught."""
     times = {}
     kept = {}
     t0 = time.perf_counter()
     for name, run in (("a", lambda: phase_matern(times)),
-                      ("b", lambda: phase_hodgkin_huxley(times, hh_graph)),
+                      ("b", lambda: phase_hodgkin_huxley(times, hh_graph,
+                                                         k2c, hh_launches)),
                       ("c", lambda: phase_snapshots(times, launches_by_path)),
                       ("d", lambda: phase_host_model(times))):
         t = time.perf_counter()
@@ -2263,30 +2515,49 @@ def _ex_matern(times):
         % (len(res["allocations"]), res["mu"], res["err"]))
 
 
-def _ex_hodgkin_huxley(times):
-    """9(c): the 6-model HH subset with --fast, against MC of model 0."""
+def _ex_hodgkin_huxley(times, hh_launches):
+    """9(c): the HH example as it ships (the 6-model subset, a pilot of
+    1024) and with --full (the paper's 12 models), each with K2's count
+    set to 0 just before and read just after: its launches equal to the
+    run's group evaluations, output 0 within 4 error bars of an MC
+    estimate of its model 0 on the card."""
     import numpy as np
     import torch
     from bluest_tpu_torch.models import hodgkin_huxley as hh
-    mod = _front_door_module("multi_output_hodgkin_huxley")
-    res, _ = _run_script("multi_output_hodgkin_huxley", ["--fast"], times)
-    est, errs = np.asarray(res["estimates"]), np.asarray(res["errors"])
-    if not (np.all(np.isfinite(est)) and np.all(np.isfinite(errs))):
-        raise AssertionError("9(c): estimates %s errors %s" % (est, errs))
-    m = len(mod.SUBSET)
-    p = hh.HodgkinHuxleyProblem(models=mod.SUBSET,
-                                C=[np.eye(m)] * hh.N_OUTPUTS, verbose=False)
-    _check_on_sampling_device(p)
-    t0 = time.perf_counter()
-    q = hh.hh_outputs(*mod.SUBSET[0], p.sample_group(
-        torch.Generator(device=DEV).manual_seed(9), (0,), EX_HH_MC))
-    if not bool(torch.isfinite(q).all()):
-        raise AssertionError("9(c): HH model 0 gave non-finite outputs")
-    q = q[:, 0].cpu().numpy()
-    log("9(c) MC reference: %d samples of model 0 in %.3f s"
-        % (EX_HH_MC, time.perf_counter() - t0))
-    _within_bars("9(c) example output 0 vs MC", est[:1], errs[:1],
-                 [q.mean()], [q.std() / np.sqrt(EX_HH_MC)])
+    from bluest_tpu_torch.ops import hodgkin_huxley as k2
+    name = "multi_output_hodgkin_huxley"
+    for argv, path in (([], "hh_example"), (["--full"], "hh_example_full")):
+        with counting_group_evals() as evals:
+            k2.hh_group_outputs.launches = 0
+            res, _ = _run_script(name, argv, times)
+            launches = k2.hh_group_outputs.launches
+        times[path + "_s"] = times.pop(name + "_s")
+        hh_launches[path] = launches
+        log("9(c) %s: K2 launches %d (group evaluations %d)"
+            % (" ".join([name] + argv), launches, evals[0]))
+        if not launches == evals[1] == evals[0] > 0:
+            raise AssertionError("9(c): K2 launched %d times for %d group "
+                                 "evaluations" % (launches, evals[0]))
+        est, errs = np.asarray(res["estimates"]), np.asarray(res["errors"])
+        if not (np.all(np.isfinite(est)) and np.all(np.isfinite(errs))):
+            raise AssertionError("9(c): estimates %s errors %s"
+                                 % (est, errs))
+        models = tuple(res["models"])
+        m = len(models)
+        p = hh.HodgkinHuxleyProblem(models=models,
+                                    C=[np.eye(m)] * hh.N_OUTPUTS,
+                                    verbose=False)
+        _check_on_sampling_device(p)
+        t0 = time.perf_counter()
+        q = hh.hh_outputs(*models[0], p.sample_group(
+            torch.Generator(device=DEV).manual_seed(9), (0,), EX_HH_MC))
+        if not bool(torch.isfinite(q).all()):
+            raise AssertionError("9(c): HH model 0 gave non-finite outputs")
+        q = q[:, 0].cpu().numpy()
+        log("9(c) MC reference: %d samples of model 0 %s in %.3f s"
+            % (EX_HH_MC, models[0], time.perf_counter() - t0))
+        _within_bars("9(c) %s output 0 vs MC" % path, est[:1], errs[:1],
+                     [q.mean()], [q.std() / np.sqrt(EX_HH_MC)])
 
 
 def _ex_navier_stokes(times):
@@ -2331,14 +2602,14 @@ def _tutorial(times):
         raise AssertionError("9(f): the tutorial did not complete")
 
 
-def phase_front_door(launches_by_path):
+def phase_front_door(launches_by_path, hh_launches):
     """Phase 9: every part raises on failure; nothing is caught."""
     times = {}
     t0 = time.perf_counter()
     for name, run in (
             ("a", lambda: _ex_diffusion(times, launches_by_path)),
             ("b", lambda: _ex_matern(times)),
-            ("c", lambda: _ex_hodgkin_huxley(times)),
+            ("c", lambda: _ex_hodgkin_huxley(times, hh_launches)),
             ("d", lambda: _ex_navier_stokes(times)),
             ("e", lambda: _ex_nested(times)),
             ("f", lambda: _tutorial(times))):
@@ -2881,6 +3152,8 @@ def main():
     parent = (parent_wide(_option("--parent-source"))
               if _option("--parent-source") else None)
     w = phase_wide_check(parent)
+    h = phase_k2_check()
+    hh_launches = {}                    # K2's launches per path
     with tempfile.TemporaryDirectory() as d:
         graph = os.path.join(d, "flagship_graph.npz")
         hh_graph = os.path.join(d, "hh_graph.npz")
@@ -2892,13 +3165,14 @@ def main():
         with allocation_log("phase 5"):
             phase_target_rmse(f["problem"], graph, launches_by_path)
         with allocation_log("phase 6"):
-            matern = phase_user_models(launches_by_path, hh_graph)
+            matern = phase_user_models(launches_by_path, hh_graph, h,
+                                       hh_launches)
         with allocation_log("phase 7"):
             phase_allocation_families(f, matern, launches_by_path)
         with allocation_log("phase 8"):
             phase_distribution(f, graph, launches_by_path)
         with allocation_log("phase 9"):
-            phase_front_door(launches_by_path)
+            phase_front_door(launches_by_path, hh_launches)
         with allocation_log("phase 10"):
             deep = phase_deep_flagship(smi)["launches"]
         launches_by_path["deep_flagship"] = deep["k1"]
@@ -2924,7 +3198,16 @@ def main():
         "synthesis_library_ms": w["synthesis_library_ms"],
         "stage_ms": w["stage_ms"],
         "workspace_bytes": w["workspace_bytes"], "timed": w["timed"],
-        "ms_at_k1_shapes": w["ms_at_k1_shapes"]}]}), flush=True)
+        "ms_at_k1_shapes": w["ms_at_k1_shapes"]}, {
+        "name": "hh_group_outputs", "route": "cuda", "source": K2_SOURCE,
+        "replaces": K2_REPLACES, "launches": sum(hh_launches.values()),
+        "launches_by_path": hh_launches,
+        "max_abs_err": h["max_abs_err"], "ms": h["ms"],
+        "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+        "bound_by": h["bound_by"], "library_ms": None,
+        "timed": "the 12 default models, n=%d" % K2_TIMED_N,
+        "model0": h["model0"],
+        "bit_equal_share": h["bit_equal_share"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

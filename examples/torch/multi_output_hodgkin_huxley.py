@@ -8,9 +8,10 @@ Run:  python examples/torch/multi_output_hodgkin_huxley.py [--full] [--fast]
       python examples/torch/multi_output_hodgkin_huxley.py --fast --device cpu
 (--full uses all 12 models; the default is a 6-model subset.  --fast
 shrinks the pilot to 256 samples, at the price of a noisier covariance
-and a looser allocation.  Each model is a loop of small elementwise
-kernels per time step, so on the card an evaluation costs about the same
-whatever the number of samples: see examples/torch/README.md for times.)
+and a looser allocation.  On the card each group evaluation is one
+launch of the hand-written Hodgkin-Huxley kernel, which integrates all
+of the group's models; on the CPU it is a Python loop of elementwise
+operations per time step.  See examples/torch/README.md for times.)
 """
 
 import argparse

@@ -1,10 +1,11 @@
 """The port on the card: K1 and its wide tier against their plain
-version, the user models' card outputs against their CPU outputs, the
-group engine's resample, the snapshot-collecting path through K1, and
-the allocation on the card against the host (the seeded cone programs of
-the allocation and warm-cache tests, the flagship-width MOSAP, the
-integer projection from one continuous point, and one IPM iteration
-under the synchronisation debug mode).
+version, K2 (the Hodgkin-Huxley kernel) against its plain version, the
+user models' card outputs against their CPU outputs, the group engine's
+resample and its K2 launches per round, the snapshot-collecting path
+through K1, and the allocation on the card against the host (the seeded
+cone programs of the allocation and warm-cache tests, the flagship-width
+MOSAP, the integer projection from one continuous point, and one IPM
+iteration under the synchronisation debug mode).
 
 These tests need a CUDA card and nvcc; without a card they skip.  They
 import neither jax nor the JAX package, so they also run on a machine
@@ -320,14 +321,99 @@ def test_hodgkin_huxley_card_matches_cpu(cuda, kind, dt):
     from bluest_tpu_torch.models import hodgkin_huxley as hh
     p = hh.HodgkinHuxleyProblem(C=[np.eye(12) + 0.5] * 5, verbose=False,
                                 device=cuda)
+    from bluest_tpu_torch.ops import hodgkin_huxley as k2
     x = p.sample_group(torch.Generator(device=cuda).manual_seed(kind), (0,),
                        64)
+    before = k2.hh_group_outputs.launches
     got = hh.hh_outputs(kind, dt, x).cpu()
+    assert k2.hh_group_outputs.launches == before + 1      # through K2
     ref = hh.hh_outputs(kind, dt, x.cpu())
     fin = torch.isfinite(ref).all(dim=1)
     assert torch.equal(torch.isfinite(got).all(dim=1), fin)
     assert int(fin.sum()) > 0
     assert _normwise(got[fin], ref[fin]) <= 1e-8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 77, 16384])
+def test_k2_matches_plain(cuda, n):
+    """K2 against its plain version on the card, on the same parameters:
+    each default model alone and the 12-model group, one launch each; the
+    same (row, model) pairs non-finite and each model's normwise
+    difference <= 1e-10 on the rest (chip_smoke.k2_holds: the kernel
+    repeats the plain version's operations in its order)."""
+    from chip_smoke import hh_params, k2_holds
+    from bluest_tpu_torch.models.hodgkin_huxley import DEFAULT_MODELS
+    from bluest_tpu_torch.ops import hodgkin_huxley as k2
+    x = hh_params(n, n)
+    ref = k2.hh_group_outputs_plain(DEFAULT_MODELS, x)
+    for l, m in enumerate(DEFAULT_MODELS):
+        k2_holds(k2.hh_group_outputs((m,), x), ref[:, :, l:l + 1],
+                 "model %d" % l)
+    before = k2.hh_group_outputs.launches
+    got = k2.hh_group_outputs(DEFAULT_MODELS, x)
+    torch.cuda.synchronize()
+    assert k2.hh_group_outputs.launches == before + 1
+    assert got.is_cuda and got.shape == (n, 5, 12)
+    k2_holds(got, ref, "group")
+
+
+@pytest.mark.gpu
+def test_k2_more_models_than_one_table(cuda):
+    """40 models take two launches (32 + 8), each column its model."""
+    from chip_smoke import hh_params, k2_holds
+    from bluest_tpu_torch.ops import hodgkin_huxley as k2
+    x = hh_params(77, 5)
+    pair = ((2, 0.08), (1, 0.08))
+    ref = k2.hh_group_outputs_plain(pair, x)
+    before = k2.hh_group_outputs.launches
+    got = k2.hh_group_outputs(pair * 20, x)
+    torch.cuda.synchronize()
+    assert k2.hh_group_outputs.launches == before + 2
+    k2_holds(got, ref.repeat(1, 1, 20), "40 models")
+
+
+@pytest.mark.gpu
+def test_k2_refuses_on_the_card(cuda):
+    """A CUDA tensor K2 does not take raises; nothing falls back."""
+    from bluest_tpu_torch.ops import hodgkin_huxley as k2
+    x = torch.zeros((4, 3), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        k2.hh_group_outputs(((0, 0.08),), x.float())
+    with pytest.raises(ValueError):
+        k2.hh_group_outputs(((0, 0.08),), x.t().contiguous().t())
+    n = 2 ** 31 // (5 * 32) + 1                  # n * 5 * L past an int
+    big = torch.empty((n, 3), dtype=torch.float64, device=cuda)
+    before = k2.hh_group_outputs.launches
+    with pytest.raises(ValueError, match="int index"):
+        k2.hh_group_outputs(((2, 0.08),) * 32, big)
+    assert k2.hh_group_outputs.launches == before
+
+
+@pytest.mark.gpu
+def test_group_engine_launches_k2_once_per_round(cuda):
+    """A group-engine draw of HH models on the card launches K2 once per
+    round: the first evaluation and each redraw (Euler at dt 0.08 fails
+    on most draws, so the draw takes several rounds)."""
+    from bluest_tpu_torch.models import hodgkin_huxley as hh
+    from bluest_tpu_torch.ops import hodgkin_huxley as k2
+    from bluest_tpu_torch.sampling.group_engine import GroupEngine
+    p = hh.HodgkinHuxleyProblem(C=[np.eye(12) + 0.5] * 5, verbose=False,
+                                device=cuda)
+    rounds = []
+
+    def evaluate(ls, x):
+        rounds.append(x.shape[0])
+        return p.evaluate_group(ls, x)
+
+    eng = GroupEngine(p.sample_group, evaluate, 5, 4096, cuda)
+    before = k2.hh_group_outputs.launches
+    _, outs, ok = eng.draw(torch.Generator(device=cuda).manual_seed(3),
+                           (0, 7, 11), 4096)
+    torch.cuda.synchronize()
+    assert len(rounds) >= 2
+    assert k2.hh_group_outputs.launches - before == len(rounds)
+    assert bool(ok.all()) and bool(torch.isfinite(outs).all())
 
 
 @pytest.mark.gpu

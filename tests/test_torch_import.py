@@ -24,6 +24,9 @@ def test_import_leaves_jax_out():
             "import bluest_tpu_torch.models.analytic\n"
             "import bluest_tpu_torch.models.matern2d\n"
             "import bluest_tpu_torch.models.hodgkin_huxley\n"
+            "import bluest_tpu_torch.ops._build\n"
+            "import bluest_tpu_torch.ops.diffusion\n"
+            "import bluest_tpu_torch.ops.hodgkin_huxley\n"
             "import bluest_tpu_torch.solvers.admm\n"
             "import bluest_tpu_torch.solvers.spg_alloc\n"
             "import bluest_tpu_torch.solvers.sdp\n"
