@@ -14,16 +14,19 @@ the JAX package's ``lax.scan`` (``bluest_tpu/models/hodgkin_huxley.py``,
   ``bluest_tpu_torch/csrc/hodgkin_huxley.cu``, built with nvcc at first
   use into ``build/bluest_tpu_torch/`` and loaded through ctypes: one
   launch for up to ``MAX_MODELS`` models, whatever their kinds and step
-  counts (:func:`launch_plan`), each counted in
-  ``hh_group_outputs.launches``.  Nothing falls back: a build or launch
-  failure raises.
+  counts, in the variant (lanes a sample) that :func:`launch_plan` picks
+  from n, the models and the card's SM count; each launch is counted in
+  ``hh_group_outputs.launches`` and by variant in
+  ``hh_group_outputs.launches_by_variant``.  Nothing falls back: a build
+  or launch failure raises.
 * A CPU tensor runs :func:`hh_group_outputs_plain`: per model a Python
   loop of elementwise PyTorch operations over the batch, in the order of
-  the JAX package's expressions, with the five outputs kept as running
+  the JAX package's expressions (its integer powers written out as the
+  products ``integer_pow`` takes), with the five outputs kept as running
   reductions updated step by step in the kernel's order (no trajectory
-  is stored).  The kernel repeats its operations one by one, as eager
-  PyTorch computes them on the card; ``chip_smoke.py`` holds the two
-  against each other there.
+  is stored).  Every variant of the kernel repeats these operations one
+  by one, as eager PyTorch computes them on the card; ``chip_smoke.py``
+  holds each against the plain version there.
 """
 
 from __future__ import annotations
@@ -33,22 +36,28 @@ import functools
 import math
 import os
 import threading
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 __all__ = ["hh_group_outputs", "hh_group_outputs_plain", "launch_plan",
-           "n_steps", "build_library", "T_END", "N_OUTPUTS", "MAX_MODELS",
-           "STEP_OPS"]
+           "Launch", "fill", "variant_for", "n_steps", "build_library",
+           "T_END", "N_OUTPUTS", "MAX_MODELS", "STEP_OPS", "VARIANTS",
+           "LANES8_MAX_FILL"]
 
 T_END = 10.0
 N_OUTPUTS = 5
 MAX_MODELS = 32          # models in one launch's table (csrc: HH_MAX_MODELS)
 # operations of one step by kind, as chip_smoke.py counts K2's work (each
-# add, subtract, multiply, divide, exp, pow and compare one; see the
-# source's note): the cost that orders a launch's models
-STEP_OPS = {0: 284, 1: 72, 2: 79}
+# add, subtract, multiply, divide, exp and compare one; see the source's
+# note): the cost that orders a launch's models
+STEP_OPS = {0: 288, 1: 73, 2: 79}
+# the kernel's variants: lanes of a warp a (sample, model)
+VARIANTS = {"thread": 1, "lanes8": 8}
+H100_SMS = 132           # launch_plan's card when none is named
+
 
 _SOURCE = os.path.join(_build.CSRC_DIR, "hodgkin_huxley.cu")
 # the base flags alone: the source keeps its arithmetic from contracting
@@ -72,7 +81,7 @@ def build_library() -> ctypes.CDLL:
         lib.bluest_hh_outputs_f64.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_void_p]
         lib.bluest_hh_max_models.restype = ctypes.c_int
         lib.bluest_hh_max_models.argtypes = []
         if lib.bluest_hh_max_models() != MAX_MODELS:
@@ -105,11 +114,24 @@ def _models(models):
     return tuple(out)
 
 
-def launch_plan(models):
-    """The launches of a group: tables of at most MAX_MODELS entries
-    ``(col, kind, n_steps, dt)``, every column once, the longest models
-    (steps times :data:`STEP_OPS`) first, ties in column order."""
-    return _plan(_models(models))
+class Launch(NamedTuple):
+    """One launch: its variant (a key of :data:`VARIANTS`) and its table of
+    entries ``(col, kind, n_steps, dt)``, longest model first."""
+    variant: str
+    entries: tuple
+
+
+def launch_plan(models, n, sm_count=H100_SMS):
+    """The launches of a group at n samples on a card of ``sm_count`` SMs:
+    tables of at most MAX_MODELS entries, every column once, the longest
+    models (steps times :data:`STEP_OPS`) first, ties in column order,
+    each with the variant :func:`variant_for` picks for it."""
+    n, sm_count = int(n), int(sm_count)
+    if n < 0 or sm_count < 1:
+        raise ValueError("launch_plan: n >= 0 and sm_count >= 1, got %d, %d"
+                         % (n, sm_count))
+    return tuple(Launch(variant_for(t, n, sm_count), t)
+                 for t in _plan(_models(models)))
 
 
 @functools.lru_cache(maxsize=64)
@@ -120,6 +142,34 @@ def _plan(models):
                for c in cols]
     return tuple(tuple(entries[i:i + MAX_MODELS])
                  for i in range(0, len(entries), MAX_MODELS))
+
+
+def fill(entries, n, sm_count=H100_SMS):
+    """How full a one-lane launch of ``entries`` at n samples keeps the
+    card while its longest model runs: its warps per SM sub-partition (4
+    an SM), each entry's weighted by its cost over the longest's."""
+    cost = [steps * STEP_OPS[kind] for _, kind, steps, _ in entries]
+    return -(-n // 32) * sum(cost) / max(cost) / (4 * sm_count)
+
+
+# the largest fill at which a launch takes eight lanes a sample: on an
+# H100 (132 SMs) "lanes8" was the faster variant at a fill of 0.606 for
+# model 0 alone and 0.694 for the 12-model group, "thread" at 0.727 and
+# 1.042 (chip_smoke.py's K2 sweep)
+LANES8_MAX_FILL = 0.7
+
+
+def variant_for(entries, n, sm_count=H100_SMS):
+    """The variant for one launch table at n samples: "lanes8" while the
+    launch leaves the card emptier than :data:`LANES8_MAX_FILL` (one
+    sample's dependent chain then sets the time), else "thread"."""
+    return ("lanes8" if fill(entries, n, sm_count) <= LANES8_MAX_FILL
+            else "thread")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(params):
@@ -134,6 +184,18 @@ def _check(params):
         raise ValueError("params must be contiguous")
 
 
+def _cube(x):
+    """x ** 3 as the JAX package's ``integer_pow`` takes it: x * (x * x),
+    which is x * x * x."""
+    return x * x * x
+
+
+def _pow4(x):
+    """x ** 4 as the JAX package's ``integer_pow`` takes it: (x*x)*(x*x)."""
+    x2 = x * x
+    return x2 * x2
+
+
 def _hh_rhs(V, m, h, n, I_app, gNa, gK):
     gL, ENa, EK, EL, Cm = 0.3, 50.0, -77.0, -54.387, 1.0
 
@@ -144,8 +206,8 @@ def _hh_rhs(V, m, h, n, I_app, gNa, gK):
     a_n = 0.01 * (V + 55.0) / (1.0 - torch.exp(-(V + 55.0) / 10.0) + 1e-12)
     b_n = 0.125 * torch.exp(-(V + 65.0) / 80.0)
 
-    INa = gNa * m ** 3 * h * (V - ENa)
-    IK = gK * n ** 4 * (V - EK)
+    INa = gNa * _cube(m) * h * (V - ENa)
+    IK = gK * _pow4(n) * (V - EK)
     IL = gL * (V - EL)
     dV = (I_app - INa - IK - IL) / Cm
     dm = a_m * (1 - m) - b_m * m
@@ -156,7 +218,7 @@ def _hh_rhs(V, m, h, n, I_app, gNa, gK):
 
 def _fhn_rhs(v, w, I_app):
     a, b, tau = 0.7, 0.8, 12.5
-    dv = v - v ** 3 / 3 - w + I_app / 10.0
+    dv = v - _cube(v) / 3 - w + I_app / 10.0
     dw = (v + a - b * w) / tau
     return dv, dw
 
@@ -209,21 +271,50 @@ def hh_group_outputs_plain(models, params: torch.Tensor) -> torch.Tensor:
                         for kind, dt in models], dim=2)
 
 
-def hh_group_outputs(models, params: torch.Tensor) -> torch.Tensor:
+def _table_args(entries):
+    """A launch table as the C entry point takes it: (kind, n_steps, col)
+    and (dt, 0.5*dt, dt/6.0, 1.0/n_steps) per entry, as ctypes arrays."""
+    ints = (ctypes.c_int * (3 * len(entries)))(
+        *[v for col, kind, steps, _ in entries for v in (kind, steps, col)])
+    reals = (ctypes.c_double * (4 * len(entries)))(
+        *[v for _, _, steps, dt in entries
+          for v in (dt, 0.5 * dt, dt / 6.0, 1.0 / steps)])
+    return ints, reals
+
+
+def _launch(lib, params, out, entries, variant, stream):
+    """One launch of K2's ``variant`` on ``entries``; raises on failure."""
+    n, L = params.shape[0], out.shape[2]
+    rc = lib.bluest_hh_outputs_f64(params.data_ptr(), out.data_ptr(), n, L,
+                                   len(entries), *_table_args(entries),
+                                   VARIANTS[variant], stream)
+    if rc != 0:
+        raise RuntimeError("hh_group_outputs: K2 launch (%s) failed: CUDA "
+                           "error %d (n=%d, L=%d)" % (variant, rc, n, L))
+
+
+def hh_group_outputs(models, params: torch.Tensor, *,
+                     variant=None) -> torch.Tensor:
     """(n, 3) float64 parameters -> (n, 5, L) outputs of the L models
-    ``models``.  CUDA tensors launch K2 (once per MAX_MODELS models) or
-    raise; CPU tensors run :func:`hh_group_outputs_plain`."""
+    ``models``.  CUDA tensors launch K2 (once per MAX_MODELS models, in the
+    variant :func:`launch_plan` picks) or raise; CPU tensors run
+    :func:`hh_group_outputs_plain`.  ``variant`` (tests only) forces one of
+    :data:`VARIANTS` on every launch."""
     models = _models(models)
     _check(params)
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError("hh_group_outputs: variant must be one of %s, got %r"
+                         % (sorted(VARIANTS), variant))
     if params.device.type == "cpu":
         return hh_group_outputs_plain(models, params)
     if params.device.type != "cuda":
         raise ValueError("hh_group_outputs: unsupported device %s"
                          % params.device)
     n, L = params.shape[0], len(models)
-    if n * N_OUTPUTS * L >= 2 ** 31:
-        raise ValueError("hh_group_outputs: n * 5 * L = %d exceeds the "
-                         "kernel's int index" % (n * N_OUTPUTS * L))
+    if n * N_OUTPUTS * L >= 2 ** 31 or n * 8 + 64 >= 2 ** 31:
+        raise ValueError("hh_group_outputs: n * 5 * L = %d or n * 8 lanes "
+                         "exceeds the kernel's int index"
+                         % (n * N_OUTPUTS * L))
     out = torch.empty((n, N_OUTPUTS, L), dtype=torch.float64,
                       device=params.device)
     if n == 0:
@@ -231,21 +322,13 @@ def hh_group_outputs(models, params: torch.Tensor) -> torch.Tensor:
     lib = build_library()
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for table in _plan(models):
-            ints = (ctypes.c_int * (3 * len(table)))(
-                *[v for col, kind, steps, _ in table
-                  for v in (kind, steps, col)])
-            reals = (ctypes.c_double * (4 * len(table)))(
-                *[v for _, _, steps, dt in table
-                  for v in (dt, 0.5 * dt, dt / 6.0, 1.0 / steps)])
-            rc = lib.bluest_hh_outputs_f64(params.data_ptr(), out.data_ptr(),
-                                           n, L, len(table), ints, reals,
-                                           stream)
-            if rc != 0:
-                raise RuntimeError("hh_group_outputs: K2 launch failed: "
-                                   "CUDA error %d (n=%d, L=%d)" % (rc, n, L))
+        for launch in launch_plan(models, n, _sm_count(params.device.index)):
+            v = variant or launch.variant
+            _launch(lib, params, out, launch.entries, v, stream)
             hh_group_outputs.launches += 1
+            hh_group_outputs.launches_by_variant[v] += 1
     return out
 
 
 hh_group_outputs.launches = 0
+hh_group_outputs.launches_by_variant = dict.fromkeys(VARIANTS, 0)

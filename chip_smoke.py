@@ -5,10 +5,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: require a CUDA card; print its name and power limit;
-  2. build K1 and its wide tier (bluest_tpu_torch/csrc/diffusion.cu) and
-     K2 (bluest_tpu_torch/csrc/hodgkin_huxley.cu) with nvcc,
-     one process each, in parallel; print each kernel's registers and
-     spills;
+  2. build K1 and its wide tier (bluest_tpu_torch/csrc/diffusion.cu),
+     K2 (bluest_tpu_torch/csrc/hodgkin_huxley.cu) and K2's step probes
+     (a cubin for the SASS counts) with nvcc, one process each, in
+     parallel; print each kernel's registers and spills;
   3. hold K1 against its plain PyTorch version on the card, for
      n in {1, 2, 3, 8, 33, 64, 100, 256, 1024}, B in {1, 77, 8192} and
      every grid and chunk size of the flagship and of the diffusion
@@ -42,12 +42,18 @@ Phases (any failure raises, so the exit code is non-zero):
      (ops.diffusion.launch); then K2 against its plain version
      (ops.hodgkin_huxley.hh_group_outputs_plain) on the same parameters:
      each of the 12 default models alone and the 12-model group, at n in
-     {1, 77, 256, 16384, 65536}, each launch counted: the same (row,
-     model) pairs non-finite, each model's normwise relative difference
-     <= 1e-10 on the rest, and every entry bit-equal (k2_holds); K2's
-     time at n=16384 for model 0 and for the group beside its bound
-     (FP64 operations, k2_work) and the plain version's time, in turns
-     (plain, kernel, kernel, plain);
+     {1, 77, 256, 16384, 65536}, in each variant (lanes a sample) and as
+     launch_plan picks, each launch counted and by variant: the same
+     (row, model) pairs non-finite, each model's normwise relative
+     difference <= 1e-10 on the rest, and every entry bit-equal
+     (k2_holds); the SASS instructions of one step of each kind and
+     variant by class (cuobjdump of step probes, sass_step_counts), FP64
+     apart; each variant's time at model 0 and the group for n in
+     K2_SWEEP_N with its FP64 issue share (FP64 instructions over 132 SMs
+     x 64 lanes x the SM clock that nvidia-smi reads meanwhile x the
+     time); K2's time at n=16384 for model 0 and for the group beside
+     its bound (FP64 operations, k2_work) and the plain version's time,
+     in turns (plain, kernel, kernel, plain);
   4. drive the flagship end to end on the default device (the card):
      pilot (4096 samples) + SPD projection, setup_solver(K=4) with the
      budget calibrated to ~1e6 samples, solve() (all groups dispatched,
@@ -82,14 +88,17 @@ Phases (any failure raises, so the exit code is non-zero):
          coupled-group engine (chunks of 16384 samples): pilot,
          setup_solver(K=3, budget) and solve(), K2's count set to 0 just
          before the pilot and read just after the solve (launches equal
-         to the group evaluations: the kernel line's "hh_group_engine");
+         to the group evaluations: the kernel line's "hh_group_engine",
+         by variant), each launch's models, n and variant logged;
          K2 on the allocation's active groups against the plain version
-         on the K2 check's inputs; the finest model's device items per
+         on the K2 check's inputs, in every variant; the finest model's
+         device items per
          evaluation (torch.profiler) for the plain version and for
          hh_outputs (K2: at most 4); the card's outputs against the
          CPU's on the same parameters (<= 1e-8 relative, the CPU parity
          tests' tolerance) and the estimates against an MC estimate of
-         model 0; hh_pilot_s, hh_solve_s and hh_mc_s printed;
+         model 0; hh_pilot_s, hh_solve_s and hh_mc_s printed, the first
+         two beside the one-lane pow design's (HH_WALLS_ONE_LANE_POW);
      (c) snapshots through K1: the flagship problem with a samplefile and
          outputs_to_save=[0], solve(K=2) at a small budget; every group
          file holds as many rows as the samples its sums cover, K1 on
@@ -158,7 +167,8 @@ Phases (any failure raises, so the exit code is non-zero):
          a pilot of 1024) and with --full (the paper's 12 models), each
          with K2's count set to 0 just before and read just after: K2's
          launches equal to the run's group evaluations (the kernel
-         line's "hh_example" and "hh_example_full"), every estimate and
+         line's "hh_example" and "hh_example_full", by variant), every
+         estimate and
          error finite, output 0 within 4 error bars of an MC estimate of
          its model 0 on the card;
      (d) navier_stokes_study, its NS_NPZ pointed at a 12-model, 6-output
@@ -210,7 +220,12 @@ With --parent-source PATH (another csrc/diffusion.cu with the same C
 interface to its wide tier, e.g. the previous commit's, written out
 under build/: the copy the chip runs is no git checkout), phase 3 times
 that wide tier in turns with this one (parent, new, new, parent) at its
-timed shapes.
+timed shapes.  With --k2-parent-source PATH (another
+csrc/hodgkin_huxley.cu with the one-lane C interface, e.g. the commit's
+before the variants, written out under build/), phase 1 builds it and
+its step probes beside the others, and the K2 check prints its SASS
+counts and times it in turns with this K2 (parent, new, new, parent) at
+K2_TURNS: model 0 at n=256 and 16384 and the group at 16384.
 
 With --profile, one more budget solve after phase 4 runs under
 torch.profiler and a line gives K1's device time, the device's busy share
@@ -262,6 +277,14 @@ K2_REPLACES = "bluest_tpu/models/hodgkin_huxley.py:88 (lax.scan, XLA)"
 # chunk)
 K2_CHECK_N = (1, 77, 256, 16384, 65536)
 K2_TIMED_N = 16384
+# each variant timed at model 0 and the group over n (the host rule's
+# ground), and the shapes timed in turns against an earlier design
+K2_SWEEP_N = (256, 1024, 2048, 4096, 6144, 8192, 10240, 12288, 16384,
+              32768, 65536)
+K2_TURNS = (("model0", 256), ("model0", 16384), ("group", 16384))
+# phase 6(b)'s walls with the one-lane pow design of K2 (NVIDIA H100 80GB
+# HBM3, 700.00 W), printed beside this run's
+HH_WALLS_ONE_LANE_POW = {"hh_pilot_s": 0.037, "hh_solve_s": 0.027}
 # phase 3, K1's wide tier: the grids past K1's reach, the modes, the
 # batches (at most WIDE_MAX_B past 4097 cells, the plain version's time),
 # a shape K1 refuses for its n_kl, and the grids timed at N_KL_DEEP modes
@@ -341,25 +364,45 @@ def phase_device():
     return name, smi
 
 
-def phase_build():
+def phase_build(k2_parent_source=None):
     """Build every kernel source at once (one nvcc each, in parallel) and
-    print nvcc's registers and spills for each kernel."""
+    print nvcc's registers and spills for each kernel; with them, K2's
+    step probes for the SASS counts and, given ``k2_parent_source``, that
+    earlier K2 and its probes.  Returns {"sass": {design: counts},
+    "k2_parent": launcher or None}."""
     from concurrent.futures import ThreadPoolExecutor
+    from bluest_tpu_torch.ops import _build
     from bluest_tpu_torch.ops import diffusion as k1
     from bluest_tpu_torch.ops import hodgkin_huxley as k2
     mods = (("K1", k1), ("K2", k2))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods)) as pool:
-        for f in [pool.submit(mod.build_library) for _, mod in mods]:
+    with ThreadPoolExecutor(len(mods) + 3) as pool:
+        jobs = [pool.submit(mod.build_library) for _, mod in mods]
+        probes = {"new": pool.submit(k2_probe_cubin, k2._SOURCE, False)}
+        parent = None
+        if k2_parent_source:
+            parent = pool.submit(parent_k2, k2_parent_source)
+            probes["parent"] = pool.submit(k2_probe_cubin, k2_parent_source,
+                                           True)
+        for f in jobs:
             f.result()
+        cubins = {d: f.result() for d, f in probes.items()}
+        parent = parent.result() if parent else None
     dt = time.perf_counter() - t0
-    log("K1 and K2 build, in parallel: %.2f s" % dt)
-    for name, mod in mods:
-        for line in mod.build_log.splitlines():
+    log("K1 and K2 build, in parallel%s: %.2f s"
+        % (" (with K2's step probes%s)"
+           % (" and the parent K2" if parent else ""), dt))
+    logs = [(name, mod.build_log) for name, mod in mods]
+    if parent:
+        logs.append(("K2 parent", _build.build_logs.get(
+            _build.build(k2_parent_source, k2.NVCC_FLAGS), "")))
+    for name, text in logs:
+        for line in text.splitlines():
             if ("registers" in line or "spill" in line
                     or "Compiling entry function" in line):
                 log("  %s nvcc:" % name, line.strip())
-    return dt
+    return {"sass": {d: sass_step_counts(c) for d, c in cubins.items()},
+            "k2_parent": parent}
 
 
 def _time_ms(fn, reps):
@@ -885,18 +928,262 @@ def _plain_model_ms(models, x):
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(len(models))]
 
 
-def phase_k2_check():
+# one kernel per (kind, lanes) that runs integrate<> of a K2 source alone,
+# its step count from an argument: its loop is one step of that kind
+K2_PROBE = r"""#include "%(src)s"
+template <int KIND, int LANES>
+__global__ void __launch_bounds__(HH_THREADS%(bounds)s)
+k2_step_probe(const double* p, double* o, int n_steps) {
+  HHEntry e;
+  e.kind = KIND; e.n_steps = n_steps; e.col = 0;
+  e.dt = p[3]; e.hdt = p[4]; e.c6 = p[5]; e.inv_steps = p[6];
+  double r[5];
+  %(call)s
+  for (int q = 0; q < 5; ++q) o[5 * threadIdx.x + q] = r[q];
+}
+%(inst)s
+"""
+# SASS opcodes by class: the FP64 pipe's, the rest apart
+SASS_FP64 = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET")
+SASS_CLASSES = (
+    ("int", ("IADD3", "IMAD", "LEA", "SHF", "LOP3", "ISETP", "IABS",
+             "IMNMX", "FLO", "POPC", "SHL", "SHR", "LOP", "IADD", "BMSK")),
+    ("fp32", ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FCHK", "FSET")),
+    ("branch", ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "WARPSYNC",
+                "BREAK", "YIELD", "JMP", "BMOV")),
+    ("shfl", ("SHFL",)),
+)
+
+
+def k2_probe_cubin(src, parent):
+    """Compile the step probes of the K2 source ``src`` (``parent``: the
+    one-lane design before the variants, whose integrate<> takes no lane)
+    to a cubin with K2's code-generation flags; returns its path."""
+    import hashlib
+    from bluest_tpu_torch.ops import _build
+    from bluest_tpu_torch.ops import hodgkin_huxley as k2
+    lanes = (1,) if parent else tuple(k2.VARIANTS.values())
+    text = K2_PROBE % {
+        "src": os.path.abspath(src),
+        "bounds": "" if parent else ", HH_MIN_BLOCKS",
+        "call": "integrate<KIND>(e, p[0], p[1], p[2], r);" if parent else
+        "integrate<KIND, LANES>(e, p[0], p[1], p[2], threadIdx.x % LANES, r);",
+        "inst": "\n".join(
+            "template __global__ void k2_step_probe<%d, %d>(const double*, "
+            "double*, int);" % (kind, ln) for kind in (0, 1, 2)
+            for ln in lanes)}
+    with open(src, "rb") as f:
+        tag = hashlib.sha1(f.read() + text.encode()).hexdigest()[:16]
+    d = os.path.join(_build.BUILD_DIR, "k2_sass")
+    os.makedirs(d, exist_ok=True)
+    cu = os.path.join(d, "probe_%s.cu" % tag)
+    cubin = cu[:-3] + ".cubin"
+    if not os.path.exists(cubin):
+        with open(cu, "w") as f:
+            f.write(text)
+        flags = [x for x in _build.BASE_FLAGS
+                 if x not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas",
+                              "-v")]
+        proc = subprocess.run([_build.find_nvcc(), "-cubin"] + flags
+                              + ["-o", cubin + ".tmp", cu],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed on the K2 step probes:\n%s"
+                               % (proc.stdout + proc.stderr))
+        os.replace(cubin + ".tmp", cubin)
+    return cubin
+
+
+def sass_step_counts(cubin):
+    """{(kind, lanes): counts} of one step, from cuobjdump -sass of the
+    probes: the instructions of each probe's loop (from the target of its
+    first backward branch to that branch; both sides of a branch inside
+    counted) and of each subroutine the loop calls on every pass (from
+    its entry to its first RET: libdevice's pow keeps its log there), by
+    opcode class, with "fp64" the FP64 pipe's (SASS_FP64) and "mufu" MUFU
+    apart; "skipped_calls" counts the calls a forward branch of the loop
+    can jump over (the slow paths of division and exp), not added."""
+    import re
+    from bluest_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", cubin], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs, cur, pending = {}, None, []
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), ([], {}))
+            pending = []
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L\w*):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                cur[1][lab] = addr
+            pending = []
+            cur[0].append((addr, m.group(2)))
+    out = {}
+    for name, (ins, labels) in funcs.items():
+        m = re.search(r"k2_step_probeILi(\d)ELi(\d)E", name)
+        if not m:
+            continue
+        ops = []
+        for addr, body in ins:
+            tok = body.split()
+            if tok[0].startswith("@"):
+                tok = tok[1:]
+            op = tok[0]
+            target = None
+            if op.split(".")[0] == "BRA":
+                rest = " ".join(tok[1:])
+                t = re.search(r"`\((\.L\w*)\)", rest)
+                if t:
+                    target = labels.get(t.group(1))
+                else:
+                    t = re.search(r"0x([0-9a-f]+)", rest)
+                    target = int(t.group(1), 16) if t else None
+            ops.append((addr, op, target))
+        back = [(addr, target) for addr, _, target in ops
+                if target is not None and target < addr]
+        if not back:
+            raise AssertionError("no loop in the SASS of %s" % name)
+        end, start = min(back)
+        counts = dict.fromkeys(("fp64", "mufu") + SASS_FP64
+                               + tuple(c for c, _ in SASS_CLASSES)
+                               + ("other", "all", "skipped_calls"), 0)
+
+        def add(addr_ok):
+            for addr, op, _ in ops:
+                if not addr_ok(addr):
+                    continue
+                base = op.split(".")[0]
+                counts["all"] += 1
+                if base in SASS_FP64:
+                    counts["fp64"] += 1
+                    counts[base] += 1
+                elif base == "MUFU":
+                    counts["mufu"] += 1
+                else:
+                    cls = [c for c, names in SASS_CLASSES if base in names]
+                    counts[cls[0] if cls else "other"] += 1
+
+        add(lambda a: start <= a <= end)
+        jumps = [(addr, target) for addr, _, target in ops
+                 if target is not None and start <= addr < target]
+        for addr, op, _ in ops:
+            if not (start <= addr <= end and op.startswith("CALL")):
+                continue
+            if any(a < addr < t for a, t in jumps):
+                counts["skipped_calls"] += 1
+                continue
+            body = ins[[a for a, _ in ins].index(addr)][1]
+            entry = int(re.search(r"0x([0-9a-f]+)", body).group(1), 16)
+            ret = min(a for a, o, _ in ops if a >= entry
+                      and o.startswith("RET"))
+            add(lambda a: entry <= a <= ret)
+        out[(int(m.group(1)), int(m.group(2)))] = counts
+    return out
+
+
+def parent_k2(src):
+    """K2 of another csrc/hodgkin_huxley.cu with the one-lane C interface
+    (bluest_hh_outputs_f64 without a lanes argument, as the design before
+    the variants has), built with K2's nvcc flags beside the package's
+    libraries, as a launcher (models, x) -> (n, 5, L) on the current
+    stream, one launch per table of launch_plan.  For timing in turns
+    only: it is counted nowhere and never on a path."""
+    import ctypes
+    import torch
+    from bluest_tpu_torch.ops import _build
+    from bluest_tpu_torch.ops import hodgkin_huxley as k2
+    lib = ctypes.CDLL(_build.build(src, k2.NVCC_FLAGS))
+    fn = lib.bluest_hh_outputs_f64
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
+
+    def run(models, x):
+        n, L = x.shape[0], len(models)
+        out = torch.empty((n, 5, L), dtype=torch.float64, device=x.device)
+        for launch in k2.launch_plan(models, n):
+            e = launch.entries
+            rc = fn(x.data_ptr(), out.data_ptr(), n, L, len(e),
+                    *k2._table_args(e),
+                    torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError("parent K2: CUDA error %d (n=%d, L=%d)"
+                                   % (rc, n, L))
+        return out
+    return run
+
+
+@contextlib.contextmanager
+def smi_sampler(period_ms=100):
+    """nvidia-smi's SM clock (MHz), power draw and power limit (W),
+    sampled every ``period_ms`` while the block runs: the list it yields
+    holds (clock, draw, limit) once the block has ended."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader,nounits", "-lms", str(period_ms)],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    samples = []
+    try:
+        yield samples
+    finally:
+        proc.terminate()
+        try:
+            out = proc.communicate(timeout=30)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out = proc.communicate()[0]
+        for line in out.splitlines():
+            try:
+                samples.append(tuple(float(v) for v in line.split(",")))
+            except ValueError:
+                pass
+
+
+def k2_fp64_instructions(models, n, lanes, counts):
+    """FP64 instructions a K2 launch of ``models`` at n samples issues,
+    from the SASS counts of one step per thread: steps x threads."""
+    from bluest_tpu_torch.ops.hodgkin_huxley import n_steps
+    return sum(n_steps(dt) * n * lanes * counts[(kind, lanes)]["fp64"]
+               for kind, dt in models)
+
+
+def k2_issue_share(instructions, clock_mhz, ms, sms):
+    """Share of the FP64 pipe's issue slots (64 lanes an SM a clock) that
+    ``instructions`` thread-instructions fill in ``ms`` at ``clock_mhz``."""
+    return instructions / (sms * 64 * clock_mhz * 1e6 * ms * 1e-3)
+
+
+def phase_k2_check(parent=None, sass=None):
     """K2 against its plain version on the same card and inputs: each of
     the 12 default models alone and the 12-model group, at every n of
-    K2_CHECK_N; each launch counted.  Then K2's time (CUDA events after
-    warm-up) at n=K2_TIMED_N for model 0 and for the group, beside its
-    bound and the plain version's time, in turns (plain, kernel, kernel,
-    plain).  Returns the kernel line's numbers, and the inputs and plain
-    outputs for phase 6(b), which holds its K=3 groups against them."""
+    K2_CHECK_N, in every variant and in the one launch_plan picks; each
+    launch counted, and by variant.  Then the SASS counts of one step of
+    each kind, variant and design (``sass``: {design: counts}); each
+    variant's time (CUDA events after warm-up) at model 0 and the group
+    for n in K2_SWEEP_N beside its FP64 issue share, the SM clock sampled
+    meanwhile; with ``parent`` (parent_k2), the earlier design and this
+    one in turns (parent, new, new, parent) at K2_TURNS; and the time at
+    n=K2_TIMED_N for model 0 and the group beside the bound and the plain
+    version's time, in turns (plain, kernel, kernel, plain).  Returns the
+    kernel line's numbers, and the inputs and plain outputs for phase
+    6(b), which holds its K=3 groups against them."""
+    import statistics as st
     import torch
     from bluest_tpu_torch.models.hodgkin_huxley import DEFAULT_MODELS
     from bluest_tpu_torch.ops import hodgkin_huxley as k2
     t_phase = time.perf_counter()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     xs = [hh_params(n, 100 + i) for i, n in enumerate(K2_CHECK_N)]
     # the plain version computes each row on its own, elementwise: one call
     # on all the batches' rows gives each batch's outputs
@@ -907,35 +1194,121 @@ def phase_k2_check():
     log("K2 check: plain version of the 12 models on %d rows (n in %s): "
         "%.3f s" % (sum(K2_CHECK_N), K2_CHECK_N, time.perf_counter() - t0))
     stats = []
+    by_variant = k2.hh_group_outputs.launches_by_variant
     for x, ref in zip(xs, refs):
         n = x.shape[0]
         cases = [(str(l), (m,), [l]) for l, m in enumerate(DEFAULT_MODELS)]
         cases.append(("group", DEFAULT_MODELS, list(range(12))))
-        for name, models, cols in cases:
-            before = k2.hh_group_outputs.launches
-            got = k2.hh_group_outputs(models, x)
-            _sync()
-            if k2.hh_group_outputs.launches != before + 1:
-                raise AssertionError("K2 did not launch once for model(s) "
-                                     "%s at n=%d" % (name, n))
-            stats.append(k2_holds(got, ref[:, :, cols],
-                                  "model(s) %s, n=%d" % (name, n)))
+        picks = {}
+        for variant in tuple(k2.VARIANTS) + (None,):
+            for name, models, cols in cases:
+                want = variant or k2.launch_plan(models, n, sms)[0].variant
+                before = (k2.hh_group_outputs.launches, by_variant[want])
+                got = k2.hh_group_outputs(models, x, variant=variant)
+                _sync()
+                if (k2.hh_group_outputs.launches,
+                        by_variant[want]) != (before[0] + 1, before[1] + 1):
+                    raise AssertionError("K2 (%s) did not launch once for "
+                                         "model(s) %s at n=%d"
+                                         % (want, name, n))
+                stats.append(k2_holds(got, ref[:, :, cols],
+                                      "%s, model(s) %s, n=%d"
+                                      % (variant or "picked " + want, name,
+                                         n)))
+                if variant is None:
+                    picks[want] = picks.get(want, 0) + 1
         fin = int(torch.isfinite(ref).all(dim=1).sum())
-        log("K2 n=%5d: 12 models and the group hold; %d of %d (row, model) "
-            "pairs finite" % (n, fin, 12 * n))
-    worst = max(st[0] for st in stats)
-    same, total = sum(st[1] for st in stats), sum(st[2] for st in stats)
-    max_abs = max(st[3] for st in stats)
+        log("K2 n=%5d: 12 models and the group hold in every variant (%s) "
+            "and as picked %s; %d of %d (row, model) pairs finite"
+            % (n, ", ".join(k2.VARIANTS), picks, fin, 12 * n))
+    worst = max(s_[0] for s_ in stats)
+    same, total = sum(s_[1] for s_ in stats), sum(s_[2] for s_ in stats)
+    max_abs = max(s_[3] for s_ in stats)
     log("K2 vs plain, %d launches: max normwise rel diff %.3e, max abs diff "
         "%.3e, bit-equal entries %d of %d (%.6f%%)"
         % (len(stats), worst, max_abs, same, total, 100.0 * same / total))
+
+    # SASS: one step of each kind, per thread
+    sass = sass or {}
+    kinds = {0: "HH RK4", 1: "HH Euler", 2: "FHN RK4"}
+    for design, counts in sorted(sass.items()):
+        for (kind, lanes), c in sorted(counts.items()):
+            log("K2 SASS %s lanes=%d %s step, per thread: FP64 %d (DADD %d, "
+                "DMUL %d, DFMA %d, DSETP %d), MUFU %d, int %d, fp32 %d, "
+                "shfl %d, branch %d, other (moves, selects, memory) %d; all "
+                "%d (%d calls to slow paths not counted)"
+                % (design, lanes, kinds[kind], c["fp64"], c["DADD"],
+                   c["DMUL"], c["DFMA"], c["DSETP"], c["mufu"], c["int"],
+                   c["fp32"], c["shfl"], c["branch"], c["other"], c["all"],
+                   c["skipped_calls"]))
+    new_counts = sass.get("new")
+
+    def share(models, n, lanes, ms, counts, clock):
+        if counts is None or not clock:
+            return float("nan")
+        return k2_issue_share(k2_fp64_instructions(models, n, lanes, counts),
+                              clock, ms, sms)
+
+    shapes = {"model0": DEFAULT_MODELS[:1], "group": DEFAULT_MODELS}
+    sweep, turns = [], []
+    with smi_sampler() as smi:
+        # every variant over n: the host rule's ground
+        for n in K2_SWEEP_N:
+            x = hh_params(n, 7)
+            for name, models in shapes.items():
+                row = {v: _time_ms(lambda: k2.hh_group_outputs(
+                    models, x, variant=v), 5) for v in k2.VARIANTS}
+                sweep.append((name, n, row,
+                              k2.launch_plan(models, n, sms)[0].variant))
+        # the earlier design in turns: parent, new, new, parent
+        if parent is not None:
+            for name, n in K2_TURNS:
+                models, x = shapes[name], hh_params(n, 8)
+                t = [_time_ms(lambda: parent(models, x), 20),
+                     _time_ms(lambda: k2.hh_group_outputs(models, x), 20),
+                     _time_ms(lambda: k2.hh_group_outputs(models, x), 20),
+                     _time_ms(lambda: parent(models, x), 20)]
+                turns.append((name, n, t))
+    clocks = [c[0] for c in smi]
+    clock = st.median(clocks) if clocks else None
+    if clocks:
+        log("K2 timing: SM clock %.0f MHz median (%.0f-%.0f), power draw "
+            "%.1f-%.1f W, limit %.2f W (%d nvidia-smi samples)"
+            % (clock, min(clocks), max(clocks), min(c[1] for c in smi),
+               max(c[1] for c in smi), smi[0][2], len(smi)))
+    else:
+        log("K2 timing: nvidia-smi gave no SM clock; issue shares not "
+            "computed")
+    for name, n, row, pick in sweep:
+        models = shapes[name]
+        bound = k2_bound_ms(models, n)[0]
+        log("K2 sweep %s n=%5d (fill %.3f, picks %s; bound %.5f ms): %s"
+            % (name, n, k2.fill(k2.launch_plan(models, n, sms)[0].entries,
+                                n, sms), pick, bound,
+               ", ".join("%s %.4f ms (FP64 issue %.1f%%)"
+                         % (v, ms, 100 * share(models, n, k2.VARIANTS[v], ms,
+                                               new_counts, clock))
+                         for v, ms in row.items())))
+    turns_out = {}
+    for name, n, (p1, n1, n2, p2) in turns:
+        models = shapes[name]
+        lanes = k2.VARIANTS[k2.launch_plan(models, n, sms)[0].variant]
+        log("K2 in turns %s n=%d: parent %.4f / %.4f ms, new %.4f / %.4f ms "
+            "(parent, new, new, parent): %.2fx; FP64 issue parent %.1f%%, "
+            "new %.1f%%; bound %.5f ms"
+            % (name, n, p1, p2, n1, n2, min(p1, p2) / min(n1, n2),
+               100 * share(models, n, 1, min(p1, p2), sass.get("parent"),
+                           clock),
+               100 * share(models, n, lanes, min(n1, n2), new_counts, clock),
+               k2_bound_ms(models, n)[0]))
+        turns_out["%s_n%d" % (name, n)] = {"parent_ms": [p1, p2],
+                                           "ms": [n1, n2]}
 
     # in turns: the plain version, K2 (model 0, the group), K2 again, the
     # plain version again; a plain turn runs the 12 models one after
     # another, as hh_group_outputs_plain does, so it times model 0 and
     # the group at once
     x = xs[K2_CHECK_N.index(K2_TIMED_N)]
-    cases = (("model0", DEFAULT_MODELS[:1]), ("group", DEFAULT_MODELS))
     plain_turns, kernel_turns = [], []
     for turn in range(4):
         if turn in (0, 3):
@@ -945,11 +1318,11 @@ def phase_k2_check():
         else:
             kernel_turns.append({
                 name: _time_ms(lambda: k2.hh_group_outputs(models, x), 10)
-                for name, models in cases})
+                for name, models in shapes.items()})
     timed = {}
-    for name, models in cases:
-        (t1, t2), (p1, p2) = ([t[name] for t in turns]
-                              for turns in (kernel_turns, plain_turns))
+    for name, models in shapes.items():
+        (t1, t2), (p1, p2) = ([t[name] for t in turns_]
+                              for turns_ in (kernel_turns, plain_turns))
         bound, by, ops, nbytes = k2_bound_ms(models, K2_TIMED_N)
         ms = min(t1, t2)
         log("K2 timing %s n=%d: kernel %.4f / %.4f ms, plain %.1f / %.1f ms "
@@ -958,13 +1331,16 @@ def phase_k2_check():
             % (name, K2_TIMED_N, t1, t2, p1, p2, ops / 1e9, nbytes / 1e6,
                bound, by, 100 * bound / ms))
         timed[name] = {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound,
-                       "bound_by": by}
+                       "bound_by": by,
+                       "variant": k2.launch_plan(models, K2_TIMED_N,
+                                                 sms)[0].variant}
     log("K2 check: %.3f s" % (time.perf_counter() - t_phase))
     g = timed["group"]
     return {"xs": xs, "refs": refs, "max_abs_err": max_abs,
             "bit_equal_share": same / total, "ms": g["ms"],
             "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
-            "bound_by": g["bound_by"], "model0": timed["model0"]}
+            "bound_by": g["bound_by"], "model0": timed["model0"],
+            "sm_clock_mhz": clock, "in_turns": turns_out}
 
 
 def _total_samples(problem):
@@ -1576,6 +1952,36 @@ def _device_kernels(fn):
 
 
 @contextlib.contextmanager
+def logging_k2_launches():
+    """Log, in the list it yields, each K2 launch as (entries' (kind, dt),
+    n, variant); the launches themselves are unchanged."""
+    from bluest_tpu_torch.ops import hodgkin_huxley as k2
+    shapes = []
+    real = k2._launch
+
+    def logged(lib, params, out, entries, variant, stream):
+        shapes.append((tuple((kind, dt) for _, kind, _, dt in entries),
+                       params.shape[0], variant))
+        return real(lib, params, out, entries, variant, stream)
+
+    k2._launch = logged
+    try:
+        yield shapes
+    finally:
+        k2._launch = real
+
+
+def k2_launch_summary(shapes, models):
+    """The logged launches as 'models (indices into ``models``) n=..
+    variant: count' lines, most launches first."""
+    import collections
+    c = collections.Counter(
+        (tuple(models.index(m) for m in ms), n, v) for ms, n, v in shapes)
+    return ["%s n=%d %s: %d" % (list(ls), n, v, k)
+            for (ls, n, v), k in sorted(c.items(), key=lambda kv: -kv[1])]
+
+
+@contextlib.contextmanager
 def counting_group_evals():
     """Count, in the list it yields, the Hodgkin-Huxley group evaluations
     (calls of HodgkinHuxleyProblem.evaluate_group with rows, the group
@@ -1589,7 +1995,8 @@ def counting_group_evals():
     def counted(self, ls, params):
         if params.shape[0] > 0:
             need[0] += 1
-            need[1] += len(launch_plan([self.models[l] for l in ls]))
+            need[1] += len(launch_plan([self.models[l] for l in ls],
+                                       params.shape[0]))
         return real(self, ls, params)
 
     HodgkinHuxleyProblem.evaluate_group = counted
@@ -1599,7 +2006,7 @@ def counting_group_evals():
         HodgkinHuxleyProblem.evaluate_group = real
 
 
-def phase_hodgkin_huxley(times, graph, k2c, hh_launches):
+def phase_hodgkin_huxley(times, graph, k2c, hh_launches, hh_by_variant):
     """6(b): all 12 Hodgkin-Huxley models through the group engine, the
     counted run (pilot, allocation, solve) through K2; the pilot's graph
     is saved to ``graph`` for phase 11."""
@@ -1610,8 +2017,10 @@ def phase_hodgkin_huxley(times, graph, k2c, hh_launches):
     from bluest_tpu_torch.sampling.engine import finite_rows
     # the counted run: K2's count set to 0 just before the pilot and read
     # just after the solve
-    with counting_group_evals() as evals:
+    with counting_group_evals() as evals, logging_k2_launches() as shapes:
         k2.hh_group_outputs.launches = 0
+        for v in k2.hh_group_outputs.launches_by_variant:
+            k2.hh_group_outputs.launches_by_variant[v] = 0
         t0 = time.perf_counter()
         p = hh.HodgkinHuxleyProblem(covariance_estimation_samples=HH_PILOT,
                                     device_batch_size=HH_BATCH,
@@ -1635,25 +2044,40 @@ def phase_hodgkin_huxley(times, graph, k2c, hh_launches):
         _sync()
         times["hh_solve_s"] = time.perf_counter() - t0
         launches = k2.hh_group_outputs.launches
+        by_variant = dict(k2.hh_group_outputs.launches_by_variant)
     hh_launches["hh_group_engine"] = launches
+    hh_by_variant["hh_group_engine"] = by_variant
     log("HH: setup_solver(K=3, budget=%.6g) %.3f s (L=%d), %d active groups "
         "%s, solve %.3f s, cost %.8g"
         % (HH_BUDGET, times["hh_setup_s"], p.MOSAP.L, len(active), active,
            times["hh_solve_s"], cost))
-    log("HH K2 launches %d (group evaluations %d, launches they need %d)"
-        % (launches, evals[0], evals[1]))
-    if not launches == evals[1] == evals[0] > 0:
+    log("HH K2 launches %d (group evaluations %d, launches they need %d), "
+        "by variant %s"
+        % (launches, evals[0], evals[1], by_variant))
+    log("HH walls beside the one-lane pow design's: hh_pilot_s %.3f (%.3f), "
+        "hh_solve_s %.3f (%.3f)"
+        % (times["hh_pilot_s"], HH_WALLS_ONE_LANE_POW["hh_pilot_s"],
+           times["hh_solve_s"], HH_WALLS_ONE_LANE_POW["hh_solve_s"]))
+    for line in k2_launch_summary(shapes, p.models):
+        log("  HH K2 launch (models, n, variant): " + line)
+    if not launches == evals[1] == evals[0] == len(shapes) > 0:
         raise AssertionError("HH: K2 launched %d times for %d group "
                              "evaluations" % (launches, evals[0]))
+    if sum(by_variant.values()) != launches:
+        raise AssertionError("HH: K2's launches by variant %s do not add up "
+                             "to %d" % (by_variant, launches))
 
     # K2 on this allocation's K=3 groups against the plain version, on the
-    # K2 check's inputs
+    # K2 check's inputs, in every variant
     for g, _ in active:
         for x, ref in zip(k2c["xs"], k2c["refs"]):
-            got = k2.hh_group_outputs([p.models[l] for l in g], x)
-            _sync()
-            k2_holds(got, ref[:, :, g], "group %s, n=%d" % (g, x.shape[0]))
-    log("HH K2 holds on the %d active groups at n in %s"
+            for v in k2.VARIANTS:
+                got = k2.hh_group_outputs([p.models[l] for l in g], x,
+                                          variant=v)
+                _sync()
+                k2_holds(got, ref[:, :, g], "%s, group %s, n=%d"
+                         % (v, g, x.shape[0]))
+    log("HH K2 holds on the %d active groups at n in %s in every variant"
         % (len(active), K2_CHECK_N))
 
     # device items per evaluation of the finest model: the plain version
@@ -1853,14 +2277,15 @@ def phase_host_model(times):
     _within_bars("host model MC vs exp(0.5)", mus, errs, [TRUE_MEAN], [0.0])
 
 
-def phase_user_models(launches_by_path, hh_graph, k2c, hh_launches):
+def phase_user_models(launches_by_path, hh_graph, k2c, hh_launches,
+                      hh_by_variant):
     """Phase 6: every part raises on failure; nothing is caught."""
     times = {}
     kept = {}
     t0 = time.perf_counter()
     for name, run in (("a", lambda: phase_matern(times)),
-                      ("b", lambda: phase_hodgkin_huxley(times, hh_graph,
-                                                         k2c, hh_launches)),
+                      ("b", lambda: phase_hodgkin_huxley(
+                          times, hh_graph, k2c, hh_launches, hh_by_variant)),
                       ("c", lambda: phase_snapshots(times, launches_by_path)),
                       ("d", lambda: phase_host_model(times))):
         t = time.perf_counter()
@@ -2515,7 +2940,7 @@ def _ex_matern(times):
         % (len(res["allocations"]), res["mu"], res["err"]))
 
 
-def _ex_hodgkin_huxley(times, hh_launches):
+def _ex_hodgkin_huxley(times, hh_launches, hh_by_variant):
     """9(c): the HH example as it ships (the 6-model subset, a pilot of
     1024) and with --full (the paper's 12 models), each with K2's count
     set to 0 just before and read just after: its launches equal to the
@@ -2529,13 +2954,18 @@ def _ex_hodgkin_huxley(times, hh_launches):
     for argv, path in (([], "hh_example"), (["--full"], "hh_example_full")):
         with counting_group_evals() as evals:
             k2.hh_group_outputs.launches = 0
+            for v in k2.hh_group_outputs.launches_by_variant:
+                k2.hh_group_outputs.launches_by_variant[v] = 0
             res, _ = _run_script(name, argv, times)
             launches = k2.hh_group_outputs.launches
+            by_variant = dict(k2.hh_group_outputs.launches_by_variant)
         times[path + "_s"] = times.pop(name + "_s")
         hh_launches[path] = launches
-        log("9(c) %s: K2 launches %d (group evaluations %d)"
-            % (" ".join([name] + argv), launches, evals[0]))
-        if not launches == evals[1] == evals[0] > 0:
+        hh_by_variant[path] = by_variant
+        log("9(c) %s: K2 launches %d (group evaluations %d), by variant %s"
+            % (" ".join([name] + argv), launches, evals[0], by_variant))
+        if not (launches == evals[1] == evals[0] > 0
+                and sum(by_variant.values()) == launches):
             raise AssertionError("9(c): K2 launched %d times for %d group "
                                  "evaluations" % (launches, evals[0]))
         est, errs = np.asarray(res["estimates"]), np.asarray(res["errors"])
@@ -2602,14 +3032,15 @@ def _tutorial(times):
         raise AssertionError("9(f): the tutorial did not complete")
 
 
-def phase_front_door(launches_by_path, hh_launches):
+def phase_front_door(launches_by_path, hh_launches, hh_by_variant):
     """Phase 9: every part raises on failure; nothing is caught."""
     times = {}
     t0 = time.perf_counter()
     for name, run in (
             ("a", lambda: _ex_diffusion(times, launches_by_path)),
             ("b", lambda: _ex_matern(times)),
-            ("c", lambda: _ex_hodgkin_huxley(times, hh_launches)),
+            ("c", lambda: _ex_hodgkin_huxley(times, hh_launches,
+                                             hh_by_variant)),
             ("d", lambda: _ex_navier_stokes(times)),
             ("e", lambda: _ex_nested(times)),
             ("f", lambda: _tutorial(times))):
@@ -3147,13 +3578,14 @@ def _option(name):
 def main():
     import torch
     name, smi = phase_device()
-    phase_build()
+    built = phase_build(_option("--k2-parent-source"))
     k = phase_kernel_check()
     parent = (parent_wide(_option("--parent-source"))
               if _option("--parent-source") else None)
     w = phase_wide_check(parent)
-    h = phase_k2_check()
+    h = phase_k2_check(built["k2_parent"], built["sass"])
     hh_launches = {}                    # K2's launches per path
+    hh_by_variant = {}                  # and by variant
     with tempfile.TemporaryDirectory() as d:
         graph = os.path.join(d, "flagship_graph.npz")
         hh_graph = os.path.join(d, "hh_graph.npz")
@@ -3166,13 +3598,13 @@ def main():
             phase_target_rmse(f["problem"], graph, launches_by_path)
         with allocation_log("phase 6"):
             matern = phase_user_models(launches_by_path, hh_graph, h,
-                                       hh_launches)
+                                       hh_launches, hh_by_variant)
         with allocation_log("phase 7"):
             phase_allocation_families(f, matern, launches_by_path)
         with allocation_log("phase 8"):
             phase_distribution(f, graph, launches_by_path)
         with allocation_log("phase 9"):
-            phase_front_door(launches_by_path, hh_launches)
+            phase_front_door(launches_by_path, hh_launches, hh_by_variant)
         with allocation_log("phase 10"):
             deep = phase_deep_flagship(smi)["launches"]
         launches_by_path["deep_flagship"] = deep["k1"]
@@ -3202,11 +3634,13 @@ def main():
         "name": "hh_group_outputs", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": sum(hh_launches.values()),
         "launches_by_path": hh_launches,
+        "launches_by_variant": hh_by_variant,
         "max_abs_err": h["max_abs_err"], "ms": h["ms"],
         "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
         "bound_by": h["bound_by"], "library_ms": None,
         "timed": "the 12 default models, n=%d" % K2_TIMED_N,
-        "model0": h["model0"],
+        "model0": h["model0"], "sm_clock_mhz": h["sm_clock_mhz"],
+        "in_turns": h["in_turns"],
         "bit_equal_share": h["bit_equal_share"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

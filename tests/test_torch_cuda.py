@@ -390,6 +390,66 @@ def test_k2_refuses_on_the_card(cuda):
     assert k2.hh_group_outputs.launches == before
 
 
+_K2_PLAIN = {}
+
+
+def _k2_plain_ref(n):
+    """The plain version's outputs of the 12 default models at n (one
+    call, kept for the variant tests)."""
+    from chip_smoke import hh_params
+    from bluest_tpu_torch.models.hodgkin_huxley import DEFAULT_MODELS
+    from bluest_tpu_torch.ops import hodgkin_huxley as k2
+    if n not in _K2_PLAIN:
+        x = hh_params(n, 1000 + n)
+        _K2_PLAIN[n] = x, k2.hh_group_outputs_plain(DEFAULT_MODELS, x)
+    return _K2_PLAIN[n]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 77, 256, 16384])
+@pytest.mark.parametrize("variant", ["thread", "lanes8"])
+def test_k2_variant_matches_plain(cuda, variant, n):
+    """Each variant forced on each default model alone and on the
+    12-model group: bit-equal to the plain version (k2_holds), each launch
+    counted once, in its variant."""
+    from chip_smoke import k2_holds
+    from bluest_tpu_torch.models.hodgkin_huxley import DEFAULT_MODELS
+    from bluest_tpu_torch.ops import hodgkin_huxley as k2
+    x, ref = _k2_plain_ref(n)
+    by_variant = k2.hh_group_outputs.launches_by_variant
+    cases = [((m,), [l]) for l, m in enumerate(DEFAULT_MODELS)]
+    cases.append((DEFAULT_MODELS, list(range(12))))
+    for models, cols in cases:
+        before = (k2.hh_group_outputs.launches, by_variant[variant])
+        got = k2.hh_group_outputs(models, x, variant=variant)
+        torch.cuda.synchronize()
+        assert (k2.hh_group_outputs.launches, by_variant[variant]) == (
+            before[0] + 1, before[1] + 1)
+        k2_holds(got, ref[:, :, cols], "%s, models %s" % (variant, cols))
+
+
+@pytest.mark.gpu
+def test_k2_refuses_a_variant_it_does_not_take(cuda):
+    """A variant name outside VARIANTS raises before any launch, and the C
+    entry point refuses a lane count it has no kernel for."""
+    import ctypes
+    from bluest_tpu_torch.ops import hodgkin_huxley as k2
+    x = torch.zeros((4, 3), dtype=torch.float64, device=cuda)
+    before = k2.hh_group_outputs.launches
+    for bad in ("lanes2", "lanes4", "lanes16", "warp", ""):
+        with pytest.raises(ValueError, match="variant"):
+            k2.hh_group_outputs(((0, 0.08),), x, variant=bad)
+    assert k2.hh_group_outputs.launches == before
+    lib = k2.build_library()
+    out = torch.empty((4, 5, 1), dtype=torch.float64, device=cuda)
+    ints = (ctypes.c_int * 3)(0, 125, 0)
+    reals = (ctypes.c_double * 4)(0.08, 0.04, 0.08 / 6.0, 1.0 / 125)
+    for lanes in (0, 2, 3, 4, 16, 32):
+        assert lib.bluest_hh_outputs_f64(
+            x.data_ptr(), out.data_ptr(), 4, 1, 1, ints, reals, lanes,
+            torch.cuda.current_stream().cuda_stream) != 0
+
+
 @pytest.mark.gpu
 def test_group_engine_launches_k2_once_per_round(cuda):
     """A group-engine draw of HH models on the card launches K2 once per

@@ -179,11 +179,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 def test_launch_plan_splits_long_groups_longest_first():
     """Up to MAX_MODELS models a launch; longer tuples take more launches,
     every column once, each table longest model first."""
-    assert len(k2.launch_plan(DEFAULT_MODELS)) == 1
-    (table,) = k2.launch_plan(DEFAULT_MODELS)
+    assert len(k2.launch_plan(DEFAULT_MODELS, 16384)) == 1
+    ((_, table),) = k2.launch_plan(DEFAULT_MODELS, 16384)
     assert [e[0] for e in table[:5]] == [0, 1, 8, 4, 2]  # HH RK4 0.01 first
     models = [DEFAULT_MODELS[i % 12] for i in range(40)]
-    plan = k2.launch_plan(models)
+    plan = [launch.entries for launch in k2.launch_plan(models, 16384)]
     assert [len(t) for t in plan] == [k2.MAX_MODELS, 40 - k2.MAX_MODELS]
     cols = [e[0] for t in plan for e in t]
     assert sorted(cols) == list(range(40))
@@ -191,6 +191,60 @@ def test_launch_plan_splits_long_groups_longest_first():
     assert cost == sorted(cost, reverse=True)
     for col, kind, steps, dt in (e for t in plan for e in t):
         assert (kind, dt) == models[col] and steps == k2.n_steps(dt)
+
+
+def _fill_boundary(models, sm_count):
+    """The largest n at which launch_plan's rule still takes eight lanes:
+    a one-lane launch has ceil(n / 32) warps per model, each model's
+    weighted by its steps x STEP_OPS over the longest's, spread over 4
+    sub-partitions an SM."""
+    cost = [k2.n_steps(dt) * k2.STEP_OPS[kind] for kind, dt in models]
+    w = sum(cost) / max(cost)
+    return 32 * int(k2.LANES8_MAX_FILL * 4 * sm_count / w)
+
+
+@pytest.mark.parametrize("sm_count", [132, 66])
+@pytest.mark.parametrize("name,models", [("model0", DEFAULT_MODELS[:1]),
+                                         ("group", DEFAULT_MODELS)])
+def test_launch_plan_variant_rule(name, models, sm_count):
+    """Eight lanes a sample while the launch leaves the card emptier than
+    LANES8_MAX_FILL, one lane past it: at the boundary n and at 1, 256,
+    16384 and 65536 samples (the H100's 132 SMs, and half of them)."""
+    def variant(n):
+        (launch,) = k2.launch_plan(models, n, sm_count)
+        return launch.variant
+
+    nb = _fill_boundary(models, sm_count)
+    assert variant(nb) == "lanes8" and variant(nb + 1) == "thread"
+    want = {1: "lanes8", 256: "lanes8", 16384: "thread", 65536: "thread"}
+    for n, v in want.items():
+        assert variant(n) == v, (name, n, nb)
+    if sm_count == 132:
+        assert nb == {"model0": 11808, "group": 4128}[name]
+    # every table of a split group takes its own variant
+    plan = k2.launch_plan(list(models) * 40, 2048, sm_count)
+    assert {launch.variant for launch in plan} <= set(k2.VARIANTS)
+    with pytest.raises(ValueError):
+        k2.launch_plan(models, -1, sm_count)
+
+
+def test_integer_powers_match_jax_integer_pow():
+    """The plain version's n ** 4 (IK) and m ** 3 (INa, FHN's v ** 3) are
+    the products jax.lax.integer_pow takes, bit for bit, on 10^4 seeded
+    f64 gate values in [-0.1, 1.1]; the kernel computes the same
+    products."""
+    import bluest_tpu.config  # noqa: F401  (float64 on, as the package runs)
+    x = np.random.default_rng(12).uniform(-0.1, 1.1, 10_000)
+    xj = jnp.asarray(x)
+    assert xj.dtype == jnp.float64
+    for y, fn in ((4, k2._pow4), (3, k2._cube)):
+        ref = np.asarray(jax.jit(lambda v: jax.lax.integer_pow(v, y))(xj))
+        np.testing.assert_array_equal(fn(torch.as_tensor(x)).numpy(), ref)
+    # and on the gate's own range, whose squares JAX also takes
+    g = np.random.default_rng(13).random(10_000)
+    np.testing.assert_array_equal(
+        k2._pow4(torch.as_tensor(g)).numpy(),
+        np.asarray(jax.jit(lambda v: v ** 4)(jnp.asarray(g))))
 
 
 def test_more_models_than_one_table_on_the_cpu():
@@ -202,6 +256,18 @@ def test_more_models_than_one_table_on_the_cpu():
     for l, m in enumerate(models[:2]):
         assert torch.equal(out[:, :, l::2],
                            k2.hh_group_outputs((m,), P).expand(5, 5, 20))
+
+
+def test_cpu_refuses_an_unknown_variant():
+    """A forced variant must name one of VARIANTS on the CPU too (where
+    the plain version runs whatever the variant)."""
+    P = torch.as_tensor(_params(3, 5))
+    for v in k2.VARIANTS:
+        assert torch.equal(k2.hh_group_outputs(((2, 0.08),), P, variant=v),
+                           k2.hh_group_outputs(((2, 0.08),), P))
+    for bad in ("lanes4", "warp", 8):
+        with pytest.raises(ValueError, match="variant"):
+            k2.hh_group_outputs(((2, 0.08),), P, variant=bad)
 
 
 def test_cpu_tensors_never_touch_the_library(monkeypatch):
