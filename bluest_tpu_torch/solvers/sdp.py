@@ -10,19 +10,23 @@ Port of ``bluest_tpu/solvers/sdp.py``.  Solves
 via the homogeneous self-dual (HSD) embedding with Nesterov-Todd scaling
 and a Mehrotra predictor-corrector (see the JAX module's docstring for
 the derivation).  The iteration is the JAX package's, step for step; what
-differs is the loop around it: the fused ``lax.while_loop`` program becomes
-a Python loop over eager torch operations on ``allocation_device()``, so
-there is no trace, compile or crash-isolation worker.  The loop reads its
-device once an iteration, one packed tensor of the stopping quantities
-and the factorization status: the iteration's numbers stay 0-d f64
-tensors, its branches are selects (the Mehrotra safeguard forms both the
-corrected and the centering direction and keeps one), and its Cholesky
-factorizations report their status instead of raising.  On the host this
-gives the results of a loop that reads each number as it needs it, bit
-for bit.  On a card ``torch.linalg``'s eigenvalue and singular value
-solves (one SVD and three eigenvalue solves an iteration) still read
-their convergence status back themselves.  One choice differs from the
-JAX package: the normal equations are factored dense up to nx = 4096
+differs is the loop around it.  The JAX package runs the whole solve as
+one jitted ``lax.while_loop``; here a Python loop reads its device once an
+iteration, one packed tensor of the stopping quantities and the
+factorization statuses, and keeps the bookkeeping on the host.  The
+iteration's numbers stay 0-d f64 tensors, its branches are selects (the
+Mehrotra safeguard forms both the corrected and the centering direction
+and keeps one), and its factorizations and eigenvalue and singular value
+solves report a status instead of raising or reading back: Cholesky is
+``cholesky_ex``, and the NT scaling's SVD and the step lengths'
+eigenvalue solves are K3 and K4 (``ops.psd_eig``, hand-written Jacobi
+kernels on a card, ``torch.linalg`` on the host).  So on a card the
+iteration is one CUDA graph, captured once a solve attempt and replayed
+once an iteration (``_IterationGraph``): the iterate lives in static
+buffers, and taking a step is a device copy into them.  On the host the
+same loop calls the iteration eagerly and gives, bit for bit, the results
+of a loop that reads each number as it needs it.  One choice differs from
+the JAX package: the normal equations are factored dense up to nx = 4096
 (``_DENSE_MAX_NX``), where the JAX package takes its Woodbury path from
 nx = 256, because the Woodbury endgame leaves the status to round-off.
 
@@ -45,6 +49,7 @@ Woodbury path (all off by default there).
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import math
 import os
@@ -56,6 +61,7 @@ import numpy as np
 import torch
 
 from ..config import allocation_device, on_allocation_device
+from ..ops import psd_eig
 
 __all__ = ["ConeLPResult", "solve_cone_lp"]
 
@@ -128,10 +134,8 @@ def _sym(A):
 
 # The iteration reads nothing back from its device but one packed tensor
 # (``_read``).  Its numbers stay 0-d f64 tensors, its branches are
-# selects, and its factorizations report their status instead of raising.
-# ``torch.linalg`` reads back the convergence status of an eigenvalue or
-# singular value solve on a card itself (no flag turns that off): those
-# calls go through ``_eigvalsh`` and ``_svd``, so they can be told apart.
+# selects, and its factorizations and eigenvalue and singular value solves
+# append a status to ``infos`` instead of raising or reading it back.
 
 def _read(t: torch.Tensor) -> list:
     """The host read of one iteration: its stopping quantities and
@@ -139,12 +143,22 @@ def _read(t: torch.Tensor) -> list:
     return t.tolist()
 
 
-def _eigvalsh(A):
-    return torch.linalg.eigvalsh(A)
+def _eigvalsh(A, infos: list):
+    """Eigenvalues, ascending, of a batch of symmetric blocks (K3 on a
+    card, ``torch.linalg.eigvalsh`` on the host); the status is appended
+    to ``infos``."""
+    w, status = psd_eig.sym_eigvalsh(A.contiguous())
+    infos.append(status)
+    return w
 
 
-def _svd(A):
-    return torch.linalg.svd(A)
+def _svd(A, infos: list):
+    """(U, singular values) of a batch of blocks (K4 on a card,
+    ``torch.linalg.svd`` on the host); the status is appended to
+    ``infos``."""
+    U, sig, status = psd_eig.nt_svd(A.contiguous())
+    infos.append(status)
+    return U, sig
 
 
 def _cholesky(A, infos: list):
@@ -164,7 +178,8 @@ def _raise_if_failed(infos: list) -> None:
     solve (the start and the final polish), where the iteration's
     exception contract still holds."""
     if infos and not bool(_all_ok(infos)):
-        raise torch.linalg.LinAlgError("a Cholesky factorization failed")
+        raise torch.linalg.LinAlgError("a Cholesky factorization or an "
+                                       "eigenvalue solve failed")
 
 
 def _chol_factor(H, infos, jitter=1e-14):
@@ -247,7 +262,7 @@ def _nt_scaling(S, Z, infos):
     Ls = _cholesky(S, infos)
     Lz = _cholesky(Z, infos)
     M = Ls.transpose(-1, -2) @ Lz
-    U, sig, Vt = _svd(M)
+    U, sig = _svd(M, infos)
     sig = torch.clamp(sig, min=1e-150)
     R = (Ls @ U) / torch.sqrt(sig)[:, None, :]
     LsTinvU = torch.linalg.solve_triangular(Ls.transpose(-1, -2), U,
@@ -257,7 +272,7 @@ def _nt_scaling(S, Z, infos):
     return _sym(Tinv), R, Rinv, sig, Ls, Lz
 
 
-def _max_step_psd(L, dS, k=1):
+def _max_step_psd(L, dS, infos, k=1):
     """sup {a : S + a dS >= 0} over the blocks of each of ``k`` equal
     parts of the batch, with L the Cholesky factors of the S blocks:
     a (k,) tensor, from one eigenvalue solve.  The step is monotone in
@@ -265,7 +280,7 @@ def _max_step_psd(L, dS, k=1):
     gives the part's step."""
     M1 = torch.linalg.solve_triangular(L, dS, upper=False)
     M2 = torch.linalg.solve_triangular(L, M1.transpose(-1, -2), upper=False)
-    lam_min = _eigvalsh(_sym(M2))[:, 0].reshape(k, -1).amin(dim=1)
+    lam_min = _eigvalsh(_sym(M2), infos)[:, 0].reshape(k, -1).amin(dim=1)
     return torch.where(lam_min >= 0, np.inf,
                        -1.0 / torch.clamp(lam_min, max=-1e-150))
 
@@ -287,7 +302,7 @@ def _dual_polish(GT, Gall_mul, gsolve, p, nb, n, cj, z_lp, Z, tau, beta,
     if nb:
         dZc = _sym(delta[p:].reshape(nb, n, n))
         beta = torch.minimum(
-            beta, 0.99 * _max_step_psd(_cholesky(Z, infos), dZc)[0])
+            beta, 0.99 * _max_step_psd(_cholesky(Z, infos), dZc, infos)[0])
     beta = torch.clamp(beta, min=0.0)
     z_lp = z_lp + beta * delta[:p]
     if nb:
@@ -456,7 +471,8 @@ def _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve, cnorm,
         if nb:
             a = torch.minimum(a, _max_step_psd(
                 torch.cat([Ls, Lz] * k),
-                torch.cat([t for d in dirs for t in (d[1], d[3])]), k))
+                torch.cat([t for d in dirs for t in (d[1], d[3])]), infos,
+                k))
         return a
 
     zero_psd = torch.zeros_like(S) if nb else S
@@ -535,9 +551,83 @@ def _hsd_step(cj, Glj, hlj, Aj, Hj, GT, Gx, Gall_mul, gsolve, cnorm,
 
 # ------------------------------ full solve -------------------------------- #
 
+def _packed_iteration(core, cj, x, s_lp, S, z_lp, Z, tau, kappa):
+    """One iteration (``core``, a partial of ``_iteration_core``) and the
+    tensor its host read takes: (step, packed), ``packed`` = the
+    pre-step iterate's gap, residual norms, c^T x, tau and kappa, then,
+    when the step was formed, its step length, next tau and whether its
+    factorizations and eigenvalue solves held."""
+    step, ok, gap_r, pres_r, dres_r = core(x, s_lp, S, z_lp, Z, tau, kappa)
+    packed = [gap_r, pres_r, dres_r, cj @ x, tau, kappa]
+    if step is not None:
+        packed += [step[7], step[5], ok.to(F64)]
+    return step, torch.stack([torch.as_tensor(v, dtype=F64, device=cj.device)
+                              for v in packed])
+
+
+class _IterationGraph:
+    """The iteration over static buffers: the iterate (x, s_lp, S, z_lp, Z,
+    tau, kappa) lives in ``iterate``, ``run()`` gives the step and the
+    packed read from it, and ``adopt(step)`` copies the step into it.
+
+    With ``capture`` (a card) the first ``run()`` warms the iteration up
+    on a side stream (its results are dropped: the iteration only reads
+    the iterate) and captures it into one CUDA graph, whose outputs are
+    then the step and the packed read of every replay; each ``run()``
+    replays it and counts the K3/K4 launches it recorded
+    (``psd_eig.count_replay``).  A capture that fails raises; nothing
+    falls back to the eager iteration.  ``step_frac`` and ``cnorm`` are
+    part of the captured work, so a graph serves one solve attempt.
+    Without ``capture`` ``run()`` calls the iteration eagerly on the same
+    buffers (the host tests hold this against the eager loop)."""
+
+    def __init__(self, core, cj, iterate, capture):
+        self.core, self.cj, self.capture = core, cj, capture
+        self.iterate = tuple(t.clone() for t in iterate)
+        self.graph = None
+        self.out = None
+        self.captured = {}       # K3/K4 wrapper -> launches in one replay
+
+    def _step(self):
+        return _packed_iteration(self.core, self.cj, *self.iterate)
+
+    def _capture(self):
+        kernels = (psd_eig.sym_eigvalsh, psd_eig.nt_svd)
+        side = torch.cuda.Stream(device=self.cj.device)
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            self._step()                  # warm-up, outside the capture
+            before = {fn: fn.captured for fn in kernels}
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = self._step()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+        if out[0] is None:
+            raise RuntimeError("the captured IPM iteration formed no step")
+        self.captured = {fn: fn.captured - before[fn] for fn in kernels}
+        self.graph, self.out = graph, out
+
+    def run(self):
+        if not self.capture:
+            return self._step()
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        psd_eig.count_replay(self.captured)
+        return self.out
+
+    def adopt(self, step):
+        for dst, src in zip(self.iterate, step[:7]):
+            dst.copy_(src)
+
+
+
 def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
                step_frac, tol, feastol, max_iter, verbose=False,
-               woodbury=False, warm=None, wlam=0.0):
+               woodbury=False, warm=None, wlam=0.0, loop=None):
     """Full HSD-IPM solve: least-squares start (blended with the cached
     iterate ``warm`` = (x, s_lp, S, z_lp, Z) at weight ``wlam`` when
     given), predictor-corrector loop with stall / best-iterate /
@@ -547,7 +637,11 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
 
     The start and the end read the device freely (they run once); each
     iteration reads one packed tensor, and the bookkeeping runs on the
-    host on those numbers.
+    host on those numbers.  ``loop`` says how an iteration runs: "graph"
+    (the default on a card) replays one CUDA graph of it over static
+    buffers (``_IterationGraph``); "eager" (the default on the host) calls
+    it as operations; "static" calls it as operations over the graph
+    path's static buffers.  Tests compare the three.
 
     done codes: 0 running, 1 converged, 2 non-finite, 3 stall/tiny-step,
     4 tau collapse (infeasible or numerically dead embedding)."""
@@ -666,19 +760,32 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
     g_ops = (Gl_mul, GlT_mul, Gall_mul)
     best = dict(merit=np.inf, x=x, gap=np.inf, pres=np.inf, dres=np.inf,
                 pobj=np.nan)
+    core = functools.partial(_iteration_core, cj, Glj, hlj, Aj, Hj, g_ops,
+                             gsolve, cnorm, step_frac, gl_diag, Rj, woodbury)
+    if loop is None:
+        loop = "graph" if dev.type == "cuda" else "eager"
+    if loop not in ("graph", "static", "eager"):
+        raise ValueError("loop must be 'graph', 'static' or 'eager', got %r"
+                         % (loop,))
+    if loop == "graph" and dev.type != "cuda":
+        raise ValueError("a CUDA graph of the iteration needs a card, the "
+                         "solve runs on %s" % dev)
+    stepper = None
+    if loop != "eager" and max_iter > 0:
+        stepper = _IterationGraph(core, cj, (x, s_lp, S, z_lp, Z, tau, kappa),
+                                  capture=loop == "graph")
+        x, s_lp, S, z_lp, Z, tau, kappa = stepper.iterate
     stall = 0
     done = 0
     it = 0
     while it < max_iter and done == 0:
-        step, ok, gap_r, pres_r, dres_r = _iteration_core(
-            cj, Glj, hlj, Aj, Hj, g_ops, gsolve, cnorm, step_frac, gl_diag,
-            Rj, woodbury, x, s_lp, S, z_lp, Z, tau, kappa)
+        if stepper is None:
+            step, packed = _packed_iteration(core, cj, x, s_lp, S, z_lp, Z,
+                                             tau, kappa)
+        else:
+            step, packed = stepper.run()
         it += 1
-        packed = [gap_r, pres_r, dres_r, cj @ x, tau, kappa]
-        if step is not None:
-            packed += [step[7], step[5], ok.to(F64)]
-        vals = _read(torch.stack([torch.as_tensor(v, dtype=F64, device=dev)
-                                  for v in packed]))
+        vals = _read(packed)
         gap_r, pres_r, dres_r, cx, tau_h, kappa_h = vals[:6]
         if step is None or vals[8] == 0.0:
             x_n, tau_n, a = None, np.nan, 0.0    # no step to take
@@ -718,8 +825,11 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
             best = dict(merit=merit, x=x / tau, gap=gap, pres=pres,
                         dres=dres, pobj=pobj)
         if finite and x_n is not None:
-            x, s_lp, S, z_lp, Z, tau, kappa = (x_n, s_n, S_n, z_n, Z_n,
-                                               tau_t, kappa_t)
+            if stepper is None:
+                x, s_lp, S, z_lp, Z, tau, kappa = (x_n, s_n, S_n, z_n, Z_n,
+                                                   tau_t, kappa_t)
+            else:
+                stepper.adopt(step)
 
     # fold in the final iterate, after an unconditional dual polish
     tau_h, kappa_h = float(tau), float(kappa)

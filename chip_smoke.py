@@ -6,8 +6,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure raises, so the exit code is non-zero):
   1. device: require a CUDA card; print its name and power limit;
   2. build K1 and its wide tier (bluest_tpu_torch/csrc/diffusion.cu),
-     K2 (bluest_tpu_torch/csrc/hodgkin_huxley.cu) and K2's step probes
-     (a cubin for the SASS counts) with nvcc, one process each, in
+     K2 (bluest_tpu_torch/csrc/hodgkin_huxley.cu), K2's step probes
+     (a cubin for the SASS counts) and K3/K4
+     (bluest_tpu_torch/csrc/psd_eig.cu) with nvcc, one process each, in
      parallel; print each kernel's registers and spills;
   3. hold K1 against its plain PyTorch version on the card, for
      n in {1, 2, 3, 8, 33, 64, 100, 256, 1024}, B in {1, 77, 8192} and
@@ -53,10 +54,20 @@ Phases (any failure raises, so the exit code is non-zero):
      x 64 lanes x the SM clock that nvidia-smi reads meanwhile x the
      time); K2's time at n=16384 for model 0 and for the group beside
      its bound (FP64 operations, k2_work) and the plain version's time,
-     in turns (plain, kernel, kernel, plain);
+     in turns (plain, kernel, kernel, plain); then K3 and K4 (the IPM's
+     Jacobi eigenvalue and SVD kernels) against their plain versions
+     (torch.linalg.eigvalsh and svd) on a host copy of the inputs and on
+     the card (k3_holds, k4_holds: 32 n eps ||A||_F, orthogonality and
+     the reconstruction M M^T; cuSOLVER only at unit scale, where it is
+     accurate) at n in PSD_CHECK_N and B in PSD_CHECK_B, each launch
+     counted, a NaN block flagged; each timed at the IPM's batches and at
+     1024 blocks beside its bound (Golub and Van Loan's flop counts over
+     the FP64 rate), the plain version and the torch.linalg call;
   4. drive the flagship end to end on the default device (the card):
      pilot (4096 samples) + SPD projection, setup_solver(K=4) with the
-     budget calibrated to ~1e6 samples, solve() (all groups dispatched,
+     budget calibrated to ~1e6 samples (K3's and K4's launches counted
+     from 0 just before and read just after: the kernel line's
+     "flagship_alloc"), solve() (all groups dispatched,
      then one fetch of their sums); check the certificate, the estimates
      and that the model evaluations went through K1; then the same
      allocation seven times through solve(), through its fetch alone
@@ -194,27 +205,35 @@ Phases (any failure raises, so the exit code is non-zero):
      paid again): (a) the flagship setup_solver(K=4, budget) at phase
      4's calibrated budget, (b) setup_solver(K=4, eps=eps*) at phase 5's
      eps*, (c) HH setup_solver(K=5, budget=2e5) (its L printed), each in
-     turns card, host, host, card (the host through
+     turns eager, graph, host, host, graph, eager ("graph": the card's
+     IPM as it runs, one CUDA-graph replay an iteration; "eager": its
+     eager card loop, sdp._ipm_solve(..., loop="eager"); the host through
      BLUEST_TPU_ALLOC_DEVICE=cpu), every set-up cold (a fresh MOSAP, the
      warm cache emptied): per set-up the wall and its split (psi
      assembly, IPM, cleanup walk, integer projection, rest), the IPM's
      iterations and ms an iteration beside ipm_iteration_flops over the
-     card's FP64 rate; gated card against host: the same status for
-     every cone solve, continuous cost within 1e-6 relative, max-variance within 1e-3
-     relative, the budget or eps* met; (a)'s card allocation
-     sampled through K1 (the kernel line's "mlblue_alloc_on_card"
-     launches), estimates within 4 error bars of phase 4's; one card
-     set-up under torch.cuda.set_sync_debug_mode("warn"): the
-     synchronising calls left, by call site, and all of those inside the
-     IPM's iterations, an iteration; host reads an IPM iteration (<= 2)
-     and aten operations an iteration, on the host; whether each
-     torch.linalg call of the IPM synchronises on the card, and its
-     wall a call.
+     card's FP64 rate, each capture's host wall and K3's and K4's
+     launches (the kernel line's "alloc_on_card" paths: the last graph
+     turn's); gated graph against host: the same status for every cone
+     solve, continuous cost within 1e-6 relative, max-variance within
+     1e-3 relative, the budget or eps* met; gated graph against eager:
+     the same statuses, each cone solve's iterations and done code, its
+     x bit-equal (or within 1e-12 relative, printed); then one more card
+     set-up of each program under torch.cuda.set_sync_debug_mode("warn")
+     with its graphs kept: the synchronisations an iteration in the
+     replays, packed reads and step copies (gate: 1), those of the
+     captures, the replays an iteration (gate: 1), each graph's nodes
+     (cuGraphGetNodes), and the synchronising calls left by call site;
+     (a)'s card allocation sampled through K1 (the kernel line's
+     "mlblue_alloc_on_card" launches), estimates within 4 error bars of
+     phase 4's; host reads an IPM iteration (<= 2) and aten operations
+     an iteration, on the host; whether each torch.linalg call of the
+     IPM and K3/K4 synchronise on the card, and their wall a call.
 Each of phases 4-11 logs where its allocations ran (the device of every
 MOSAP built and of every cone solve).
 The second-to-last line is the kernel report as JSON, an entry for K1,
-one for its wide tier and one for K2; the last line is {"ok": true,
-"device": {...}}.
+one for its wide tier, one for K2 and one each for K3 and K4; the last
+line is {"ok": true, "device": {...}}.
 
 With --parent-source PATH (another csrc/diffusion.cu with the same C
 interface to its wide tier, e.g. the previous commit's, written out
@@ -268,10 +287,28 @@ B_SWEEP = (1024, 8192, 65536, 262144)
 PRODUCT_FLOPS = {4: 67e12, 8: 67e12}
 OTHER_FLOPS = {4: 67e12, 8: 34e12}
 HBM_BYTES_PER_S = 3.35e12
+EPS64 = 2.0 ** -52
 K1_SOURCE = "bluest_tpu_torch/csrc/diffusion.cu"
 K1_REPLACES = "bluest_tpu/ops/pallas_diffusion.py:151"
 K2_SOURCE = "bluest_tpu_torch/csrc/hodgkin_huxley.cu"
 K2_REPLACES = "bluest_tpu/models/hodgkin_huxley.py:88 (lax.scan, XLA)"
+K34_SOURCE = "bluest_tpu_torch/csrc/psd_eig.cu"
+K3_REPLACES = ("bluest_tpu/solvers/sdp.py:320 (eigvalsh in the IPM's "
+               "lax.while_loop, XLA)")
+K4_REPLACES = ("bluest_tpu/solvers/sdp.py:304 (svd in the IPM's "
+               "lax.while_loop, XLA)")
+# the K3/K4 check: block sizes (n = M + 1: the flagship's 11, HH's 13 at
+# K=5, a 32-model group's 33; 64 past K4's shared-memory tile and 100
+# past K3's) and batches (nb, 2 nb, 4 nb of the IPM, and 1024)
+PSD_CHECK_N = (2, 5, 11, 13, 33, 64, 100)
+PSD_CHECK_B = (1, 3, 6, 12, 20, 1024)
+# (name, n, batch) timed: the flagship's and HH's calls of an iteration
+# (K3 at nb, 2 nb and 4 nb blocks, K4 at nb) and 1024 blocks
+K3_TIMED = (("flagship", 11, 3), ("flagship", 11, 6), ("flagship", 11, 12),
+            ("hh", 13, 5), ("hh", 13, 10), ("hh", 13, 20),
+            ("1024", 11, 1024), ("1024", 13, 1024))
+K4_TIMED = (("flagship", 11, 3), ("hh", 13, 5), ("1024", 11, 1024),
+            ("1024", 13, 1024))
 # K2's check after phase 3: the batches (one redraw round of the group
 # engine may draw 4 x 16384), and the batch it is timed at (phase 6(b)'s
 # chunk)
@@ -374,7 +411,8 @@ def phase_build(k2_parent_source=None):
     from bluest_tpu_torch.ops import _build
     from bluest_tpu_torch.ops import diffusion as k1
     from bluest_tpu_torch.ops import hodgkin_huxley as k2
-    mods = (("K1", k1), ("K2", k2))
+    from bluest_tpu_torch.ops import psd_eig as k34
+    mods = (("K1", k1), ("K2", k2), ("K3/K4", k34))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods) + 3) as pool:
         jobs = [pool.submit(mod.build_library) for _, mod in mods]
@@ -389,7 +427,7 @@ def phase_build(k2_parent_source=None):
         cubins = {d: f.result() for d, f in probes.items()}
         parent = parent.result() if parent else None
     dt = time.perf_counter() - t0
-    log("K1 and K2 build, in parallel%s: %.2f s"
+    log("K1, K2 and K3/K4 build, in parallel%s: %.2f s"
         % (" (with K2's step probes%s)"
            % (" and the parent K2" if parent else ""), dt))
     logs = [(name, mod.build_log) for name, mod in mods]
@@ -1343,6 +1381,226 @@ def phase_k2_check(parent=None, sass=None):
             "sm_clock_mhz": clock, "in_turns": turns_out}
 
 
+def psd_work(kind, n, B):
+    """The work of K3 (kind 3) or K4 (kind 4) on B blocks of n x n: Golub
+    and Van Loan's flop counts, 4n^3/3 for the symmetric eigenvalues
+    (tridiagonalization, then QR) and 12 n^3 for the SVD's sigma and U1
+    (Golub-Reinsch, 14mn^2 - 2n^3 at m = n); each input read once and
+    each output written once (K3: w and the status, K4: U, S and the
+    status)."""
+    ops = B * (4.0 * n ** 3 / 3.0 if kind == 3 else 12.0 * n ** 3)
+    out = n * 8 + 4 if kind == 3 else n * n * 8 + n * 8 + 4
+    return ops, B * (n * n * 8 + out)
+
+
+def psd_bound_ms(kind, n, B):
+    """The least time of K3's or K4's work: the larger of its operations
+    over the card's FP64 rate outside the tensor cores and its bytes over
+    HBM bandwidth (NVIDIA H100 SXM data sheet, 700 W)."""
+    ops, nbytes = psd_work(kind, n, B)
+    t_ops, t_bytes = ops / OTHER_FLOPS[8] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def psd_blocks(n, B, seed, kind):
+    """B seeded test blocks of n x n (f64, on the card): symmetric for K3
+    (kind 3), general for K4; every fourth at unit scale, the others
+    scaled by 1e-150 ... 1e150, every fifth with repeated and zero
+    eigenvalues (K3) or half its columns zero (K4)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((B, n, n))
+    if kind == 3:
+        X = (X + X.transpose(0, 2, 1)) / 2
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        lam = np.repeat(rng.standard_normal((n + 2) // 3), 3)[:n]
+        lam[: n // 3] = 0.0
+        X[::5] = Q @ np.diag(lam) @ Q.T
+    else:
+        X[::5] = X[::5] * (np.arange(n) % 2)
+    scale = 10.0 ** rng.integers(-150, 151, B)
+    scale[::4] = 1.0
+    return torch.from_numpy(X * scale[:, None, None]).to("cuda")
+
+
+def _psd_refs(plain, x):
+    """The plain version's results on the card and on a host copy of the
+    same inputs (LAPACK): (card, host), each on the card."""
+    card = plain(x)
+    host = plain(x.cpu())
+    return card, tuple(t.to(x.device) for t in host)
+
+
+def k3_holds(A, w, status, refs, where):
+    """K3 against the plain version (torch.linalg.eigvalsh), ``refs`` its
+    (card, host) eigenvalues: every status 0, each block's eigenvalues
+    within 32 n eps ||A||_F of the host's (LAPACK), and of the card's
+    (cuSOLVER) on the unit-scale blocks; cuSOLVER's eigvalsh is off the
+    host's by up to ~0.1 ||A||_F on blocks near 1e-150 with repeated
+    eigenvalues, so it is no reference there (measured beside).  Returns
+    the largest difference from the host over ||A||_F, the largest
+    absolute difference from the card's on the unit-scale blocks, and the
+    card's plain version's largest difference from the host's over
+    ||A||_F."""
+    import torch
+    n = A.shape[1]
+    card, host = refs
+    if not bool((status == 0).all()):
+        raise AssertionError("K3 %s: statuses %s" % (where, status.tolist()))
+    nrm = torch.clamp(torch.linalg.norm(A, dim=(1, 2)), min=1e-300)
+    rel = ((w - host).abs().amax(dim=1) / nrm).max().item()
+    unit = (w - card)[::4].abs().amax(dim=1)
+    plain_off = ((card - host).abs().amax(dim=1) / nrm).max().item()
+    if not (rel <= 32 * n * EPS64
+            and bool((unit <= 32 * n * EPS64 * nrm[::4]).all())):
+        raise AssertionError("K3 %s: eigenvalues off the host's by %.3g "
+                             "||A||_F, off the card's at unit scale by %.3g"
+                             % (where, rel, unit.max().item()))
+    return rel, unit.max().item(), plain_off
+
+
+def k4_holds(M, U, S, status, refs, where):
+    """K4 against the plain version (torch.linalg.svd), ``refs`` its
+    (card, host) singular values: every status 0, U orthogonal within
+    32 n eps, U diag(S^2) U^T within 64 n eps ||M||_F^2 of M M^T, and the
+    singular values within 32 n eps ||M||_F of the host's (LAPACK) and,
+    on the unit-scale blocks, of the card's (cuSOLVER).  Returns the
+    largest singular value difference from the host over ||M||_F, the
+    largest absolute difference from the card's on the unit-scale
+    blocks, and the card's plain version's largest difference from the
+    host's over ||M||_F."""
+    import torch
+    n = M.shape[1]
+    card, host = refs
+    if not bool((status == 0).all()):
+        raise AssertionError("K4 %s: statuses %s" % (where, status.tolist()))
+    eye = torch.eye(n, dtype=M.dtype, device=M.device)
+    orth = (U.mT @ U - eye).abs().max().item()
+    nrm = torch.clamp(torch.linalg.norm(M, dim=(1, 2)), min=1e-300)
+    Mn, Sn = M / nrm[:, None, None], S / nrm[:, None]
+    rec = ((U * Sn[:, None, :] ** 2) @ U.mT - Mn @ Mn.mT).abs().max().item()
+    rel = ((S - host).abs().amax(dim=1) / nrm).max().item()
+    unit = (S - card)[::4].abs().amax(dim=1)
+    plain_off = ((card - host).abs().amax(dim=1) / nrm).max().item()
+    if not (orth <= 32 * n * EPS64 and rec <= 64 * n * EPS64
+            and rel <= 32 * n * EPS64
+            and bool((unit <= 32 * n * EPS64 * nrm[::4]).all())):
+        raise AssertionError("K4 %s: U^T U - I %.3g, U S^2 U^T - M M^T "
+                             "%.3g ||M||^2, singular values off the host's "
+                             "by %.3g ||M||_F, off the card's at unit scale "
+                             "by %.3g" % (where, orth, rec, rel,
+                                          unit.max().item()))
+    return rel, unit.max().item(), plain_off
+
+
+def phase_psd_check():
+    """K3 and K4 against their plain versions (torch.linalg.eigvalsh and
+    svd) on the same inputs, on the host and on the card (k3_holds,
+    k4_holds), at every n of PSD_CHECK_N and batch of PSD_CHECK_B (seeded
+    blocks at scales 1e-150 ... 1e150, repeated and zero eigenvalues,
+    rank-deficient), each launch counted; a NaN block
+    flagged (status 1, NaN results) and its neighbours unharmed; then
+    each kernel's time at the IPM's batches (K3_TIMED, K4_TIMED) beside
+    its bound, the plain version's and the torch.linalg call's time (the
+    library_ms), in turns (plain, kernel, kernel, plain)."""
+    import torch
+    from bluest_tpu_torch.ops import psd_eig as k34
+    t_phase = time.perf_counter()
+    worst = {3: [0.0, 0.0, 0.0], 4: [0.0, 0.0, 0.0]}
+    for n in PSD_CHECK_N:
+        for B in PSD_CHECK_B:
+            A = psd_blocks(n, B, 1000 * n + B, 3)
+            before = k34.sym_eigvalsh.launches
+            w, st = k34.sym_eigvalsh(A)
+            if k34.sym_eigvalsh.launches != before + 1:
+                raise AssertionError("K3 launch not counted")
+            refs = [r[0] for r in _psd_refs(k34.sym_eigvalsh_plain, A)]
+            got = k3_holds(A, w, st, refs, "n=%d B=%d" % (n, B))
+            worst[3] = [max(a, b) for a, b in zip(worst[3], got)]
+            M = psd_blocks(n, B, 1000 * n + B + 7, 4)
+            before = k34.nt_svd.launches
+            U, S, st = k34.nt_svd(M)
+            if k34.nt_svd.launches != before + 1:
+                raise AssertionError("K4 launch not counted")
+            refs = [r[1] for r in _psd_refs(k34.nt_svd_plain, M)]
+            got = k4_holds(M, U, S, st, refs, "n=%d B=%d" % (n, B))
+            worst[4] = [max(a, b) for a, b in zip(worst[4], got)]
+        # a NaN block between two finite ones
+        A = psd_blocks(n, 3, n, 3)
+        A[1, 0, n - 1] = float("nan")
+        w, st = k34.sym_eigvalsh(A)
+        U, S, st4 = k34.nt_svd(A)
+        if not (st.tolist() == [0, 1, 0] and st4.tolist() == [0, 1, 0]
+                and bool(w[1].isnan().all()) and bool(S[1].isnan().all())
+                and bool(U[1].isnan().all())):
+            raise AssertionError("n=%d: a NaN block gave statuses %s / %s"
+                                 % (n, st.tolist(), st4.tolist()))
+        two = A[::2].contiguous()
+        k3_holds(two, w[::2], st[::2],
+                 [r[0] for r in _psd_refs(k34.sym_eigvalsh_plain, two)],
+                 "beside a NaN block")
+    log("K3/K4 check: every block converged at n in %s, B in %s; K3 "
+        "eigenvalues within %.3g ||A||_F of the plain version's on the host "
+        "(LAPACK) and within %.3g absolute of its on the card at unit "
+        "scale; K4 singular values within %.3g ||M||_F and %.3g; NaN blocks "
+        "flagged.  The plain versions on the card (cuSOLVER) are "
+        "off the host's by up to %.3g ||A||_F (eigvalsh) and %.3g ||M||_F "
+        "(svd)"
+        % (PSD_CHECK_N, PSD_CHECK_B, worst[3][0], worst[3][1], worst[4][0],
+           worst[4][1], worst[3][2], worst[4][2]))
+    timed = {}
+    for kind, shapes in ((3, K3_TIMED), (4, K4_TIMED)):
+        fn, plain, lib = (
+            (k34.sym_eigvalsh, k34.sym_eigvalsh_plain, torch.linalg.eigvalsh)
+            if kind == 3 else (k34.nt_svd, k34.nt_svd_plain,
+                               torch.linalg.svd))
+        for name, n, B in shapes:
+            x = psd_blocks(n, B, 7 * n + B, kind)
+            reps = 50 if B < 1024 else 10
+            p1 = _time_ms(lambda: plain(x), reps)
+            k1_ = _time_ms(lambda: fn(x), reps)
+            k2_ = _time_ms(lambda: fn(x), reps)
+            p2 = _time_ms(lambda: plain(x), reps)
+            lib_ms = _time_ms(lambda: lib(x), reps)
+            bound, by = psd_bound_ms(kind, n, B)
+            ms = min(k1_, k2_)
+            log("K%d timing %s n=%d B=%d: kernel %.4f / %.4f ms, plain %.4f "
+                "/ %.4f ms (plain, kernel, kernel, plain), torch.linalg "
+                "%.4f ms; bound %.6f ms (%s), kernel at %.3f%% of it"
+                % (kind, name, n, B, k1_, k2_, p1, p2, lib_ms, bound, by,
+                   100 * bound / ms))
+            timed["K%d_%s_n%d_B%d" % (kind, name, n, B)] = {
+                "ms": ms, "plain_ms": min(p1, p2), "library_ms": lib_ms,
+                "bound_ms": bound, "bound_by": by}
+    log("K3/K4 check: %.3f s" % (time.perf_counter() - t_phase))
+
+    def line(kind, key):
+        t = timed[key]
+        return {"max_abs_err": worst[kind][1], "max_err_over_norm":
+                worst[kind][0], "plain_card_err_over_norm": worst[kind][2],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], "timed_at": key,
+                "timed": {k: v for k, v in timed.items()
+                          if k.startswith("K%d" % kind)}}
+    return {"K3": line(3, "K3_flagship_n11_B12"),
+            "K4": line(4, "K4_flagship_n11_B3")}
+
+
+def psd_launches():
+    """K3's and K4's launch counts (eager calls plus graph replays)."""
+    from bluest_tpu_torch.ops import psd_eig as k34
+    return {"sym_eigvalsh": k34.sym_eigvalsh.launches,
+            "nt_svd": k34.nt_svd.launches}
+
+
+def reset_psd_launches():
+    from bluest_tpu_torch.ops import psd_eig as k34
+    k34.sym_eigvalsh.launches = k34.nt_svd.launches = 0
+
+
 def _total_samples(problem):
     return int(sum(int(n) for n in problem.MOSAP_output["samples"]))
 
@@ -1472,12 +1730,21 @@ def phase_flagship(smi, graph):
     log("model path (mask + K1, f32) within the f32 error class of the "
         "f64 reference for all %d models" % len(GRIDS))
 
+    # the allocation's interior-point solves go through K3 and K4 (their
+    # counts set to 0 just before and read just after)
+    reset_psd_launches()
     budget, alloc_s = _calibrated_allocation(problem)
+    k34 = psd_launches()
     L = problem.MOSAP.L
     certs = problem.MOSAP_output["certificates"]
-    log("allocation: L=%d, budget %.6g, %d samples, %.3f s, certificates %s"
+    log("allocation: L=%d, budget %.6g, %d samples, %.3f s, certificates %s;"
+        " K3 launches %d, K4 launches %d"
         % (L, budget, _total_samples(problem), alloc_s,
-           [(c["form"], c["status"], c["iterations"]) for c in certs]))
+           [(c["form"], c["status"], c["iterations"]) for c in certs],
+           k34["sym_eigvalsh"], k34["nt_svd"]))
+    if not (k34["sym_eigvalsh"] > 0 and k34["nt_svd"] > 0):
+        raise AssertionError("the card's allocation launched K3 %d and K4 %d"
+                             " times" % (k34["sym_eigvalsh"], k34["nt_svd"]))
     if L != 385:
         raise AssertionError("expected L=385 groups, got %d" % L)
     if not certs or any(c["status"] not in ("optimal", "inaccurate")
@@ -1518,6 +1785,7 @@ def phase_flagship(smi, graph):
     problem.save_graph_data(graph)
     _both_paths(problem, budget, smi, graph)
     return {"launches": launches, "alloc_s": alloc_s, "sample_s": sample_s,
+            "psd_launches": k34,
             "n_evals": n_evals, "problem": problem, "budget": budget,
             "mus": mus, "errs": errs,
             "eps_star": float(np.sqrt(max(out["variances"])))}
@@ -3250,11 +3518,16 @@ def allocation_split(rec):
         mosap.MOSAP.integer_projection = real[3]
 
 
-def _cold_setup(problem, where, how):
+def _cold_setup(problem, where, how, loop=None):
     """One set-up from nothing: a fresh MOSAP (psi assembly included)
     and an empty warm cache, on the problem's device, the card
     (``where="card"``), or through BLUEST_TPU_ALLOC_DEVICE=cpu on the
-    host (``where="host"``)."""
+    host (``where="host"``).  On the card ``loop="eager"`` runs the IPM's
+    eager card loop (the graph path's reference); by default each
+    iteration is a graph replay.  Records each cone solve's iterations,
+    done code and best x, K3's and K4's launches, and the host wall of
+    each graph capture (the warm-up's enqueue, the capture and the
+    graph's instantiation)."""
     import numpy as np
     from bluest_tpu_torch.solvers import sdp
     sdp._WARM_CACHE.clear()
@@ -3262,7 +3535,25 @@ def _cold_setup(problem, where, how):
     old = os.environ.pop("BLUEST_TPU_ALLOC_DEVICE", None)
     if where == "host":
         os.environ["BLUEST_TPU_ALLOC_DEVICE"] = "cpu"
-    rec = {}
+    rec = {"solves": [], "capture_s": []}
+    real_ipm, real_capture = sdp._ipm_solve, sdp._IterationGraph._capture
+
+    def recording(*a, **k):
+        if loop is not None:
+            k["loop"] = loop
+        out = real_ipm(*a, **k)
+        x = out[0]["x"]
+        rec["solves"].append((out[1], out[2], x.cpu().numpy()
+                              if np.isfinite(out[0]["merit"]) else None))
+        return out
+
+    def capture(self):
+        t0 = time.perf_counter()
+        real_capture(self)
+        rec["capture_s"].append(time.perf_counter() - t0)
+
+    sdp._ipm_solve, sdp._IterationGraph._capture = recording, capture
+    reset_psd_launches()
     try:
         with allocation_split(rec):
             _sync()
@@ -3271,6 +3562,7 @@ def _cold_setup(problem, where, how):
             _sync()
             rec["wall_s"] = time.perf_counter() - t0
     finally:
+        sdp._ipm_solve, sdp._IterationGraph._capture = real_ipm, real_capture
         os.environ.pop("BLUEST_TPU_ALLOC_DEVICE", None)
         if old is not None:
             os.environ["BLUEST_TPU_ALLOC_DEVICE"] = old
@@ -3280,11 +3572,13 @@ def _cold_setup(problem, where, how):
         raise AssertionError("a %s set-up allocated on %s" % (where, m.device))
     certs = out["certificates"]
     rec.update(
-        device=where, status=[c["status"] for c in certs],
+        device=where, loop=(loop or "graph") if where == "card" else "eager",
+        status=[c["status"] for c in certs],
         cont_cost=float(m.continuous_solution @ m.costs),
         maxvar=float(max(out["variances"])), cost=float(out["cost"]),
         samples=np.array(out["samples"]), L=m.L, out=out, mosap=m,
-        dims=[c["dims"] for c in certs if "dims" in c])
+        dims=[c["dims"] for c in certs if "dims" in c],
+        psd_launches=psd_launches())
     rec["rest_s"] = rec["wall_s"] - (rec["psi_s"] + rec["ipm_s"]
                                      + rec["cleanup_s"] + rec["integer_s"])
     return rec
@@ -3351,7 +3645,8 @@ def _host_iteration_counts(problem, how):
 
 def _linalg_calls(n_x):
     """Each torch.linalg call of the IPM on the card, at the flagship's
-    shapes (3 PSD blocks of 11 x 11, an n_x x n_x normal matrix): whether
+    shapes (3 PSD blocks of 11 x 11, an n_x x n_x normal matrix), and K3
+    and K4, which replace its eigvalsh and svd: whether
     it makes the host wait for the card (it raises under
     set_sync_debug_mode("error")) and its wall a call over 50 calls."""
     import torch
@@ -3365,11 +3660,14 @@ def _linalg_calls(n_x):
     S, H = spd(3, 11, 11), spd(n_x, n_x)
     B = torch.randn(3, 11, 11, generator=g, dtype=torch.float64).to("cuda")
     L = torch.linalg.cholesky(S)
+    from bluest_tpu_torch.ops import psd_eig as k34
     calls = {"cholesky_ex": lambda: torch.linalg.cholesky_ex(H),
              "solve_triangular": lambda: torch.linalg.solve_triangular(
                  L, B, upper=False),
              "eigvalsh": lambda: torch.linalg.eigvalsh(S),
-             "svd": lambda: torch.linalg.svd(S)}
+             "svd": lambda: torch.linalg.svd(S),
+             "sym_eigvalsh (K3)": lambda: k34.sym_eigvalsh(S),
+             "nt_svd (K4)": lambda: k34.nt_svd(S)}
     out = {}
     for name, fn in calls.items():
         fn()
@@ -3392,23 +3690,43 @@ def _linalg_calls(n_x):
     return out
 
 
-def _card_syncs(problem, how):
-    """One card set-up under torch.cuda.set_sync_debug_mode("warn"): the
-    synchronising calls by call site, and every one made inside the
-    IPM's iterations (the iteration and its packed read) an iteration."""
+def _graph_nodes(graph):
+    """The nodes of a captured graph kept with keep_graph=True
+    (libcuda's cuGraphGetNodes on its cudaGraph_t)."""
+    import ctypes
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError("cuGraphGetNodes failed: CUDA error %d" % rc)
+    return n.value
+
+
+def _graph_counts(problem, how):
+    """One card set-up under torch.cuda.set_sync_debug_mode("warn"), its
+    graphs kept (keep_graph=True, so each is instantiated at its first
+    replay): the synchronising calls by call site; those made in the
+    IPM's iterations (graph replays, packed reads, step adoptions) and in
+    its captures; replays and iterations; and each graph's nodes (one
+    graph a solve attempt, one iteration a graph)."""
     import torch
     from bluest_tpu_torch.solvers import sdp
-    sites = {}
-    core, read = sdp._iteration_core, sdp._read
-    in_loop = [0]
+    G = sdp._IterationGraph
+    real = (G.run, G.adopt, G._capture, sdp._read, torch.cuda.CUDAGraph)
+    graphs = []
+    count = {"run": 0, "adopt": 0, "capture": 0, "read": 0, "replays": 0}
 
-    def counted(fn, caught):
+    def kept():
+        graphs.append(real[4](keep_graph=True))
+        return graphs[-1]
+
+    def syncs_in(fn, key, caught):
         def f(*a, **k):
             before = len(caught)
             try:
                 return fn(*a, **k)
             finally:
-                in_loop[0] += sum("synchroniz" in str(w.message)
+                count[key] += sum("synchroniz" in str(w.message)
                                   for w in caught[before:])
         return f
 
@@ -3416,17 +3734,64 @@ def _card_syncs(problem, how):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            sdp._iteration_core = counted(core, caught)
-            sdp._read = counted(read, caught)
+            run = syncs_in(real[0], "run", caught)
+
+            def counted_run(self):
+                count["replays"] += 1
+                return run(self)
+            G.run, G.adopt = counted_run, syncs_in(real[1], "adopt", caught)
+            G._capture = syncs_in(real[2], "capture", caught)
+            sdp._read = syncs_in(real[3], "read", caught)
+            torch.cuda.CUDAGraph = kept
             rec = _cold_setup(problem, "card", how)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-        sdp._iteration_core, sdp._read = core, read
+        G.run, G.adopt, G._capture, sdp._read = real[:4]
+        torch.cuda.CUDAGraph = real[4]
+    sites = {}
     for w in caught:
         if "synchroniz" in str(w.message):
             site = "%s:%d" % (os.path.relpath(w.filename), w.lineno)
             sites[site] = sites.get(site, 0) + 1
-    return sites, in_loop[0] / max(rec["iterations"], 1)
+    it = max(rec["iterations"], 1)
+    in_loop = count["run"] - count["capture"] + count["read"] + count["adopt"]
+    nodes = [_graph_nodes(g) for g in graphs]
+    graphs.clear()
+    return {"sites": sites, "syncs_per_iteration": in_loop / it,
+            "capture_syncs": count["capture"], "reads": count["read"],
+            "replays_per_iteration": count["replays"] / it,
+            "iterations": rec["iterations"], "graphs": len(nodes),
+            "nodes": nodes, "capture_s": rec["capture_s"]}
+
+
+def _gate_graph_against_eager(name, graph, eager):
+    """The graph card path against the eager card path on one program:
+    the same status for every cone solve, and each interior-point solve
+    with the same iterations and done code and its x bit-equal, or within
+    1e-12 relative (reported).  Returns (bit-equal, the largest relative
+    difference of x)."""
+    import numpy as np
+    if graph["status"] != eager["status"]:
+        raise AssertionError("%s: graph statuses %s, eager %s"
+                             % (name, graph["status"], eager["status"]))
+    gs, es = graph["solves"], eager["solves"]
+    if [s[:2] for s in gs] != [s[:2] for s in es]:
+        raise AssertionError("%s: graph (iterations, done) %s, eager %s"
+                             % (name, [s[:2] for s in gs],
+                                [s[:2] for s in es]))
+    same, worst = True, 0.0
+    for (_, _, xg), (_, _, xe) in zip(gs, es):
+        if xg is None or xe is None:
+            same &= xg is None and xe is None
+            continue
+        if not np.array_equal(xg, xe):
+            same = False
+            worst = max(worst, float(np.max(np.abs(xg - xe))
+                                     / max(np.max(np.abs(xe)), 1e-300)))
+    if not same and not worst <= 1e-12:
+        raise AssertionError("%s: graph and eager x differ by %.3e relative"
+                             % (name, worst))
+    return same, worst
 
 
 def _gate_against_host(name, card, host, how):
@@ -3469,32 +3834,66 @@ def phase_allocation_on_card(flagship, graph, hh_graph, launches_by_path):
                  dict(K=HH_K_CARD, budget=HH_BUDGET)))
     summary = {}
     card_budget = None
+    order = (("card", "eager"), ("card", None), ("host", None), ("host", None),
+             ("card", None), ("card", "eager"))
     for name, problem, how in programs:
-        turns = [_cold_setup(problem, where, how)
-                 for where in ("card", "host", "host", "card")]
-        by = {"card": [t for t in turns if t["device"] == "card"],
+        turns = [_cold_setup(problem, where, how, loop)
+                 for where, loop in order]
+        by = {"card": [t for t in turns if t["loop"] == "graph"],
+              "eager": [t for t in turns if t["loop"] == "eager"
+                        and t["device"] == "card"],
               "host": [t for t in turns if t["device"] == "host"]}
         for t in turns:
             bound = (_iteration_bound_ms(t["dims"][0]) if t["dims"]
                      else float("nan"))
-            log("phase 11%s on %s: L=%d wall %.3f s = psi %.3f + IPM %.3f "
-                "(%d iterations, %.3f ms an iteration, bound %.6f ms) + "
-                "cleanup %.3f + integer %.3f + rest %.3f; statuses %s, "
-                "continuous cost %.10g, max variance %.8e"
-                % (name, t["device"], t["L"], t["wall_s"], t["psi_s"],
-                   t["ipm_s"], t["iterations"],
+            log("phase 11%s on %s (%s): L=%d wall %.3f s = psi %.3f + IPM "
+                "%.3f (%d iterations, %.3f ms an iteration, bound %.6f ms; "
+                "captures %s s) + cleanup %.3f + integer %.3f + rest %.3f; "
+                "statuses %s, continuous cost %.10g, max variance %.8e; K3 "
+                "launches %d, K4 %d"
+                % (name, t["device"], t["loop"], t["L"], t["wall_s"],
+                   t["psi_s"], t["ipm_s"], t["iterations"],
                    1e3 * t["ipm_s"] / max(t["iterations"], 1), bound,
-                   t["cleanup_s"], t["integer_s"], t["rest_s"], t["status"],
-                   t["cont_cost"], t["maxvar"]))
+                   [round(c, 4) for c in t["capture_s"]], t["cleanup_s"],
+                   t["integer_s"], t["rest_s"], t["status"], t["cont_cost"],
+                   t["maxvar"], t["psd_launches"]["sym_eigvalsh"],
+                   t["psd_launches"]["nt_svd"]))
         for c in by["card"]:
             for h in by["host"]:
                 dc, dv = _gate_against_host(name, c, h, how)
+            for e in by["eager"]:
+                bit_equal, dx = _gate_graph_against_eager(name, c, e)
+            if not (c["psd_launches"]["sym_eigvalsh"] > 0
+                    and c["psd_launches"]["nt_svd"] > 0):
+                raise AssertionError("%s: the card's set-up launched K3/K4 "
+                                     "%s" % (name, c["psd_launches"]))
         log("phase 11%s: card vs host: statuses %s / %s, continuous cost "
             "rel diff %.3e, max-variance rel diff %.3e, same integer "
-            "samples %s"
+            "samples %s; graph vs eager card: the same statuses, iterations"
+            " and done codes, x bit-equal %s (largest rel diff %.3e)"
             % (name, by["card"][0]["status"], by["host"][0]["status"], dc, dv,
                bool(np.array_equal(by["card"][0]["samples"],
-                                   by["host"][0]["samples"]))))
+                                   by["host"][0]["samples"])),
+               bit_equal, dx))
+        counts = _graph_counts(problem, how)
+        log("phase 11%s graph counts (one card set-up, sync debug mode "
+            "warn): synchronisations an iteration %.4f (replays, packed "
+            "reads and step copies), in the captures %d; replays an "
+            "iteration %.4f over %d iterations; %d graphs of %s nodes (one "
+            "iteration each); capture walls %s s; synchronising calls in "
+            "the set-up %d %s"
+            % (name, counts["syncs_per_iteration"], counts["capture_syncs"],
+               counts["replays_per_iteration"], counts["iterations"],
+               counts["graphs"], counts["nodes"],
+               [round(c, 4) for c in counts["capture_s"]],
+               sum(counts["sites"].values()),
+               json.dumps(counts["sites"], sort_keys=True)))
+        if not (counts["syncs_per_iteration"] == 1.0
+                and counts["replays_per_iteration"] == 1.0):
+            raise AssertionError("%s: %.4f synchronisations and %.4f replays "
+                                 "an IPM iteration on the card"
+                                 % (name, counts["syncs_per_iteration"],
+                                    counts["replays_per_iteration"]))
         summary[name] = {
             d: {k: [round(t[k], 6) for t in by[d]]
                 for k in ("wall_s", "psi_s", "ipm_s", "cleanup_s",
@@ -3502,8 +3901,10 @@ def phase_allocation_on_card(flagship, graph, hh_graph, launches_by_path):
             | {"iterations": [t["iterations"] for t in by[d]],
                "ms_per_iteration": [round(1e3 * t["ipm_s"]
                                           / max(t["iterations"], 1), 4)
-                                    for t in by[d]]}
-            for d in ("card", "host")}
+                                    for t in by[d]],
+               "capture_s": [[round(c, 5) for c in t["capture_s"]]
+                             for t in by[d]]}
+            for d in ("card", "eager", "host")}
         summary[name]["L"] = turns[0]["L"]
         summary[name]["bound_ms_per_iteration"] = (
             _iteration_bound_ms(turns[0]["dims"][0]) if turns[0]["dims"]
@@ -3511,6 +3912,13 @@ def phase_allocation_on_card(flagship, graph, hh_graph, launches_by_path):
         summary[name]["wall_ratio_host_over_card"] = round(
             st.median(t["wall_s"] for t in by["host"])
             / st.median(t["wall_s"] for t in by["card"]), 4)
+        summary[name]["wall_ratio_eager_over_graph"] = round(
+            st.median(t["wall_s"] for t in by["eager"])
+            / st.median(t["wall_s"] for t in by["card"]), 4)
+        summary[name]["graph_vs_eager_bit_equal"] = bit_equal
+        summary[name]["psd_launches"] = by["card"][-1]["psd_launches"]
+        summary[name]["graph_counts"] = {
+            k: v for k, v in counts.items() if k != "sites"}
         if name.startswith("(a)"):
             card_budget = by["card"][-1]
     # (a)'s last card allocation, sampled through K1 (launches counted
@@ -3527,19 +3935,14 @@ def phase_allocation_on_card(flagship, graph, hh_graph, launches_by_path):
     _within_bars("phase 11 card allocation vs phase 4", mus, errs,
                  flagship["mus"], flagship["errs"])
     how = dict(K=K, budget=budget)
-    sites, per_it = _card_syncs(fp, how)
-    log("phase 11 synchronising calls left in one card set-up (flagship "
-        "budget): %d %s; in the IPM iterations %.2f an iteration"
-        % (sum(sites.values()), json.dumps(sites, sort_keys=True), per_it))
     reads, ops = _host_iteration_counts(fp, how)
     log("phase 11 host reads an IPM iteration (host set-up, tensor reads "
         "counted): %.2f; aten operations an iteration %.1f" % (reads, ops))
     if not reads <= 2:
         raise AssertionError("%.2f host reads an IPM iteration" % reads)
     calls = _linalg_calls(fp.MOSAP.L)
-    log("phase 11 torch.linalg calls of the IPM on the card (flagship "
-        "shapes): %s" % json.dumps(calls, sort_keys=True))
-    summary["card_syncs_per_iteration"] = round(per_it, 4)
+    log("phase 11 torch.linalg calls of the IPM on the card and K3/K4 "
+        "(flagship shapes): %s" % json.dumps(calls, sort_keys=True))
     summary["host_reads_per_iteration"] = round(reads, 4)
     summary["ops_per_iteration"] = round(ops, 1)
     log("phase 11: %s" % json.dumps(summary, sort_keys=True))
@@ -3584,6 +3987,7 @@ def main():
               if _option("--parent-source") else None)
     w = phase_wide_check(parent)
     h = phase_k2_check(built["k2_parent"], built["sass"])
+    psd = phase_psd_check()
     hh_launches = {}                    # K2's launches per path
     hh_by_variant = {}                  # and by variant
     with tempfile.TemporaryDirectory() as d:
@@ -3610,8 +4014,23 @@ def main():
         launches_by_path["deep_flagship"] = deep["k1"]
         t0 = time.perf_counter()
         with allocation_log("phase 11"):
-            phase_allocation_on_card(f, graph, hh_graph, launches_by_path)
+            alloc = phase_allocation_on_card(f, graph, hh_graph,
+                                             launches_by_path)
         log("phase 11: %.3f s" % (time.perf_counter() - t0))
+    # K3's and K4's launches per path: phase 4's calibrated allocation and
+    # each of phase 11's programs (its last graph turn)
+    psd_paths = {"flagship_alloc": f["psd_launches"]}
+    for program, rec in alloc.items():
+        if isinstance(rec, dict) and "psd_launches" in rec:
+            psd_paths["alloc_on_card " + program] = rec["psd_launches"]
+    psd_lines = []
+    for key, fn, replaces in (("K3", "sym_eigvalsh", K3_REPLACES),
+                              ("K4", "nt_svd", K4_REPLACES)):
+        by_path = {p: c[fn] for p, c in psd_paths.items()}
+        psd_lines.append({"name": fn, "route": "cuda", "source": K34_SOURCE,
+                          "replaces": replaces,
+                          "launches": sum(by_path.values()),
+                          "launches_by_path": by_path} | psd[key])
     print(json.dumps({"kernels": [{
         "name": "diffusion_outputs", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
@@ -3641,7 +4060,8 @@ def main():
         "timed": "the 12 default models, n=%d" % K2_TIMED_N,
         "model0": h["model0"], "sm_clock_mhz": h["sm_clock_mhz"],
         "in_turns": h["in_turns"],
-        "bit_equal_share": h["bit_equal_share"]}]}), flush=True)
+        "bit_equal_share": h["bit_equal_share"]}] + psd_lines}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

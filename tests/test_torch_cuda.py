@@ -2,10 +2,12 @@
 version, K2 (the Hodgkin-Huxley kernel) against its plain version, the
 user models' card outputs against their CPU outputs, the group engine's
 resample and its K2 launches per round, the snapshot-collecting path
-through K1, and the allocation on the card against the host (the seeded
+through K1, the allocation on the card against the host (the seeded
 cone programs of the allocation and warm-cache tests, the flagship-width
-MOSAP, the integer projection from one continuous point, and one IPM
-iteration under the synchronisation debug mode).
+MOSAP, the integer projection from one continuous point, and the IPM's
+iterations under the synchronisation debug mode), K3 and K4 (the IPM's
+Jacobi eigenvalue and SVD kernels) against torch.linalg, and the IPM's
+graph loop against its eager card loop.
 
 These tests need a CUDA card and nvcc; without a card they skip.  They
 import neither jax nor the JAX package, so they also run on a machine
@@ -742,48 +744,214 @@ def test_integer_projection_card_matches_host(cuda, cold_ipm):
 def test_ipm_iteration_syncs_only_at_its_read(cuda, cold_ipm, monkeypatch):
     """The IPM's iterations on the card under
     torch.cuda.set_sync_debug_mode("error"), lifted only for the packed
-    read of each iteration and for torch.linalg's eigenvalue and SVD
-    calls, whose convergence status ATen reads back itself: anything
-    else that makes the host wait for the card raises.  Counted: one
-    packed read, one SVD and three eigenvalue solves an iteration."""
+    read of each iteration: the graph's warm-up, capture and replays and
+    the step's copies into the iterate raise if anything in them makes
+    the host wait for the card (K3 and K4 in place of torch.linalg's
+    eigenvalue and SVD calls, which read their status back).  Counted:
+    one packed read and one graph replay an iteration, the iteration
+    itself called twice (warm-up and capture), and K3/K4 launches of the
+    warm-up, of each replay (three eigenvalue solves and one SVD) and of
+    the final polish (one eigenvalue solve)."""
     from bluest_tpu_torch.config import allocation_device_scope
+    from bluest_tpu_torch.ops import psd_eig
     sdp = cold_ipm
-    calls = {"read": 0, "eig": 0, "svd": 0, "iterations": 0}
+    calls = {"read": 0, "replay": 0, "core": 0}
+    G = sdp._IterationGraph
+    run, adopt, read, core = G.run, G.adopt, sdp._read, sdp._iteration_core
 
-    def lifted(name, fn):
-        """``fn`` with the mode lifted; the iteration's strict mode is
-        put back after an eigenvalue or SVD call, and left off after the
-        packed read (the host's bookkeeping follows it)."""
-        def run(*a, **k):
-            calls[name] += 1
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode(0)
-            try:
-                return fn(*a, **k)
-            finally:
-                if name != "read":
-                    torch.cuda.set_sync_debug_mode(mode)
-        return run
+    def strict(name, fn):
+        """``fn`` under the strict mode, lifted again after a step copy
+        (the loop may end there, and the final polish reads)."""
+        def f(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            torch.cuda.set_sync_debug_mode("error")
+            out = fn(*a, **k)
+            if name == "adopt":
+                torch.cuda.set_sync_debug_mode(0)
+            return out
+        return f
 
-    core = sdp._iteration_core
+    def lifted_read(t):
+        """The packed read with the mode lifted; it stays lifted for the
+        host's bookkeeping, until the next replay or step copy."""
+        calls["read"] += 1
+        torch.cuda.set_sync_debug_mode(0)
+        return read(t)
 
-    def strict_core(*a, **k):
-        calls["iterations"] += 1
-        torch.cuda.set_sync_debug_mode("error")
+    def counted_core(*a, **k):
+        calls["core"] += 1
         return core(*a, **k)
 
-    monkeypatch.setattr(sdp, "_read", lifted("read", sdp._read))
-    monkeypatch.setattr(sdp, "_eigvalsh", lifted("eig", sdp._eigvalsh))
-    monkeypatch.setattr(sdp, "_svd", lifted("svd", sdp._svd))
-    monkeypatch.setattr(sdp, "_iteration_core", strict_core)
+    monkeypatch.setattr(G, "run", strict("replay", run))
+    monkeypatch.setattr(G, "adopt", strict("adopt", adopt))
+    monkeypatch.setattr(sdp, "_read", lifted_read)
+    monkeypatch.setattr(sdp, "_iteration_core", counted_core)
+    k3, k4 = psd_eig.sym_eigvalsh, psd_eig.nt_svd
+    before = (k3.launches, k4.launches)
     prog = _alloc_programs()["budget-1"]()
     try:
         with allocation_device_scope("cuda"):
             res = sdp.solve_cone_lp(*prog, max_iter=3)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    it = calls["iterations"]
+    it = calls["replay"]
     assert it == res.iterations == 3
-    assert calls["read"] == it and calls["svd"] == it
-    # three eigenvalue solves an iteration, and the final polish's one
-    assert calls["eig"] == 3 * it + 1
+    assert calls["read"] == it and calls["core"] == 2
+    assert calls["adopt"] == it
+    assert k3.launches - before[0] == 3 + 3 * it + 1
+    assert k4.launches - before[1] == 1 + it
+
+
+# ------------------- K3 and K4, the IPM's Jacobi kernels ------------------ #
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 5, 11, 13, 33, 64, 100])
+@pytest.mark.parametrize("B", [1, 3, 6, 12, 20])
+def test_k3_k4_match_plain(cuda, n, B):
+    """K3 and K4 against torch.linalg on seeded blocks at the IPM's batch
+    sizes, at scales 1e-150 ... 1e150, with repeated and zero eigenvalues
+    and rank-deficient blocks (chip_smoke.py's check, tolerances of
+    k3_holds / k4_holds: 32 n eps ||A||_F for the eigenvalues and the
+    singular values against the host's LAPACK on every block and the
+    card's cuSOLVER on the unit-scale ones, 32 n eps for U^T U - I,
+    64 n eps ||M||_F^2 for U diag(S^2) U^T - M M^T); n = 64 runs K4 and
+    n = 100 both kernels from their global-memory workspace."""
+    from chip_smoke import _psd_refs, k3_holds, k4_holds, psd_blocks
+    from bluest_tpu_torch.ops import psd_eig
+    A = psd_blocks(n, B, 11 * n + B, 3)
+    w, st = psd_eig.sym_eigvalsh(A)
+    k3_holds(A, w, st, [r[0] for r in _psd_refs(psd_eig.sym_eigvalsh_plain,
+                                                A)], "n=%d" % n)
+    M = psd_blocks(n, B, 13 * n + B, 4)
+    U, S, st = psd_eig.nt_svd(M)
+    k4_holds(M, U, S, st, [r[1] for r in _psd_refs(psd_eig.nt_svd_plain, M)],
+             "n=%d" % n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 11, 64, 100])
+def test_k3_k4_flag_non_finite_blocks(cuda, n):
+    """A NaN or an inf block gets status 1 and NaN results; its
+    neighbours are solved as alone."""
+    from bluest_tpu_torch.ops import psd_eig
+    A = torch.eye(n, dtype=torch.float64, device=cuda).repeat(4, 1, 1)
+    A[1, 0, n - 1] = float("nan")
+    A[2, n - 1, 0] = float("inf")
+    w, st = psd_eig.sym_eigvalsh(A)
+    U, S, st4 = psd_eig.nt_svd(A)
+    assert st.tolist() == st4.tolist() == [0, 1, 1, 0]
+    assert bool(w[1:3].isnan().all()) and bool(S[1:3].isnan().all())
+    assert bool(U[1:3].isnan().all())
+    assert torch.equal(w[[0, 3]], torch.ones(2, n, dtype=torch.float64,
+                                             device=cuda))
+    assert torch.equal(S[[0, 3]], torch.ones(2, n, dtype=torch.float64,
+                                             device=cuda))
+
+
+@pytest.mark.gpu
+def test_k3_k4_refuse_on_the_card(cuda):
+    from bluest_tpu_torch.ops import psd_eig
+    good = torch.eye(3, dtype=torch.float64, device=cuda)[None]
+    for fn in (psd_eig.sym_eigvalsh, psd_eig.nt_svd):
+        with pytest.raises(TypeError):
+            fn(good.float())
+        with pytest.raises(ValueError):
+            fn(good[0])
+        with pytest.raises(ValueError):
+            fn(torch.zeros(2, 3, 4, dtype=torch.float64, device=cuda))
+        with pytest.raises(ValueError):
+            fn(torch.zeros(2, 4, 4, dtype=torch.float64,
+                           device=cuda).transpose(0, 1))
+
+
+@pytest.mark.gpu
+def test_k3_k4_launches_count_at_replay(cuda):
+    """A launch recorded in a graph capture counts in ``captured``, not
+    in ``launches``; count_replay adds it per replay."""
+    from bluest_tpu_torch.ops import psd_eig
+    A = torch.eye(5, dtype=torch.float64, device=cuda).repeat(3, 1, 1)
+    fn = psd_eig.sym_eigvalsh
+    fn(A)
+    torch.cuda.synchronize()
+    launches, captured = fn.launches, fn.captured
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        g.capture_begin()
+        w, st = fn(A)
+        g.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    assert (fn.launches, fn.captured) == (launches, captured + 1)
+    for _ in range(3):
+        g.replay()
+        psd_eig.count_replay({fn: 1})
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 3
+    assert torch.equal(w, torch.ones(3, 5, dtype=torch.float64, device=cuda))
+    assert st.tolist() == [0, 0, 0]
+
+
+# --------------- the IPM iteration as one graph: graph vs eager ---------- #
+
+def _solve_both_loops(sdp, prog, fail_first=False, **kw):
+    """The same cone program on the card through the graph loop and the
+    eager loop: each interior-point solve's (iterations, done, best x),
+    and the results.  ``fail_first`` replaces the 0.99 attempt by a
+    failed one, so the solve retries at 0.85 (a second attempt, a second
+    capture)."""
+    from bluest_tpu_torch.config import allocation_device_scope
+    real = sdp._ipm_solve
+    out = {}
+    for loop in ("eager", "graph"):
+        rec = []
+
+        def ipm(*a, **k):
+            if fail_first and a[11] > 0.92:
+                return dict(merit=np.inf), 0, 2, None, None
+            r = real(*a, **k, loop=loop)
+            rec.append((r[1], r[2], r[0]["x"].cpu().numpy()))
+            return r
+        sdp._ipm_solve = ipm
+        try:
+            with allocation_device_scope("cuda"):
+                res = sdp.solve_cone_lp(*prog, **kw)
+        finally:
+            sdp._ipm_solve = real
+        out[loop] = (res, rec)
+    return out
+
+
+def _graph_equals_eager(out):
+    (re_, rece), (rg, recg) = out["eager"], out["graph"]
+    assert rg.status == re_.status and rg.iterations == re_.iterations
+    assert [r[:2] for r in recg] == [r[:2] for r in rece]
+    for a, b in zip(recg, rece):
+        assert np.array_equal(a[2], b[2])
+    assert np.array_equal(rg.x, re_.x, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ALLOC_PROGRAMS)
+def test_ipm_graph_matches_eager_card(cuda, cold_ipm, case):
+    """Each iteration replayed as one CUDA graph gives the eager card
+    loop's solve: the same status and iterations, x bit for bit."""
+    _graph_equals_eager(_solve_both_loops(cold_ipm,
+                                          _alloc_programs()[case]()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["lmi-21", "budget-3"])
+def test_ipm_graph_matches_eager_card_woodbury(cuda, cold_ipm, case):
+    _graph_equals_eager(_solve_both_loops(
+        cold_ipm, _alloc_programs()[case](), woodbury=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["lmi-7", "eps-1"])
+def test_ipm_graph_matches_eager_card_retry(cuda, cold_ipm, case):
+    """The 0.85 retry is a second attempt with a graph of its own."""
+    out = _solve_both_loops(cold_ipm, _alloc_programs()[case](),
+                            fail_first=True)
+    _graph_equals_eager(out)
+    assert out["graph"][0].dims["retried"]
