@@ -1,6 +1,7 @@
 // K3 and K4: the interior-point iteration's small dense eigenvalue and
-// singular value solves, a batch of (n, n) float64 matrices, one thread
-// block a matrix, by Jacobi rotations.
+// singular value solves, a batch of (n, n) float64 matrices, by Jacobi
+// rotations: one warp a matrix for n <= 32, one thread block a matrix
+// past that.
 //
 // Replaces no Pallas kernel: they are the counterparts of XLA's eigvalsh
 // (bluest_tpu/solvers/sdp.py:320, _max_step_psd) and svd (:304,
@@ -15,59 +16,103 @@
 // those torch.linalg calls (bluest_tpu_torch/ops/psd_eig.py).
 //
 // K3, bluest_sym_eigvalsh_f64: the eigenvalues, ascending, of each
-//   symmetric A (B, n, n) -> w (B, n).  Cyclic two-sided Jacobi: a sweep
+//   symmetric A (B, n, n) -> w (B, n), from its lower triangle (as
+//   torch.linalg.eigvalsh reads it).  Cyclic two-sided Jacobi: a sweep
 //   visits every pair (p, q) once, in n_pad - 1 rounds of n_pad / 2
 //   disjoint pairs (the round-robin order, n_pad = n rounded up to even;
-//   a pair with the padding index is skipped), so one round's rotations
-//   are computed together and applied together: rows, then columns, then
-//   the pair's closed-form diagonal (a_pp - t a_pq, a_qq + t a_pq) and a
-//   zero at (p, q) (Golub and Van Loan, sym.schur2).
+//   a pair with the padding index never rotates), so one round's
+//   rotations are computed together and applied together: rows, then
+//   columns, then the pair's closed-form diagonal (a_pp - t a_pq,
+//   a_qq + t a_pq) and a zero at (p, q) (Golub and Van Loan, sym.schur2).
 // K4, bluest_nt_svd_f64: the left singular vectors U (B, n, n) and the
 //   singular values S (B, n), descending, of each M.  One-sided (Hestenes)
-//   Jacobi on G = M^T: a rotation of columns p, q of G (rows p, q of M,
-//   contiguous here) makes them orthogonal, and the product of the
-//   rotations, accumulated from the identity, is U, since G U has
-//   orthogonal columns of norms sigma (M^T U = V Sigma).  U is orthogonal
-//   whatever the rank of M.  V is not formed: the IPM uses U and sigma
-//   alone (M = Ls^T Lz, the NT scaling).
+//   Jacobi on G = M^T: a rotation of columns p, q of G (rows p, q of M)
+//   makes them orthogonal, and the product of the rotations, accumulated
+//   from the identity, is U, since G U has orthogonal columns of norms
+//   sigma (M^T U = V Sigma).  U is orthogonal whatever the rank of M.  V
+//   is not formed: the IPM uses U and sigma alone (M = Ls^T Lz, the NT
+//   scaling).  Same round-robin order.
+//
+// The rotation (rotation() below): with d = a_qq - a_pp, GVL's
+// t = sign(tau) / (|tau| + sqrt(1 + tau^2)), tau = d / (2 a_pq), taken as
+// t = sign(tau) 2 |a_pq| / (|d| + sqrt(d^2 + 4 a_pq^2)), the same number
+// with one division fewer; c = rsqrt(1 + t^2), s = t c.  K4 takes
+// beta - alpha and gamma, the rows' squared norms and their dot product,
+// in place of d and a_pq.  The scaling below bounds every operand by the
+// scaled matrix's Frobenius norm (< 2n) or its square, so the squares
+// cannot overflow, and the floor keeps a_pq^2 clear of underflow.
 //
 // Stopping rule, relative, not absolute: the blocks the IPM hands over
 // span scales of 1e-150 to 1e150 between iterations, and their entries
 // differ by many orders within one block.  First each matrix is scaled by
 // a power of two that brings its largest entry into [1, 2) (exact), and
 // its results scaled back.  K3 rotates pair (p, q) while
-// |a_pq| > eps * sqrt|a_pp| * sqrt|a_qq|, K4 while
-// |g_p . g_q| > n * eps * |g_p| * |g_q| (the dot product's own rounding
-// stays below that bound, so a converged pair is never rotated again by
-// round-off).  Both skip a pair whose coupling is below eps^2 times the
+// a_pq^2 > eps^2 |a_pp a_qq|, K4 while gamma^2 > (n eps)^2 alpha beta
+// (the dot product's own rounding stays below that bound, so a converged
+// pair is never rotated again by round-off); squares, so no sqrt sits in
+// the test.  Both skip a pair whose coupling is below eps^2 times the
 // matrix's Frobenius norm (K3) or its square (K4), which moves no result
-// by more than that: without the floor, K4 on a rank-deficient M keeps
-// rotating the columns that orthogonalization left at round-off level
-// against each other (they stay nearly parallel) until they underflow,
-// ~15 sweeps more at n = 11.  A sweep that rotates no
-// pair ends the solve (status 0).  PSD_MAX_SWEEPS sweeps without that end
-// it with status 2 (Jacobi converges quadratically: ~6-12 sweeps at the
-// IPM's n).  A non-finite entry ends it before any sweep with status 1
-// and NaN results.
+// by more than that, and keeps the squares clear of underflow: without
+// the floor, K4 on a rank-deficient M keeps rotating the rows that
+// orthogonalization left at round-off level against each other (they
+// stay nearly parallel) until they underflow, ~15 sweeps more at n = 11.
+// A sweep that rotates no pair ends the solve (status 0).  PSD_MAX_SWEEPS
+// sweeps without that end it with status 2 (Jacobi converges
+// quadratically: ~6-12 sweeps at the IPM's n).  A non-finite entry,
+// anywhere in the matrix, ends it before any sweep with status 1 and NaN
+// results.
 //
 // Bound: latency.  At the IPM's shapes (n = M + 1: 11 on the flagship, 13
 // on Hodgkin-Huxley at K=5, up to 33 for a 32-model group; batches of nb
-// to 4 nb blocks, 3-20) the work is a few microseconds of the FP64 pipe
-// on one SM and the bytes a few kilobytes, while a sweep is n_pad - 1
-// dependent rounds of four barriers each: one block a matrix keeps every
-// round in one SM's shared memory, and the batch runs on that many SMs
-// at once.  No tensor cores: a rotation is two multiplies and an add per
-// entry.  Golub and Van Loan count 4n^3/3 flops for the symmetric
-// eigenvalues and 12 n^3 for the SVD's sigma and U1 (m = n); chip_smoke.py
-// sets the bound from those counts.
+// to 4 nb blocks, 3-20) the work is a few kiloflops on a few kilobytes:
+// microseconds of one SM's FP64 pipe, nanoseconds of HBM.  The time is a
+// chain of dependent rounds, sweeps x (n_pad - 1) of them for the slowest
+// matrix of a call (~90-110 at n = 11, ~130-145 at n = 13), so a call
+// takes rounds x the cycles a round.  A round is a chain of dependent
+// steps: the pair's loads or row exchange, the threshold and the warp's
+// vote, the rotation chain (a sqrt, a division and an rsqrt in FP64, each
+// a Newton sequence of dependent FMAs), the exchange of c and s, the
+// updates.  One matrix a warp leaves nothing to hide their latency, so
+// the design shortens the chain and removes the block-wide steps:
+// - one warp a matrix (n <= 32): the round needs no block barrier.  K4
+//   keeps the matrix in registers, lane j row j of M and column j of U;
+//   a lane trades its row with its partner by __shfl_sync at
+//   compile-time register indices, both lanes of a pair compute alpha,
+//   beta and gamma in the same order (so the same c and s), and each
+//   rotates its own row: no shared memory, no barrier.  K3's two-sided
+//   rotation also mixes columns, so the matrix sits in the warp's shared
+//   memory and the round works on 2 x 2 blocks: lane P < n_pad / 2 owns
+//   pair P and its diagonal block, the other lanes the blocks (P, Q),
+//   P < Q, of two pairs, each block rotated by rows, then by columns, in
+//   registers and stored with its transpose (so the matrix stays exactly
+//   symmetric), one __syncwarp a round;
+// - no integer division in a round: a lane's partner (K4) and its
+//   blocks' pairs (K3) advance by one add and one compare a round;
+// - the sweep's vote is __any_sync, and a round in which no pair rotates
+//   skips its updates (every round of the last sweep);
+// - squares in the threshold, t without tau's division and one rsqrt for
+//   c shorten the chain;
+// - warp shuffles reduce the scaling's largest entry and its norm.
+// Past n = 32 (the 32-model group's 33) the block kernels run: each
+// thread block one matrix, the round's phases parted by __syncthreads,
+// the same pairs, rotation and thresholds; they compute both triangles
+// of K3's matrix, which therefore differ from each other by rounding.
+// No tensor cores: a rotation is two multiplies and an add per entry.
+// Golub and Van Loan count 4n^3/3 flops for the symmetric eigenvalues and
+// 12 n^3 for the SVD's sigma and U1 (m = n); chip_smoke.py sets the
+// bound from those counts.
 //
-// Memory: each matrix's working copy (and K4's U) and the round's
-// rotations sit in dynamic shared memory while they fit in
-// PSD_SHARED_BYTES (n <= 74 for K3, n <= 52 for K4); past that the same
-// code runs on a global-memory workspace of bluest_psd_work_doubles(kind,
-// n) doubles a matrix that the wrapper allocates, so every n works.
-// Each launch is on the caller's stream, allocates nothing and returns
-// cudaGetLastError().
+// Memory: a warp kernel's matrix (K3) sits in n_pad (n_pad + 1) doubles
+// of dynamic shared memory, K4's in registers (instantiated per even
+// n_pad, so every register index is a constant).  A block kernel's
+// working copy (and K4's U) and the round's rotations sit in dynamic
+// shared memory while they fit in PSD_SHARED_BYTES (n <= 74 for K3,
+// n <= 52 for K4); past that the same code runs on a global-memory
+// workspace of bluest_psd_work_doubles(kind, n) doubles a matrix that the
+// wrapper allocates, so every n works.  Each launch is on the caller's
+// stream, allocates nothing and returns cudaGetLastError().  A non-null
+// `sweeps` receives the sweeps each matrix took (measurement only; the
+// wrappers pass null).
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -78,6 +123,390 @@
 // the dynamic shared memory a block may take without opting in (48 KiB),
 // less room for the kernel's static shared reduction array
 #define PSD_SHARED_BYTES (48 * 1024 - 2 * PSD_MAX_THREADS * 8)
+// the largest n one warp solves
+#define PSD_WARP_N 32
+#define PSD_FULL 0xffffffffu
+#define PSD_EPS2 (DBL_EPSILON * DBL_EPSILON)
+
+// the rotation that zeroes the coupling `num` of a pair whose diagonal
+// difference is `diff` (a_qq - a_pp, or beta - alpha): t, c and s
+__device__ __forceinline__ void rotation(double num, double diff, double* t,
+                                         double* c, double* s)
+{
+    const double n2 = 2.0 * fabs(num);
+    const double root = sqrt(fma(diff, diff, n2 * n2));
+    // the sign of tau = diff / (2 num), +1 at tau = 0
+    const bool plus = diff == 0.0 || ((diff > 0.0) == (num > 0.0));
+    *t = (plus ? n2 : -n2) / (fabs(diff) + root);
+    *c = rsqrt(fma(*t, *t, 1.0));
+    *s = *t * *c;
+}
+
+// K3's test: does the coupling a_pq of diagonal entries a_pp, a_qq rotate
+__device__ __forceinline__ bool k3_rotates(double apq, double app, double aqq,
+                                           double floor)
+{
+    return fabs(apq) > floor && apq * apq > PSD_EPS2 * fabs(app * aqq);
+}
+
+// K4's test, with tol2 = (n eps)^2
+__device__ __forceinline__ bool k4_rotates(double gamma, double alpha,
+                                           double beta, double tol2,
+                                           double floor)
+{
+    return fabs(gamma) > floor && gamma * gamma > tol2 * alpha * beta;
+}
+
+// the next round's index of a pair slot (round robin over 0..m, m odd:
+// every index but m moves one on, modulo m)
+__device__ __forceinline__ int next_index(int i, int m)
+{
+    return i == m ? m : (i + 1 == m ? 0 : i + 1);
+}
+
+__device__ __forceinline__ double warp_max(double v)
+{
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+        v = fmax(v, __shfl_xor_sync(PSD_FULL, v, o));
+    return v;
+}
+
+__device__ __forceinline__ double warp_sum(double v)
+{
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+        v += __shfl_xor_sync(PSD_FULL, v, o);
+    return v;
+}
+
+// the exponent that brings the largest entry mx into [1, 2)
+__device__ __forceinline__ int scale_exponent(double mx)
+{
+    return mx > 0.0 ? ilogb(mx) : 0;
+}
+
+// ------------------------- K3, one warp a matrix ------------------------- //
+
+// ITEMS: the most 2 x 2 blocks a lane owns, ceil((n_pad / 2)(n_pad / 2 + 1)
+// / 2 / 32); the block grid is one warp of 32 threads a matrix
+template <int ITEMS>
+__global__ void __launch_bounds__(32)
+eigvalsh_warp_kernel(const double* __restrict__ A, double* __restrict__ w,
+                     int* __restrict__ status, int* __restrict__ sweeps_out,
+                     int n)
+{
+    extern __shared__ double a[];        // n_pad x ld, row-major
+    const int lane = threadIdx.x;
+    const int np = (n + 1) / 2, m = 2 * np - 1, ld = 2 * np + 1;
+    const double* src = A + (size_t)blockIdx.x * n * n;
+    double* out = w + (size_t)blockIdx.x * n;
+
+    for (int i = lane; i < (m + 1) * ld; i += 32)
+        a[i] = 0.0;
+    __syncwarp();
+    // lane y reads column y of every row; the lower triangle, mirrored
+    double mx = 0.0;
+    bool bad = false;
+    if (lane < n) {
+        for (int x = 0; x < n; ++x) {
+            const double v = src[x * n + lane];
+            bad |= !isfinite(v);
+            if (x >= lane) {
+                a[x * ld + lane] = v;
+                a[lane * ld + x] = v;
+                mx = fmax(mx, fabs(v));
+            }
+        }
+    }
+    if (__any_sync(PSD_FULL, bad)) {
+        if (lane < n)
+            out[lane] = NAN;
+        if (lane == 0) {
+            status[blockIdx.x] = 1;
+            if (sweeps_out)
+                sweeps_out[blockIdx.x] = 0;
+        }
+        return;
+    }
+    const int e = scale_exponent(warp_max(mx));
+    const double sc = ldexp(1.0, -e);
+    __syncwarp();
+    double f2 = 0.0;
+    for (int i = lane; i < (m + 1) * ld; i += 32) {
+        const double v = a[i] * sc;
+        a[i] = v;
+        f2 = fma(v, v, f2);
+    }
+    const double floor = PSD_EPS2 * sqrt(warp_sum(f2));
+    __syncwarp();
+
+    // this lane's blocks, numbered lane, lane + 32, ...: block b < np is
+    // pair b's diagonal block (so item 0 of lane P < np is pair P's), the
+    // others the blocks (P, Q), P < Q, in row order; per block its pairs'
+    // slots and their indices in round 0 (slot 0: (0, m); slot j:
+    // (j, m - j))
+    int P[ITEMS], Q[ITEMS], ia[ITEMS], ib[ITEMS], ja[ITEMS], jb[ITEMS];
+    bool own[ITEMS];
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+        const int b = lane + 32 * it;
+        int bp = b, bq = b;
+        if (b >= np) {
+            int off = b - np, len = np - 1;
+            bp = 0;
+            while (len > 0 && off >= len) {
+                off -= len;
+                --len;
+                ++bp;
+            }
+            bq = bp + 1 + off;
+        }
+        own[it] = b < np * (np + 1) / 2;
+        P[it] = own[it] ? bp : 0;
+        Q[it] = own[it] ? bq : 0;
+        ia[it] = P[it];
+        ib[it] = P[it] == 0 ? m : m - P[it];
+        ja[it] = Q[it];
+        jb[it] = Q[it] == 0 ? m : m - Q[it];
+    }
+
+    bool converged = false;
+    int sweep = 0;
+    for (; sweep < PSD_MAX_SWEEPS && !converged; ++sweep) {
+        bool rotated = false;
+        for (int r = 0; r < m; ++r) {
+            // the pair lanes read their pair's 2 x 2 diagonal block, the
+            // others their blocks' four entries
+            double x1[ITEMS], x2[ITEMS], y1[ITEMS], y2[ITEMS];
+            int pP[ITEMS], qP[ITEMS], pQ[ITEMS], qQ[ITEMS];
+#pragma unroll
+            for (int it = 0; it < ITEMS; ++it) {
+                pP[it] = min(ia[it], ib[it]);
+                qP[it] = max(ia[it], ib[it]);
+                pQ[it] = min(ja[it], jb[it]);
+                qQ[it] = max(ja[it], jb[it]);
+                x1[it] = x2[it] = y1[it] = y2[it] = 0.0;
+                if (own[it]) {
+                    x1[it] = a[pP[it] * ld + pQ[it]];
+                    x2[it] = a[pP[it] * ld + qQ[it]];
+                    y1[it] = a[qP[it] * ld + pQ[it]];
+                    y2[it] = a[qP[it] * ld + qQ[it]];
+                }
+            }
+            // item 0 of a pair lane: app = x1, apq = x2, aqq = y2
+            const bool pair_lane = lane < np;
+            const bool rot = pair_lane && k3_rotates(x2[0], x1[0], y2[0],
+                                                     floor);
+            if (__any_sync(PSD_FULL, rot)) {
+                rotated = true;
+                double t = 0.0, c = 1.0, s = 0.0;
+                if (rot)
+                    rotation(x2[0], y2[0] - x1[0], &t, &c, &s);
+#pragma unroll
+                for (int it = 0; it < ITEMS; ++it) {
+                    const double cP = __shfl_sync(PSD_FULL, c, P[it]);
+                    const double sP = __shfl_sync(PSD_FULL, s, P[it]);
+                    const double cQ = __shfl_sync(PSD_FULL, c, Q[it]);
+                    const double sQ = __shfl_sync(PSD_FULL, s, Q[it]);
+                    if (!own[it] || (sP == 0.0 && sQ == 0.0))
+                        continue;
+                    const int p1 = pP[it], q1 = qP[it];
+                    const int p2 = pQ[it], q2 = qQ[it];
+                    if (P[it] == Q[it]) {        // the closed-form diagonal
+                        a[p1 * ld + p1] = x1[it] - t * x2[it];
+                        a[q1 * ld + q1] = y2[it] + t * x2[it];
+                        a[p1 * ld + q1] = 0.0;
+                        a[q1 * ld + p1] = 0.0;
+                        continue;
+                    }
+                    // rows by pair P (J^T A), then columns by pair Q (A J)
+                    const double r1 = cP * x1[it] - sP * y1[it];
+                    const double r2 = cP * x2[it] - sP * y2[it];
+                    const double u1 = sP * x1[it] + cP * y1[it];
+                    const double u2 = sP * x2[it] + cP * y2[it];
+                    const double b11 = cQ * r1 - sQ * r2;
+                    const double b12 = sQ * r1 + cQ * r2;
+                    const double b21 = cQ * u1 - sQ * u2;
+                    const double b22 = sQ * u1 + cQ * u2;
+                    a[p1 * ld + p2] = b11;
+                    a[p2 * ld + p1] = b11;
+                    a[p1 * ld + q2] = b12;
+                    a[q2 * ld + p1] = b12;
+                    a[q1 * ld + p2] = b21;
+                    a[p2 * ld + q1] = b21;
+                    a[q1 * ld + q2] = b22;
+                    a[q2 * ld + q1] = b22;
+                }
+                __syncwarp();
+            }
+#pragma unroll
+            for (int it = 0; it < ITEMS; ++it) {
+                ia[it] = next_index(ia[it], m);
+                ib[it] = next_index(ib[it], m);
+                ja[it] = next_index(ja[it], m);
+                jb[it] = next_index(jb[it], m);
+            }
+        }
+        converged = !rotated;
+    }
+    // the diagonal, scaled back, in ascending order (rank by comparison)
+    bool nonfinite = false;
+    if (lane < n) {
+        const double d = a[lane * ld + lane];
+        int rank = 0;
+        for (int k = 0; k < n; ++k) {
+            const double o = a[k * ld + k];
+            rank += (o < d) || (o == d && k < lane);
+        }
+        const double v = ldexp(d, e);
+        out[rank] = v;
+        nonfinite = !isfinite(v);
+    }
+    nonfinite = __any_sync(PSD_FULL, nonfinite);
+    if (lane == 0) {
+        status[blockIdx.x] = nonfinite ? 1 : (converged ? 0 : 2);
+        if (sweeps_out)
+            sweeps_out[blockIdx.x] = sweep;
+    }
+}
+
+// ------------------------- K4, one warp a matrix ------------------------- //
+
+// NMAX: n rounded up to even; lane j keeps row j of M in g and column j of
+// U in v, NMAX registers each (zero past n)
+template <int NMAX>
+__global__ void __launch_bounds__(32)
+nt_svd_warp_kernel(const double* __restrict__ M, double* __restrict__ U,
+                   double* __restrict__ S, int* __restrict__ status,
+                   int* __restrict__ sweeps_out, int n)
+{
+    const int lane = threadIdx.x;
+    const int np = (n + 1) / 2, m = 2 * np - 1;
+    const size_t nn = (size_t)n * n;
+    const double* src = M + blockIdx.x * nn;
+    double* u_out = U + blockIdx.x * nn;
+    double* s_out = S + (size_t)blockIdx.x * n;
+
+    double g[NMAX], v[NMAX];
+    double mx = 0.0;
+    bool bad = false;
+#pragma unroll
+    for (int k = 0; k < NMAX; ++k) {
+        const double x = (lane < n && k < n) ? src[lane * n + k] : 0.0;
+        bad |= !isfinite(x);
+        mx = fmax(mx, fabs(x));
+        g[k] = x;
+        v[k] = k == lane ? 1.0 : 0.0;
+    }
+    if (__any_sync(PSD_FULL, bad)) {
+        if (lane < n) {
+            for (int k = 0; k < n; ++k)
+                u_out[k * n + lane] = NAN;
+            s_out[lane] = NAN;
+        }
+        if (lane == 0) {
+            status[blockIdx.x] = 1;
+            if (sweeps_out)
+                sweeps_out[blockIdx.x] = 0;
+        }
+        return;
+    }
+    const int e = scale_exponent(warp_max(mx));
+    const double sc = ldexp(1.0, -e);
+    double f2 = 0.0;
+#pragma unroll
+    for (int k = 0; k < NMAX; ++k) {
+        g[k] *= sc;
+        f2 = fma(g[k], g[k], f2);
+    }
+    const double tol2 = (n * DBL_EPSILON) * (n * DBL_EPSILON);
+    const double floor = PSD_EPS2 * warp_sum(f2);
+
+    bool converged = false;
+    int sweep = 0;
+    for (; sweep < PSD_MAX_SWEEPS && !converged; ++sweep) {
+        bool rotated = false;
+        // lane j < m meets (2r - j) mod m in round r, or m where that is j
+        // itself; lane m meets r; lanes past m sit out
+        int tt = lane == 0 || lane >= m ? 0 : m - lane;
+        for (int r = 0; r < m; ++r) {
+            const int partner = lane < m ? (tt == lane ? m : tt)
+                                         : (lane == m ? r : lane);
+            tt += 2;
+            tt = tt >= m ? tt - m : tt;
+            double y[NMAX];
+#pragma unroll
+            for (int k = 0; k < NMAX; ++k)
+                y[k] = __shfl_sync(PSD_FULL, g[k], partner);
+            // own and partner norms and the dot product, the same
+            // operations on both lanes of a pair (fma is symmetric)
+            double a0 = 0.0, a1 = 0.0, b0 = 0.0, b1 = 0.0, c0 = 0.0,
+                   c1 = 0.0;
+#pragma unroll
+            for (int k = 0; k < NMAX; k += 2) {
+                a0 = fma(g[k], g[k], a0);
+                a1 = fma(g[k + 1], g[k + 1], a1);
+                b0 = fma(y[k], y[k], b0);
+                b1 = fma(y[k + 1], y[k + 1], b1);
+                c0 = fma(g[k], y[k], c0);
+                c1 = fma(g[k + 1], y[k + 1], c1);
+            }
+            const bool lo = lane < partner;
+            const double mine = a0 + a1, theirs = b0 + b1, gamma = c0 + c1;
+            const double alpha = lo ? mine : theirs;
+            const double beta = lo ? theirs : mine;
+            const bool rot = partner != lane && lane < n && partner < n
+                && k4_rotates(gamma, alpha, beta, tol2, floor);
+            if (!__any_sync(PSD_FULL, rot))
+                continue;
+            rotated = true;
+            double t = 0.0, c = 1.0, s = 0.0;
+            if (rot)
+                rotation(gamma, beta - alpha, &t, &c, &s);
+            // row p' = c p - s q (the lower lane), row q' = s p + c q
+            const double so = lo ? -s : s;
+#pragma unroll
+            for (int k = 0; k < NMAX; ++k) {
+                g[k] = fma(c, g[k], so * y[k]);
+                const double vo = __shfl_sync(PSD_FULL, v[k], partner);
+                v[k] = fma(c, v[k], so * vo);
+            }
+        }
+        converged = !rotated;
+    }
+    // sigma_j = |g_j|, descending (rank by comparison); lane j's column of
+    // U goes to place rank
+    double a2 = 0.0;
+#pragma unroll
+    for (int k = 0; k < NMAX; ++k)
+        a2 = fma(g[k], g[k], a2);
+    const double sj = sqrt(a2);
+    int rank = 0;
+#pragma unroll
+    for (int k = 0; k < NMAX; ++k) {
+        const double o = __shfl_sync(PSD_FULL, sj, k);
+        rank += k < n && ((o > sj) || (o == sj && k < lane));
+    }
+    bool nonfinite = false;
+    if (lane < n) {
+        const double sv = ldexp(sj, e);
+        s_out[rank] = sv;
+        nonfinite = !isfinite(sv);
+#pragma unroll
+        for (int k = 0; k < NMAX; ++k)
+            if (k < n)
+                u_out[k * n + rank] = v[k];
+    }
+    nonfinite = __any_sync(PSD_FULL, nonfinite);
+    if (lane == 0) {
+        status[blockIdx.x] = nonfinite ? 1 : (converged ? 0 : 2);
+        if (sweeps_out)
+            sweeps_out[blockIdx.x] = sweep;
+    }
+}
+
+// --------------------- past n = 32: one block a matrix -------------------- //
 
 // pair j of round r of the round-robin order of the indices 0..m (m odd:
 // n_pad - 1); over the m rounds each unordered pair appears once
@@ -107,24 +536,35 @@ __device__ double block_reduce(double v, double* red, bool sum)
     return out;
 }
 
-// copy a matrix in, scaled by the power of two that brings its largest
-// entry into [1, 2); returns false if an entry is not finite, else sets
-// *e, the exponent that scales the results back, and *f, the squared
-// Frobenius norm of the scaled matrix
+// copy a matrix in (lower = true: its lower triangle, mirrored), scaled by
+// the power of two that brings its largest entry into [1, 2); returns
+// false if an entry is not finite, else sets *e, the exponent that scales
+// the results back, and *f, the squared Frobenius norm of the scaled
+// matrix
 __device__ bool load_scaled(const double* __restrict__ src, double* a,
-                            int nn, double* red, int* e, double* f)
+                            int n, bool lower, double* red, int* e,
+                            double* f)
 {
-    const int tid = threadIdx.x, nt = blockDim.x;
+    const int tid = threadIdx.x, nt = blockDim.x, nn = n * n;
     double mx = 0.0;
     for (int i = tid; i < nn; i += nt) {
         const double v = src[i];
-        a[i] = v;
-        mx = fmax(mx, isfinite(v) ? fabs(v) : INFINITY);
+        const int x = i / n, y = i - x * n;
+        if (!isfinite(v))
+            mx = INFINITY;
+        else if (!lower)
+            a[i] = v;
+        else if (x >= y) {
+            a[i] = v;
+            a[y * n + x] = v;
+        }
+        if (!lower || x >= y)
+            mx = fmax(mx, fabs(v));
     }
     mx = block_reduce(mx, red, false);
     if (!isfinite(mx))
         return false;
-    *e = mx > 0.0 ? ilogb(mx) : 0;
+    *e = scale_exponent(mx);
     const double sc = ldexp(1.0, -*e);
     double f2 = 0.0;
     for (int i = tid; i < nn; i += nt) {
@@ -135,12 +575,11 @@ __device__ bool load_scaled(const double* __restrict__ src, double* a,
     return true;
 }
 
-// -------------------------------- K3 ------------------------------------ //
-
 template <bool SHARED>
 __global__ void __launch_bounds__(PSD_MAX_THREADS)
 eigvalsh_kernel(const double* __restrict__ A, double* __restrict__ w,
-                int* __restrict__ status, double* __restrict__ work, int n)
+                int* __restrict__ status, int* __restrict__ sweeps_out,
+                double* __restrict__ work, int n)
 {
     extern __shared__ double smem[];
     __shared__ double red[PSD_MAX_THREADS];
@@ -152,16 +591,21 @@ eigvalsh_kernel(const double* __restrict__ A, double* __restrict__ w,
     double* out = w + (size_t)blockIdx.x * n;
     int e = 0;
     double f = 0.0;
-    if (!load_scaled(A + (size_t)blockIdx.x * n * n, a, n * n, red, &e, &f)) {
+    if (!load_scaled(A + (size_t)blockIdx.x * n * n, a, n, true, red, &e,
+                     &f)) {
         for (int i = tid; i < n; i += nt)
             out[i] = NAN;
-        if (tid == 0)
+        if (tid == 0) {
             status[blockIdx.x] = 1;
+            if (sweeps_out)
+                sweeps_out[blockIdx.x] = 0;
+        }
         return;
     }
-    const double floor = DBL_EPSILON * DBL_EPSILON * sqrt(f);
+    const double floor = PSD_EPS2 * sqrt(f);
     bool converged = false;
-    for (int sweep = 0; sweep < PSD_MAX_SWEEPS && !converged; ++sweep) {
+    int sweep = 0;
+    for (; sweep < PSD_MAX_SWEEPS && !converged; ++sweep) {
         int rotated = 0;
         for (int r = 0; r < m; ++r) {
             for (int j = tid; j < np; j += nt) {
@@ -169,15 +613,11 @@ eigvalsh_kernel(const double* __restrict__ A, double* __restrict__ w,
                 pair_of(r, j, m, &p, &q);
                 double c = 0.0, s = 0.0, dp = 0.0, dq = 0.0;
                 if (q < n) {
-                    const double apq = a[p * n + q];
+                    const double apq = a[q * n + p];
                     const double app = a[p * n + p], aqq = a[q * n + q];
-                    if (fabs(apq) > fmax(DBL_EPSILON * sqrt(fabs(app))
-                                         * sqrt(fabs(aqq)), floor)) {
-                        const double tau = (aqq - app) / (2.0 * apq);
-                        const double t = (tau >= 0.0 ? 1.0 : -1.0)
-                            / (fabs(tau) + hypot(1.0, tau));
-                        c = 1.0 / sqrt(1.0 + t * t);
-                        s = t * c;
+                    if (k3_rotates(apq, app, aqq, floor)) {
+                        double t;
+                        rotation(apq, aqq - app, &t, &c, &s);
                         dp = app - t * apq;
                         dq = aqq + t * apq;
                         rotated = 1;
@@ -241,17 +681,18 @@ eigvalsh_kernel(const double* __restrict__ A, double* __restrict__ w,
         bad |= !isfinite(v);
     }
     bad = __syncthreads_or(bad);
-    if (tid == 0)
+    if (tid == 0) {
         status[blockIdx.x] = bad ? 1 : (converged ? 0 : 2);
+        if (sweeps_out)
+            sweeps_out[blockIdx.x] = sweep;
+    }
 }
-
-// -------------------------------- K4 ------------------------------------ //
 
 template <bool SHARED>
 __global__ void __launch_bounds__(PSD_MAX_THREADS)
 nt_svd_kernel(const double* __restrict__ M, double* __restrict__ U,
               double* __restrict__ S, int* __restrict__ status,
-              double* __restrict__ work, int n)
+              int* __restrict__ sweeps_out, double* __restrict__ work, int n)
 {
     extern __shared__ double smem[];
     __shared__ double red[PSD_MAX_THREADS];
@@ -266,22 +707,26 @@ nt_svd_kernel(const double* __restrict__ M, double* __restrict__ U,
     double* s_out = S + (size_t)blockIdx.x * n;
     int e = 0;
     double f = 0.0;
-    if (!load_scaled(M + blockIdx.x * nn, g, n * n, red, &e, &f)) {
+    if (!load_scaled(M + blockIdx.x * nn, g, n, false, red, &e, &f)) {
         for (int i = tid; i < n * n; i += nt)
             u_out[i] = NAN;
         for (int i = tid; i < n; i += nt)
             s_out[i] = NAN;
-        if (tid == 0)
+        if (tid == 0) {
             status[blockIdx.x] = 1;
+            if (sweeps_out)
+                sweeps_out[blockIdx.x] = 0;
+        }
         return;
     }
     for (int i = tid; i < n * n; i += nt)
         v[i] = (i / n == i % n) ? 1.0 : 0.0;
     __syncthreads();
-    const double tol = n * DBL_EPSILON;
-    const double floor = DBL_EPSILON * DBL_EPSILON * f;
+    const double tol2 = (n * DBL_EPSILON) * (n * DBL_EPSILON);
+    const double floor = PSD_EPS2 * f;
     bool converged = false;
-    for (int sweep = 0; sweep < PSD_MAX_SWEEPS && !converged; ++sweep) {
+    int sweep = 0;
+    for (; sweep < PSD_MAX_SWEEPS && !converged; ++sweep) {
         int rotated = 0;
         for (int r = 0; r < m; ++r) {
             for (int j = tid; j < np; j += nt) {
@@ -296,13 +741,9 @@ nt_svd_kernel(const double* __restrict__ M, double* __restrict__ U,
                         beta += y * y;
                         gamma += x * y;
                     }
-                    if (fabs(gamma) > fmax(tol * sqrt(alpha) * sqrt(beta),
-                                           floor)) {
-                        const double zeta = (beta - alpha) / (2.0 * gamma);
-                        const double t = (zeta >= 0.0 ? 1.0 : -1.0)
-                            / (fabs(zeta) + hypot(1.0, zeta));
-                        c = 1.0 / sqrt(1.0 + t * t);
-                        s = t * c;
+                    if (k4_rotates(gamma, alpha, beta, tol2, floor)) {
+                        double t;
+                        rotation(gamma, beta - alpha, &t, &c, &s);
                         rotated = 1;
                     }
                 }
@@ -353,9 +794,15 @@ nt_svd_kernel(const double* __restrict__ M, double* __restrict__ U,
         const int k = i / n, col = i - k * n;
         u_out[i] = v[(int)rot[n + col] * n + k];
     }
-    if (tid == 0)
+    if (tid == 0) {
         status[blockIdx.x] = bad ? 1 : (converged ? 0 : 2);
+        if (sweeps_out)
+            sweeps_out[blockIdx.x] = sweep;
+    }
 }
+
+// an empty kernel: its launch is the floor under any kernel's (measurement)
+__global__ void psd_empty_kernel() {}
 
 // ------------------------------ C interface ------------------------------ //
 
@@ -375,39 +822,86 @@ static size_t words_for(int kind, int n)
 }
 
 // doubles of global workspace a matrix needs (kind 3: K3, 4: K4), 0 when
-// its working set fits in shared memory
+// its working set fits in shared memory (always, for n <= PSD_WARP_N)
 extern "C" long long bluest_psd_work_doubles(int kind, int n)
 {
     const size_t words = words_for(kind, n);
-    return words * sizeof(double) <= PSD_SHARED_BYTES ? 0 : (long long)words;
+    return n <= PSD_WARP_N || words * sizeof(double) <= PSD_SHARED_BYTES
+        ? 0 : (long long)words;
+}
+
+// K3's 2 x 2 blocks a lane owns, as a template argument
+template <int ITEMS>
+static void launch_k3_warp(const double* A, double* w, int* status,
+                           int* sweeps, int batch, int n, cudaStream_t s)
+{
+    const int np = (n + 1) / 2;
+    const size_t bytes = (size_t)(2 * np) * (2 * np + 1) * sizeof(double);
+    eigvalsh_warp_kernel<ITEMS><<<batch, 32, bytes, s>>>(A, w, status,
+                                                         sweeps, n);
 }
 
 extern "C" int bluest_sym_eigvalsh_f64(const double* A, double* w,
-                                       int* status, double* work, int batch,
-                                       int n, void* stream)
+                                       int* status, int* sweeps,
+                                       double* work, int batch, int n,
+                                       void* stream)
 {
     cudaStream_t s = (cudaStream_t)stream;
+    if (n <= PSD_WARP_N) {
+        const int np = (n + 1) / 2, blocks = np * (np + 1) / 2;
+        switch ((blocks + 31) / 32) {
+        case 1: launch_k3_warp<1>(A, w, status, sweeps, batch, n, s); break;
+        case 2: launch_k3_warp<2>(A, w, status, sweeps, batch, n, s); break;
+        case 3: launch_k3_warp<3>(A, w, status, sweeps, batch, n, s); break;
+        case 4: launch_k3_warp<4>(A, w, status, sweeps, batch, n, s); break;
+        default: launch_k3_warp<5>(A, w, status, sweeps, batch, n, s); break;
+        }
+        return (int)cudaGetLastError();
+    }
     const size_t bytes = words_for(3, n) * sizeof(double);
     if (bytes <= PSD_SHARED_BYTES)
         eigvalsh_kernel<true><<<batch, threads_for(n), bytes, s>>>(
-            A, w, status, work, n);
+            A, w, status, sweeps, work, n);
     else
         eigvalsh_kernel<false><<<batch, threads_for(n), 0, s>>>(
-            A, w, status, work, n);
+            A, w, status, sweeps, work, n);
     return (int)cudaGetLastError();
 }
 
+#define PSD_K4_WARP(N)                                                      \
+    case N:                                                                 \
+        nt_svd_warp_kernel<N><<<batch, 32, 0, s>>>(M, U, S, status, sweeps, \
+                                                   n);                      \
+        break;
+
 extern "C" int bluest_nt_svd_f64(const double* M, double* U, double* S,
-                                 int* status, double* work, int batch, int n,
-                                 void* stream)
+                                 int* status, int* sweeps, double* work,
+                                 int batch, int n, void* stream)
 {
     cudaStream_t s = (cudaStream_t)stream;
+    if (n <= PSD_WARP_N) {
+        switch (n + (n & 1)) {
+        PSD_K4_WARP(2) PSD_K4_WARP(4) PSD_K4_WARP(6) PSD_K4_WARP(8)
+        PSD_K4_WARP(10) PSD_K4_WARP(12) PSD_K4_WARP(14) PSD_K4_WARP(16)
+        PSD_K4_WARP(18) PSD_K4_WARP(20) PSD_K4_WARP(22) PSD_K4_WARP(24)
+        PSD_K4_WARP(26) PSD_K4_WARP(28) PSD_K4_WARP(30) PSD_K4_WARP(32)
+        }
+        return (int)cudaGetLastError();
+    }
     const size_t bytes = words_for(4, n) * sizeof(double);
     if (bytes <= PSD_SHARED_BYTES)
         nt_svd_kernel<true><<<batch, threads_for(n), bytes, s>>>(
-            M, U, S, status, work, n);
+            M, U, S, status, sweeps, work, n);
     else
         nt_svd_kernel<false><<<batch, threads_for(n), 0, s>>>(
-            M, U, S, status, work, n);
+            M, U, S, status, sweeps, work, n);
+    return (int)cudaGetLastError();
+}
+
+// `batch` empty one-warp blocks on the stream: the launch floor that the
+// smoke run's timings stand beside
+extern "C" int bluest_psd_empty(int batch, void* stream)
+{
+    psd_empty_kernel<<<batch, 32, 0, (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
 }

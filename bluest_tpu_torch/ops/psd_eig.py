@@ -14,10 +14,11 @@ solver (``solvers/sdp.py``) folds it into the statuses of its one packed
 read, as it does ``torch.linalg.cholesky_ex``'s.
 
 * A CUDA tensor launches the hand-written kernel of
-  ``bluest_tpu_torch/csrc/psd_eig.cu`` (cyclic Jacobi, one thread block a
-  matrix), built with nvcc at first use into ``build/bluest_tpu_torch/``
-  and loaded through ctypes.  It never synchronises, so an IPM iteration
-  can be captured in one CUDA graph.  Each launch is counted in the
+  ``bluest_tpu_torch/csrc/psd_eig.cu`` (cyclic Jacobi, one warp a matrix
+  for n <= 32, one thread block a matrix past that), built with nvcc at
+  first use into ``build/bluest_tpu_torch/`` and loaded through ctypes.
+  It never synchronises, so an IPM iteration can be captured in one CUDA
+  graph.  Each launch is counted in the
   wrapper's ``launches``; a launch recorded into a graph being captured
   is counted in ``captured`` instead, and the graph's owner adds its
   captured launches to ``launches`` at each replay (:func:`count_replay`).
@@ -60,9 +61,11 @@ def build_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.bluest_sym_eigvalsh_f64.restype = I
-        lib.bluest_sym_eigvalsh_f64.argtypes = [P, P, P, P, I, I, P]
+        lib.bluest_sym_eigvalsh_f64.argtypes = [P, P, P, P, P, I, I, P]
         lib.bluest_nt_svd_f64.restype = I
-        lib.bluest_nt_svd_f64.argtypes = [P, P, P, P, P, I, I, P]
+        lib.bluest_nt_svd_f64.argtypes = [P, P, P, P, P, P, I, I, P]
+        lib.bluest_psd_empty.restype = I
+        lib.bluest_psd_empty.argtypes = [I, P]
         lib.bluest_psd_work_doubles.restype = ctypes.c_longlong
         lib.bluest_psd_work_doubles.argtypes = [I, I]
         _lib = lib
@@ -143,8 +146,8 @@ def sym_eigvalsh(A: torch.Tensor):
     with torch.cuda.device(A.device):
         work = _workspace(lib, 3, A)
         rc = lib.bluest_sym_eigvalsh_f64(
-            A.data_ptr(), w.data_ptr(), status.data_ptr(), work.data_ptr(),
-            B, n, torch.cuda.current_stream().cuda_stream)
+            A.data_ptr(), w.data_ptr(), status.data_ptr(), None,
+            work.data_ptr(), B, n, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError("sym_eigvalsh: K3 launch failed: CUDA error %d "
                            "(B=%d, n=%d)" % (rc, B, n))
@@ -170,7 +173,8 @@ def nt_svd(M: torch.Tensor):
         work = _workspace(lib, 4, M)
         rc = lib.bluest_nt_svd_f64(
             M.data_ptr(), U.data_ptr(), S.data_ptr(), status.data_ptr(),
-            work.data_ptr(), B, n, torch.cuda.current_stream().cuda_stream)
+            None, work.data_ptr(), B, n,
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError("nt_svd: K4 launch failed: CUDA error %d "
                            "(B=%d, n=%d)" % (rc, B, n))

@@ -60,14 +60,25 @@ Phases (any failure raises, so the exit code is non-zero):
      the card (k3_holds, k4_holds: 32 n eps ||A||_F, orthogonality and
      the reconstruction M M^T; cuSOLVER only at unit scale, where it is
      accurate) at n in PSD_CHECK_N and B in PSD_CHECK_B, each launch
-     counted, a NaN block flagged; each timed at the IPM's batches and at
-     1024 blocks beside its bound (Golub and Van Loan's flop counts over
-     the FP64 rate), the plain version and the torch.linalg call;
+     counted, a NaN block flagged, the host wall of each kernel's first
+     call in the process; each timed at the IPM's batches and at 1024
+     blocks beside its bound (Golub and Van Loan's flop counts over the
+     FP64 rate) and the blocks' mean and largest sweeps: eager in turns
+     with the plain version and the torch.linalg call (and an earlier
+     design, below), and as 100 calls in one CUDA graph, as the IPM runs
+     them, beside an empty kernel's (the launch floor), with the cycles a
+     Jacobi round at the SM clock nvidia-smi reads;
   4. drive the flagship end to end on the default device (the card):
      pilot (4096 samples) + SPD projection, setup_solver(K=4) with the
      budget calibrated to ~1e6 samples (K3's and K4's launches counted
      from 0 just before and read just after: the kernel line's
-     "flagship_alloc"), solve() (all groups dispatched,
+     "flagship_alloc"), split (setup_probes) into psi assembly, the IPM
+     (its graph captures apart), the cleanup walk, the integer projection
+     and the rest, with the host wall of the first and later calls of
+     K3/K4, cholesky_ex and solve_triangular, then the same calibrated
+     set-up again (a fresh MOSAP, the warm cache emptied) split the same
+     way, the steady set-up beside the process's first; solve() (all
+     groups dispatched,
      then one fetch of their sums); check the certificate, the estimates
      and that the model evaluations went through K1; then the same
      allocation seven times through solve(), through its fetch alone
@@ -244,7 +255,13 @@ csrc/hodgkin_huxley.cu with the one-lane C interface, e.g. the commit's
 before the variants, written out under build/), phase 1 builds it and
 its step probes beside the others, and the K2 check prints its SASS
 counts and times it in turns with this K2 (parent, new, new, parent) at
-K2_TURNS: model 0 at n=256 and 16384 and the group at 16384.
+K2_TURNS: model 0 at n=256 and 16384 and the group at 16384.  With
+--k34-parent-source PATH (another csrc/psd_eig.cu with the C interface
+of the one-block-a-matrix design, without a sweeps argument, e.g. the
+commit's before the warp kernels, written out under build/),
+phase 1 builds it beside the others and the K3/K4 check times its K3
+and K4 in turns with this one (parent, new, new, parent), eager and in
+a graph, at every K3_TIMED and K4_TIMED shape.
 
 With --profile, one more budget solve after phase 4 runs under
 torch.profiler and a line gives K1's device time, the device's busy share
@@ -401,12 +418,13 @@ def phase_device():
     return name, smi
 
 
-def phase_build(k2_parent_source=None):
+def phase_build(k2_parent_source=None, k34_parent_source=None):
     """Build every kernel source at once (one nvcc each, in parallel) and
     print nvcc's registers and spills for each kernel; with them, K2's
-    step probes for the SASS counts and, given ``k2_parent_source``, that
-    earlier K2 and its probes.  Returns {"sass": {design: counts},
-    "k2_parent": launcher or None}."""
+    step probes for the SASS counts and, given ``k2_parent_source`` or
+    ``k34_parent_source``, that earlier K2 and its probes or that earlier
+    K3/K4.  Returns {"sass": {design: counts}, "k2_parent": launcher or
+    None, "k34_parent": launchers or None}."""
     from concurrent.futures import ThreadPoolExecutor
     from bluest_tpu_torch.ops import _build
     from bluest_tpu_torch.ops import diffusion as k1
@@ -414,22 +432,26 @@ def phase_build(k2_parent_source=None):
     from bluest_tpu_torch.ops import psd_eig as k34
     mods = (("K1", k1), ("K2", k2), ("K3/K4", k34))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods) + 3) as pool:
+    with ThreadPoolExecutor(len(mods) + 4) as pool:
         jobs = [pool.submit(mod.build_library) for _, mod in mods]
         probes = {"new": pool.submit(k2_probe_cubin, k2._SOURCE, False)}
-        parent = None
+        parent = psd_parent = None
         if k2_parent_source:
             parent = pool.submit(parent_k2, k2_parent_source)
             probes["parent"] = pool.submit(k2_probe_cubin, k2_parent_source,
                                            True)
+        if k34_parent_source:
+            psd_parent = pool.submit(parent_psd, k34_parent_source)
         for f in jobs:
             f.result()
         cubins = {d: f.result() for d, f in probes.items()}
         parent = parent.result() if parent else None
+        psd_parent = psd_parent.result() if psd_parent else None
     dt = time.perf_counter() - t0
-    log("K1, K2 and K3/K4 build, in parallel%s: %.2f s"
+    log("K1, K2 and K3/K4 build, in parallel%s%s: %.2f s"
         % (" (with K2's step probes%s)"
-           % (" and the parent K2" if parent else ""), dt))
+           % (" and the parent K2" if parent else ""),
+           " and the parent K3/K4" if psd_parent else "", dt))
     logs = [(name, mod.build_log) for name, mod in mods]
     if parent:
         logs.append(("K2 parent", _build.build_logs.get(
@@ -440,7 +462,7 @@ def phase_build(k2_parent_source=None):
                     or "Compiling entry function" in line):
                 log("  %s nvcc:" % name, line.strip())
     return {"sass": {d: sass_step_counts(c) for d, c in cubins.items()},
-            "k2_parent": parent}
+            "k2_parent": parent, "k34_parent": psd_parent}
 
 
 def _time_ms(fn, reps):
@@ -1162,6 +1184,58 @@ def parent_k2(src):
     return run
 
 
+def parent_psd(src):
+    """K3 and K4 of another csrc/psd_eig.cu with the C interface of the
+    block design (bluest_sym_eigvalsh_f64 and bluest_nt_svd_f64 without a
+    sweeps argument), built with the package's nvcc flags beside its
+    libraries, as launchers {"eigvalsh": x -> (w, status), "svd": x ->
+    (U, S, status)} on the current stream.  For timing in turns only:
+    counted nowhere and never on a path."""
+    import ctypes
+    import torch
+    from bluest_tpu_torch.ops import _build
+    from bluest_tpu_torch.ops import psd_eig as k34
+    lib = ctypes.CDLL(_build.build(src, k34.NVCC_FLAGS))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.bluest_sym_eigvalsh_f64.restype = I
+    lib.bluest_sym_eigvalsh_f64.argtypes = [P, P, P, P, I, I, P]
+    lib.bluest_nt_svd_f64.restype = I
+    lib.bluest_nt_svd_f64.argtypes = [P, P, P, P, P, I, I, P]
+    lib.bluest_psd_work_doubles.restype = ctypes.c_longlong
+    lib.bluest_psd_work_doubles.argtypes = [I, I]
+
+    def work(kind, x):
+        return torch.empty(x.shape[0] * lib.bluest_psd_work_doubles(
+            kind, x.shape[1]), dtype=torch.float64, device=x.device)
+
+    def check(rc, what, x):
+        if rc != 0:
+            raise RuntimeError("parent %s: CUDA error %d (B=%d, n=%d)"
+                               % (what, rc, x.shape[0], x.shape[1]))
+
+    def eigvalsh(x):
+        B, n = x.shape[0], x.shape[1]
+        w = torch.empty((B, n), dtype=torch.float64, device=x.device)
+        st = torch.empty(B, dtype=torch.int32, device=x.device)
+        check(lib.bluest_sym_eigvalsh_f64(
+            x.data_ptr(), w.data_ptr(), st.data_ptr(),
+            work(3, x).data_ptr(), B, n,
+            torch.cuda.current_stream().cuda_stream), "K3", x)
+        return w, st
+
+    def svd(x):
+        B, n = x.shape[0], x.shape[1]
+        U = torch.empty((B, n, n), dtype=torch.float64, device=x.device)
+        S = torch.empty((B, n), dtype=torch.float64, device=x.device)
+        st = torch.empty(B, dtype=torch.int32, device=x.device)
+        check(lib.bluest_nt_svd_f64(
+            x.data_ptr(), U.data_ptr(), S.data_ptr(), st.data_ptr(),
+            work(4, x).data_ptr(), B, n,
+            torch.cuda.current_stream().cuda_stream), "K4", x)
+        return U, S, st
+    return {"eigvalsh": eigvalsh, "svd": svd}
+
+
 @contextlib.contextmanager
 def smi_sampler(period_ms=100):
     """nvidia-smi's SM clock (MHz), power draw and power limit (W),
@@ -1495,19 +1569,41 @@ def k4_holds(M, U, S, status, refs, where):
     return rel, unit.max().item(), plain_off
 
 
-def phase_psd_check():
+def phase_psd_check(parent=None):
     """K3 and K4 against their plain versions (torch.linalg.eigvalsh and
     svd) on the same inputs, on the host and on the card (k3_holds,
     k4_holds), at every n of PSD_CHECK_N and batch of PSD_CHECK_B (seeded
     blocks at scales 1e-150 ... 1e150, repeated and zero eigenvalues,
     rank-deficient), each launch counted; a NaN block
     flagged (status 1, NaN results) and its neighbours unharmed; then
-    each kernel's time at the IPM's batches (K3_TIMED, K4_TIMED) beside
-    its bound, the plain version's and the torch.linalg call's time (the
-    library_ms), in turns (plain, kernel, kernel, plain)."""
+    each kernel's time at the IPM's batches and at 1024 blocks (K3_TIMED,
+    K4_TIMED) beside its bound and the blocks' mean and largest sweeps
+    (psd_sweeps): eager calls in turns with the plain version, the
+    torch.linalg call (the library_ms) and, given ``parent`` (parent_psd's
+    launchers), an earlier design (plain, torch.linalg, parent, kernel,
+    kernel, parent, torch.linalg, plain); then 100 calls captured in one
+    CUDA graph and replayed, as the IPM runs them, in turns with the
+    parent's and with an empty kernel's (the launch floor), and the SM
+    clock nvidia-smi reads meanwhile, from which the cycles a Jacobi
+    round (graph time over the slowest block's rounds)."""
     import torch
     from bluest_tpu_torch.ops import psd_eig as k34
     t_phase = time.perf_counter()
+    # the host wall of the process's first call of each kernel (CUDA
+    # loads a module, and a kernel of it, at its first launch) and of the
+    # second, at the flagship's n, each ended by a synchronise
+    first = {}
+    for key, fn, kind in (("K3", k34.sym_eigvalsh, 3), ("K4", k34.nt_svd, 4)):
+        x = psd_blocks(11, 3, 5 + kind, kind)
+        first[key] = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(x)
+            torch.cuda.synchronize()
+            first[key].append(1e3 * (time.perf_counter() - t0))
+    log("K3/K4 first calls in the process (host wall, ms; first / second): "
+        "K3 %.3f / %.3f, K4 %.3f / %.3f" % (*first["K3"], *first["K4"]))
     worst = {3: [0.0, 0.0, 0.0], 4: [0.0, 0.0, 0.0]}
     for n in PSD_CHECK_N:
         for B in PSD_CHECK_B:
@@ -1551,42 +1647,160 @@ def phase_psd_check():
         % (PSD_CHECK_N, PSD_CHECK_B, worst[3][0], worst[3][1], worst[4][0],
            worst[4][1], worst[3][2], worst[4][2]))
     timed = {}
+    lib = k34.build_library()
     for kind, shapes in ((3, K3_TIMED), (4, K4_TIMED)):
-        fn, plain, lib = (
+        fn, plain, libcall = (
             (k34.sym_eigvalsh, k34.sym_eigvalsh_plain, torch.linalg.eigvalsh)
             if kind == 3 else (k34.nt_svd, k34.nt_svd_plain,
                                torch.linalg.svd))
+        old = parent and parent["eigvalsh" if kind == 3 else "svd"]
         for name, n, B in shapes:
             x = psd_blocks(n, B, 7 * n + B, kind)
+            sweeps = psd_sweeps(kind, x)
             reps = 50 if B < 1024 else 10
-            p1 = _time_ms(lambda: plain(x), reps)
-            k1_ = _time_ms(lambda: fn(x), reps)
-            k2_ = _time_ms(lambda: fn(x), reps)
-            p2 = _time_ms(lambda: plain(x), reps)
-            lib_ms = _time_ms(lambda: lib(x), reps)
+            counts = (fn.launches, fn.captured)
+            with smi_sampler() as smi:
+                eager = {k: [] for k in ("plain", "library", "parent",
+                                         "kernel")}
+                order = ["plain", "library"] + (["parent"] if old else [])
+                calls = {"plain": lambda: plain(x), "library":
+                         lambda: libcall(x), "parent": lambda: old(x),
+                         "kernel": lambda: fn(x)}
+                for key in order + ["kernel", "kernel"] + order[::-1]:
+                    eager[key].append(_time_ms(calls[key], reps))
+
+                def floor():
+                    rc = lib.bluest_psd_empty(
+                        B, torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError("empty kernel: CUDA error %d" % rc)
+                graphs = {k: [] for k in ("kernel", "parent", "floor")}
+                gorder = ["kernel"] + (["parent"] if old else []) + ["floor"]
+                gcalls = {"kernel": calls["kernel"], "parent": calls["parent"],
+                          "floor": floor}
+                for key in gorder + gorder[::-1]:
+                    graphs[key].append(_graph_ms(gcalls[key]))
+            fn.launches, fn.captured = counts
+            clock = (statistics.median(c for c, _, _ in smi) if smi
+                     else float("nan"))
             bound, by = psd_bound_ms(kind, n, B)
-            ms = min(k1_, k2_)
-            log("K%d timing %s n=%d B=%d: kernel %.4f / %.4f ms, plain %.4f "
-                "/ %.4f ms (plain, kernel, kernel, plain), torch.linalg "
-                "%.4f ms; bound %.6f ms (%s), kernel at %.3f%% of it"
-                % (kind, name, n, B, k1_, k2_, p1, p2, lib_ms, bound, by,
+            ms, graph_ms = min(eager["kernel"]), min(graphs["kernel"])
+            rounds = sweeps["max"] * (n + (n & 1) - 1)
+            cycles = ((graph_ms - min(graphs["floor"])) * 1e-3 * clock * 1e6
+                      / max(rounds, 1))
+            log("K%d timing %s n=%d B=%d (sweeps a block: mean %.2f, most "
+                "%d; %d rounds): eager kernel %s ms, parent %s, "
+                "torch.linalg %s, plain %s (plain, torch.linalg, parent, "
+                "kernel, kernel, parent, torch.linalg, plain); 100 calls in "
+                "one CUDA graph: kernel %s ms a call, parent %s, "
+                "empty kernel %s (the launch floor; kernel, parent, empty, "
+                "empty, parent, kernel); SM clock %.0f MHz: %.0f cycles a "
+                "round; bound %.6f ms (%s), kernel at %.3f%% of it"
+                % (kind, name, n, B, sweeps["mean"], sweeps["max"], rounds,
+                   _turns(eager["kernel"]), _turns(eager["parent"]),
+                   _turns(eager["library"]), _turns(eager["plain"]),
+                   _turns(graphs["kernel"]), _turns(graphs["parent"]),
+                   _turns(graphs["floor"]), clock, cycles, bound, by,
                    100 * bound / ms))
             timed["K%d_%s_n%d_B%d" % (kind, name, n, B)] = {
-                "ms": ms, "plain_ms": min(p1, p2), "library_ms": lib_ms,
-                "bound_ms": bound, "bound_by": by}
+                "ms": ms, "graph_ms": graph_ms,
+                "launch_floor_ms": min(graphs["floor"]),
+                "parent_ms": min(eager["parent"]) if old else None,
+                "parent_graph_ms": min(graphs["parent"]) if old else None,
+                "plain_ms": min(eager["plain"]),
+                "library_ms": min(eager["library"]),
+                "eager_turns": eager, "graph_turns": graphs,
+                "bound_ms": bound, "bound_by": by,
+                "mean_sweeps": sweeps["mean"], "max_sweeps": sweeps["max"],
+                "sm_clock_mhz": clock, "cycles_per_round": cycles}
     log("K3/K4 check: %.3f s" % (time.perf_counter() - t_phase))
 
     def line(kind, key):
         t = timed[key]
         return {"max_abs_err": worst[kind][1], "max_err_over_norm":
                 worst[kind][0], "plain_card_err_over_norm": worst[kind][2],
-                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "ms": t["ms"], "graph_ms": t["graph_ms"],
+                "launch_floor_ms": t["launch_floor_ms"],
+                "parent_ms": t["parent_ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"], "timed_at": key,
-                "timed": {k: v for k, v in timed.items()
+                "library_ms": t["library_ms"],
+                "mean_sweeps": t["mean_sweeps"], "timed_at": key,
+                "first_call_ms": first["K%d" % kind],
+                "timed": {k: {f: v for f, v in r.items()
+                              if not f.endswith("_turns")}
+                          for k, r in timed.items()
                           if k.startswith("K%d" % kind)}}
     return {"K3": line(3, "K3_flagship_n11_B12"),
             "K4": line(4, "K4_flagship_n11_B3")}
+
+
+def _turns(values):
+    """Times taken in turns, as ' / '-joined ms (or '-' if none)."""
+    return " / ".join("%.4f" % v for v in values) if values else "-"
+
+
+def _graph_ms(fn, calls=100, replays=5):
+    """ms a call of ``fn`` when ``calls`` calls are captured in one CUDA
+    graph and the graph is replayed ``replays`` times (CUDA events)."""
+    import torch
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def psd_launcher(lib, kind, x):
+    """A launch of ``lib``'s K3 (kind 3) or K4 (kind 4) on ``x`` into
+    outputs of its own, with the sweeps of each block, on the current
+    stream; counted nowhere (measurement only).  Returns (call, (values,
+    status, sweeps)), values the eigenvalues or the singular values."""
+    import torch
+    B, n = x.shape[0], x.shape[1]
+    dev = x.device
+    st = torch.empty(B, dtype=torch.int32, device=dev)
+    sw = torch.empty(B, dtype=torch.int32, device=dev)
+    work = torch.empty(B * lib.bluest_psd_work_doubles(kind, n),
+                       dtype=torch.float64, device=dev)
+    vals = torch.empty((B, n), dtype=torch.float64, device=dev)
+    U = torch.empty((B, n, n) if kind == 4 else 0, dtype=torch.float64,
+                    device=dev)
+
+    def call():
+        stream = torch.cuda.current_stream().cuda_stream
+        if kind == 3:
+            rc = lib.bluest_sym_eigvalsh_f64(
+                x.data_ptr(), vals.data_ptr(), st.data_ptr(), sw.data_ptr(),
+                work.data_ptr(), B, n, stream)
+        else:
+            rc = lib.bluest_nt_svd_f64(
+                x.data_ptr(), U.data_ptr(), vals.data_ptr(), st.data_ptr(),
+                sw.data_ptr(), work.data_ptr(), B, n, stream)
+        if rc != 0:
+            raise RuntimeError("K%d at n=%d B=%d: CUDA error %d"
+                               % (kind, n, B, rc))
+    return call, (vals, st, sw)
+
+
+def psd_sweeps(kind, x):
+    """The mean and largest sweeps a block of ``x`` takes in K3 (kind 3)
+    or K4 (kind 4), from the package library's measurement output."""
+    from bluest_tpu_torch.ops import psd_eig as k34
+    call, (_, st, sw) = psd_launcher(k34.build_library(), kind, x)
+    call()
+    if not bool((st == 0).all()):
+        raise AssertionError("K%d sweeps at n=%d B=%d: statuses %s"
+                             % (kind, x.shape[1], x.shape[0], st.tolist()))
+    return {"mean": sw.double().mean().item(), "max": int(sw.max().item())}
 
 
 def psd_launches():
@@ -1733,8 +1947,21 @@ def phase_flagship(smi, graph):
     # the allocation's interior-point solves go through K3 and K4 (their
     # counts set to 0 just before and read just after)
     reset_psd_launches()
-    budget, alloc_s = _calibrated_allocation(problem)
+    first = {}
+    with setup_probes(first):
+        budget, alloc_s = _calibrated_allocation(problem)
     k34 = psd_launches()
+    # the same calibrated set-up again, in a process that has run one: a
+    # fresh MOSAP and an empty warm cache, as the first had
+    from bluest_tpu_torch.solvers import sdp
+    sdp._WARM_CACHE.clear()
+    problem._mosap_key = None
+    steady = {}
+    with setup_probes(steady):
+        _calibrated_allocation(problem)
+    for what, rec in (("the process's first", first),
+                      ("the same again (steady)", steady)):
+        log("allocation set-up, %s: %s" % (what, _probe_summary(rec)))
     L = problem.MOSAP.L
     certs = problem.MOSAP_output["certificates"]
     log("allocation: L=%d, budget %.6g, %d samples, %.3f s, certificates %s;"
@@ -1785,7 +2012,9 @@ def phase_flagship(smi, graph):
     problem.save_graph_data(graph)
     _both_paths(problem, budget, smi, graph)
     return {"launches": launches, "alloc_s": alloc_s, "sample_s": sample_s,
-            "psd_launches": k34,
+            "psd_launches": k34, "alloc_split": {
+                "first": _probe_record(first),
+                "steady": _probe_record(steady)},
             "n_evals": n_evals, "problem": problem, "budget": budget,
             "mus": mus, "errs": errs,
             "eps_star": float(np.sqrt(max(out["variances"])))}
@@ -3518,6 +3747,89 @@ def allocation_split(rec):
         mosap.MOSAP.integer_projection = real[3]
 
 
+@contextlib.contextmanager
+def setup_probes(rec):
+    """allocation_split's parts of the set-ups run in the block, plus the
+    host wall of each IPM graph capture (the warm-up's enqueue, the
+    capture, the instantiation) and of every call of the IPM's K3/K4
+    wrappers (sdp._eigvalsh, sdp._svd), its Cholesky (sdp._cholesky:
+    cholesky_ex) and torch.linalg.solve_triangular (cuBLAS), none of them
+    synchronised: a first call's excess over the later ones is host work
+    done once a process (CUDA's lazy module load, a library's handle)."""
+    import torch
+    from bluest_tpu_torch.solvers import sdp
+    rec["capture_s"] = []
+    rec["calls"] = {k: [] for k in ("K3", "K4", "cholesky_ex",
+                                    "solve_triangular")}
+    real = {"K3": sdp._eigvalsh, "K4": sdp._svd,
+            "cholesky_ex": sdp._cholesky,
+            "solve_triangular": torch.linalg.solve_triangular}
+    real_capture = sdp._IterationGraph._capture
+
+    def walled(key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = real[key](*a, **k)
+            rec["calls"][key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def capture(self):
+        t0 = time.perf_counter()
+        real_capture(self)
+        rec["capture_s"].append(time.perf_counter() - t0)
+
+    sdp._eigvalsh, sdp._svd = walled("K3"), walled("K4")
+    sdp._cholesky = walled("cholesky_ex")
+    torch.linalg.solve_triangular = walled("solve_triangular")
+    sdp._IterationGraph._capture = capture
+    try:
+        with allocation_split(rec):
+            _sync()
+            t0 = time.perf_counter()
+            yield rec
+            _sync()
+            rec["wall_s"] = time.perf_counter() - t0
+    finally:
+        sdp._eigvalsh, sdp._svd = real["K3"], real["K4"]
+        sdp._cholesky = real["cholesky_ex"]
+        torch.linalg.solve_triangular = real["solve_triangular"]
+        sdp._IterationGraph._capture = real_capture
+
+
+def _probe_record(rec):
+    """setup_probes' record as numbers: the wall and its parts (s), the
+    captures (s), and per probed call its count, first wall and the
+    median of the later ones (ms)."""
+    out = {k: round(rec[k], 6) for k in ("wall_s", "psi_s", "ipm_s",
+                                         "cleanup_s", "integer_s")}
+    out["iterations"] = rec["iterations"]
+    out["rest_s"] = round(rec["wall_s"] - sum(out[k] for k in (
+        "psi_s", "ipm_s", "cleanup_s", "integer_s")), 6)
+    out["capture_s"] = [round(c, 5) for c in rec["capture_s"]]
+    out["calls"] = {
+        k: {"count": len(v), "first_ms": round(1e3 * v[0], 4) if v else None,
+            "later_median_ms": (round(1e3 * statistics.median(v[1:]), 4)
+                                if len(v) > 1 else None)}
+        for k, v in rec["calls"].items()}
+    return out
+
+
+def _probe_summary(rec):
+    r = _probe_record(rec)
+    return ("wall %.3f s = psi %.3f + IPM %.3f (%d iterations; %d graph "
+            "captures %.3f s, the first %.3f s) + cleanup %.3f + integer "
+            "%.3f + rest %.3f; host wall of the first call / median of the "
+            "later ones (ms): %s"
+            % (r["wall_s"], r["psi_s"], r["ipm_s"], r["iterations"],
+               len(r["capture_s"]), sum(r["capture_s"]),
+               r["capture_s"][0] if r["capture_s"] else float("nan"),
+               r["cleanup_s"], r["integer_s"], r["rest_s"],
+               ", ".join("%s %s / %s (%d calls)"
+                         % (k, c["first_ms"], c["later_median_ms"],
+                            c["count"]) for k, c in r["calls"].items())))
+
+
 def _cold_setup(problem, where, how, loop=None):
     """One set-up from nothing: a fresh MOSAP (psi assembly included)
     and an empty warm cache, on the problem's device, the card
@@ -3535,8 +3847,8 @@ def _cold_setup(problem, where, how, loop=None):
     old = os.environ.pop("BLUEST_TPU_ALLOC_DEVICE", None)
     if where == "host":
         os.environ["BLUEST_TPU_ALLOC_DEVICE"] = "cpu"
-    rec = {"solves": [], "capture_s": []}
-    real_ipm, real_capture = sdp._ipm_solve, sdp._IterationGraph._capture
+    rec = {"solves": []}
+    real_ipm = sdp._ipm_solve
 
     def recording(*a, **k):
         if loop is not None:
@@ -3547,22 +3859,13 @@ def _cold_setup(problem, where, how, loop=None):
                               if np.isfinite(out[0]["merit"]) else None))
         return out
 
-    def capture(self):
-        t0 = time.perf_counter()
-        real_capture(self)
-        rec["capture_s"].append(time.perf_counter() - t0)
-
-    sdp._ipm_solve, sdp._IterationGraph._capture = recording, capture
+    sdp._ipm_solve = recording
     reset_psd_launches()
     try:
-        with allocation_split(rec):
-            _sync()
-            t0 = time.perf_counter()
+        with setup_probes(rec):
             problem.setup_solver(**how)
-            _sync()
-            rec["wall_s"] = time.perf_counter() - t0
     finally:
-        sdp._ipm_solve, sdp._IterationGraph._capture = real_ipm, real_capture
+        sdp._ipm_solve = real_ipm
         os.environ.pop("BLUEST_TPU_ALLOC_DEVICE", None)
         if old is not None:
             os.environ["BLUEST_TPU_ALLOC_DEVICE"] = old
@@ -3867,11 +4170,14 @@ def phase_allocation_on_card(flagship, graph, hh_graph, launches_by_path):
                     and c["psd_launches"]["nt_svd"] > 0):
                 raise AssertionError("%s: the card's set-up launched K3/K4 "
                                      "%s" % (name, c["psd_launches"]))
-        log("phase 11%s: card vs host: statuses %s / %s, continuous cost "
-            "rel diff %.3e, max-variance rel diff %.3e, same integer "
-            "samples %s; graph vs eager card: the same statuses, iterations"
-            " and done codes, x bit-equal %s (largest rel diff %.3e)"
-            % (name, by["card"][0]["status"], by["host"][0]["status"], dc, dv,
+        log("phase 11%s: card vs host: statuses %s / %s, IPM iterations "
+            "%s / %s, continuous cost rel diff %.3e, max-variance rel diff "
+            "%.3e, same integer samples %s; graph vs eager card: the same "
+            "statuses, iterations and done codes, x bit-equal %s (largest "
+            "rel diff %.3e)"
+            % (name, by["card"][0]["status"], by["host"][0]["status"],
+               [t["iterations"] for t in by["card"]],
+               [t["iterations"] for t in by["host"]], dc, dv,
                bool(np.array_equal(by["card"][0]["samples"],
                                    by["host"][0]["samples"])),
                bit_equal, dx))
@@ -3981,13 +4287,14 @@ def _option(name):
 def main():
     import torch
     name, smi = phase_device()
-    built = phase_build(_option("--k2-parent-source"))
+    built = phase_build(_option("--k2-parent-source"),
+                        _option("--k34-parent-source"))
     k = phase_kernel_check()
     parent = (parent_wide(_option("--parent-source"))
               if _option("--parent-source") else None)
     w = phase_wide_check(parent)
     h = phase_k2_check(built["k2_parent"], built["sass"])
-    psd = phase_psd_check()
+    psd = phase_psd_check(built["k34_parent"])
     hh_launches = {}                    # K2's launches per path
     hh_by_variant = {}                  # and by variant
     with tempfile.TemporaryDirectory() as d:

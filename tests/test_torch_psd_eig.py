@@ -3,17 +3,22 @@ the CPU.
 
 The kernels run only on a card (``tests/test_torch_cuda.py`` holds them
 against their plain versions there).  Here a mirror of their algorithm in
-plain PyTorch -- the power-of-two scaling, the round-robin pair order,
-the rotation thresholds and the norm-relative floor, the closed-form
-diagonal of K3's two-sided rotations, K4's one-sided rotations of the
+plain PyTorch -- the power-of-two scaling, K3's lower triangle, the
+round-robin pair order, the rotation (t = sign(tau) 2 |a_pq| / (|d| +
+sqrt(d^2 + 4 a_pq^2)), c from one rsqrt), the thresholds on
+squares and the norm-relative floor, K3's rotations applied to 2 x 2
+blocks of two pairs, rows then columns, each block stored with its
+transpose, and the closed-form diagonal, K4's one-sided rotations of the
 rows of M accumulated into U, the sweep cap and the statuses -- is held
 against numpy's LAPACK on seeded batches: n in {1, 2, 5, 11, 13, 33},
 scales 1e-150 ... 1e150, repeated and zero eigenvalues, indefinite and
 rank-deficient blocks.  Eigenvalues within 32 n eps ||A||_F; U orthogonal
 within 32 n eps, U diag(S^2) U^T within 64 n eps ||M||_F^2 of M M^T, the
-singular values within 32 n eps ||M||_F.  Then the wrappers on CPU
-tensors (bit-equal to torch.linalg, the calls the IPM made) and their
-refusals.  No jax.
+singular values within 32 n eps ||M||_F.  The mirror describes the warp
+kernels (n <= 32); past 32 the block kernels apply the same rotations to
+both triangles of K3's matrix, which then differ by rounding.  Then the
+wrappers on CPU tensors (bit-equal to torch.linalg, the calls the IPM
+made) and their refusals.  No jax.
 """
 
 import os
@@ -32,25 +37,44 @@ MAX_SWEEPS = 40                 # csrc/psd_eig.cu: PSD_MAX_SWEEPS
 NS = (1, 2, 5, 11, 13, 33)
 
 
-def _pairs(r, n):
-    """The non-padding pairs (p, q), p < q, of round r of the round-robin
-    order of n rounded up to even indices."""
+def _round(r, n):
+    """Round r of the round-robin order of n rounded up to even indices:
+    the pairs (p, q), p < q, slot by slot (slot 0: (r, m); slot j:
+    ((r + j) mod m, (r - j) mod m), m = n_pad - 1), the padding pair
+    included."""
     half = (n + 1) // 2
     m = 2 * half - 1
     j = torch.arange(half)
     a = torch.where(j == 0, r, (r + j) % m)
     b = torch.where(j == 0, m, (r - j + m) % m)
-    p, q = torch.minimum(a, b), torch.maximum(a, b)
+    return torch.minimum(a, b), torch.maximum(a, b)
+
+
+def _pairs(r, n):
+    """The non-padding pairs (p, q), p < q, of round r."""
+    p, q = _round(r, n)
     keep = q < n
     return p[keep], q[keep]
 
 
-def _scaled(A):
+def _slots(r, n):
+    """The slot of round r's pair that holds each index 0..n-1."""
+    p, q = _round(r, n)
+    slot = torch.empty(2 * p.numel(), dtype=torch.long)
+    slot[p] = torch.arange(p.numel())
+    slot[q] = torch.arange(q.numel())
+    return slot[:n]
+
+
+def _scaled(A, lower=False):
     """The kernels' start: non-finite blocks flagged (and zeroed here),
-    each block scaled by the power of two that brings its largest entry
-    into [1, 2); returns (bad, scaled, exponent, ||scaled||_F^2)."""
+    K3's matrix taken from its lower triangle (``lower``), each block
+    scaled by the power of two that brings its largest entry into
+    [1, 2); returns (bad, scaled, exponent, ||scaled||_F^2)."""
     bad = ~torch.isfinite(A).all(dim=(1, 2))
     a = torch.where(bad[:, None, None], 0.0, A)
+    if lower:
+        a = torch.tril(a) + torch.tril(a, -1).mT
     mx = a.abs().amax(dim=(1, 2))
     e = torch.where(mx > 0, torch.frexp(mx).exponent - 1, 0)
     a = torch.ldexp(a, -e[:, None, None].double())
@@ -58,20 +82,21 @@ def _scaled(A):
 
 
 def _rotation(num, diff):
-    """GVL's t = sign(tau) / (|tau| + hypot(1, tau)), tau = diff / 2 num,
-    and (c, s)."""
-    tau = diff / (2.0 * num)
-    t = torch.where(tau >= 0, 1.0, -1.0) / (tau.abs()
-                                            + torch.hypot(torch.ones_like(tau),
-                                                          tau))
-    c = 1.0 / torch.sqrt(1.0 + t * t)
+    """The kernels' rotation: GVL's t = sign(tau) / (|tau| + sqrt(1 +
+    tau^2)), tau = diff / 2 num, as sign(tau) 2 |num| / (|diff| +
+    sqrt(diff^2 + 4 num^2)); c = rsqrt(1 + t^2), s = t c."""
+    n2 = 2.0 * num.abs()
+    root = torch.sqrt(diff * diff + n2 * n2)
+    plus = (diff == 0) | ((diff > 0) == (num > 0))
+    t = torch.where(plus, n2, -n2) / (diff.abs() + root)
+    c = torch.rsqrt(1.0 + t * t)
     return t, c, t * c
 
 
 def jacobi_eigvalsh(A):
     """Mirror of K3: (eigenvalues ascending, status, sweeps)."""
     B, n, _ = A.shape
-    bad, a, e, f = _scaled(A)
+    bad, a, e, f = _scaled(A, lower=True)
     floor = EPS * EPS * torch.sqrt(f)
     converged = torch.zeros(B, dtype=torch.bool)
     sweeps = 0
@@ -84,9 +109,8 @@ def jacobi_eigvalsh(A):
             if p.numel() == 0:
                 continue
             apq, app, aqq = a[:, p, q], a[:, p, p], a[:, q, q]
-            rot = apq.abs() > torch.maximum(
-                EPS * torch.sqrt(app.abs()) * torch.sqrt(aqq.abs()),
-                floor[:, None])
+            rot = (apq.abs() > floor[:, None]) & (
+                apq * apq > EPS * EPS * (app * aqq).abs())
             safe = torch.where(rot, apq, 1.0)
             t, c, s = _rotation(safe, aqq - app)
             c, s = torch.where(rot, c, 1.0), torch.where(rot, s, 0.0)
@@ -96,6 +120,10 @@ def jacobi_eigvalsh(A):
             x, y = a[:, :, p], a[:, :, q]
             a[:, :, p] = c[:, None, :] * x - s[:, None, :] * y
             a[:, :, q] = s[:, None, :] * x + c[:, None, :] * y
+            # the block of two pairs (P, Q), P < Q, is stored with its
+            # transpose at (Q, P)
+            slot = _slots(r, n)
+            a = torch.where(slot[:, None] > slot[None, :], a.mT, a)
             dp, dq = app - t * safe, aqq + t * safe
             a[rows, p, p] = torch.where(rot, dp, a[rows, p, p])
             a[rows, q, q] = torch.where(rot, dq, a[rows, q, q])
@@ -131,8 +159,8 @@ def jacobi_svd(M, floor=True):
             x, y = g[:, p, :], g[:, q, :]
             alpha, beta = (x * x).sum(-1), (y * y).sum(-1)
             gamma = (x * y).sum(-1)
-            rot = gamma.abs() > torch.maximum(
-                n * EPS * torch.sqrt(alpha) * torch.sqrt(beta), floor[:, None])
+            rot = (gamma.abs() > floor[:, None]) & (
+                gamma * gamma > (n * EPS) ** 2 * alpha * beta)
             _, c, s = _rotation(torch.where(rot, gamma, 1.0), beta - alpha)
             c, s = torch.where(rot, c, 1.0)[..., None], \
                 torch.where(rot, s, 0.0)[..., None]
@@ -248,14 +276,18 @@ def test_k4_mirror_without_the_floor_stalls_on_rank_deficiency():
     """Why the floor is there: on a rank-deficient M the rows that the
     rotations leave at round-off level stay nearly parallel, and without
     the floor they are rotated against each other sweep after sweep
-    until they underflow; with it the solve ends in a few sweeps."""
+    until they underflow; with it the solve ends in a few sweeps.  The
+    thresholds compare squares, so the stall ends where the squares of
+    the dot products underflow (rows below ~1e-154), nine sweeps after
+    the floor would have ended it at n = 11."""
     rng = np.random.default_rng(0)
     M = torch.from_numpy(rng.standard_normal((1, 11, 11))
                          * (np.arange(11) % 2))
     _, S, status, with_floor = jacobi_svd(M.clone())
     _, S0, status0, without = jacobi_svd(M.clone(), floor=False)
     assert status.tolist() == [0] and with_floor <= 8
-    assert without >= with_floor + 10
+    assert without >= with_floor + 8
+    assert float(S0.min()) < 1e-150 < float(S.min())
     np.testing.assert_allclose(S.numpy(), S0.numpy(), rtol=0,
                                atol=32 * 11 * EPS * float(M.norm()))
 
