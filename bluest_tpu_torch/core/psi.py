@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..config import allocation_device
+from ..ops import psd_eig
 from .groups import GroupStructure
 
 F64 = torch.float64
@@ -80,8 +81,11 @@ def phi_of_m(psi: torch.Tensor, m: torch.Tensor,
 
 
 def _pinv_h(A: torch.Tensor, rcond: float = 1.0e-12) -> torch.Tensor:
-    """Hermitian pseudo-inverse via eigendecomposition."""
-    w, V = torch.linalg.eigh(A)
+    """Hermitian pseudo-inverse via eigendecomposition (K5's sym_eigh on
+    a card)."""
+    w, V, status = psd_eig.sym_eigh(A[None].contiguous())
+    psd_eig.require_converged(status, "_pinv_h")
+    w, V = w[0], V[0]
     cutoff = rcond * torch.max(torch.abs(w))
     inv_w = torch.where(torch.abs(w) > cutoff, 1.0 / w,
                         torch.zeros((), dtype=w.dtype, device=w.device))
@@ -90,8 +94,11 @@ def _pinv_h(A: torch.Tensor, rcond: float = 1.0e-12) -> torch.Tensor:
 
 def variance(data: GroupData, m: torch.Tensor,
              delta: float = 0.0) -> torch.Tensor:
-    """Estimator variance (PHI(m)^+)_{00}."""
-    return _pinv_h(phi_of_m(data.psi, m, delta))[0, 0]
+    """Estimator variance (PHI(m)^+)_{00} (K5's pinv00 on a card)."""
+    var, status = psd_eig.pinv00(phi_of_m(data.psi, m, delta)[None]
+                                 .contiguous(), 1.0e-12)
+    psd_eig.require_converged(status, "variance")
+    return var[0]
 
 
 def _influence_rows(data: GroupData, phi0: torch.Tensor) -> torch.Tensor:

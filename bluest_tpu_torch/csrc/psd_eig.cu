@@ -1,19 +1,26 @@
-// K3 and K4: the interior-point iteration's small dense eigenvalue and
-// singular value solves, a batch of (n, n) float64 matrices, by Jacobi
+// K3, K4 and K5: the allocation's small dense eigenvalue, singular value
+// and eigenvector solves, a batch of (n, n) float64 matrices, by Jacobi
 // rotations: one warp a matrix for n <= 32, one thread block a matrix
 // past that.
 //
-// Replaces no Pallas kernel: they are the counterparts of XLA's eigvalsh
-// (bluest_tpu/solvers/sdp.py:320, _max_step_psd) and svd (:304,
+// Replaces no Pallas kernel: K3 and K4 are the counterparts of XLA's
+// eigvalsh (bluest_tpu/solvers/sdp.py:320, _max_step_psd) and svd (:304,
 // _nt_scaling) inside the JAX package's lax.while_loop, and of the
 // cuSOLVER calls behind torch.linalg.eigvalsh and torch.linalg.svd that
-// bluest_tpu_torch/solvers/sdp.py made through _eigvalsh and _svd.  Those
-// calls read their convergence status back to the host on every call
-// (ATen checks the info), so an iteration that made them could not be one
-// CUDA graph.  These kernels write a status per matrix to device memory
-// instead and never synchronise; the IPM folds the status into the
-// factorization statuses of its one packed read.  Their plain versions are
-// those torch.linalg calls (bluest_tpu_torch/ops/psd_eig.py).
+// bluest_tpu_torch/solvers/sdp.py made through _eigvalsh and _svd.  K5
+// replaces XLA's eigh in the integer corner search
+// (bluest_tpu/solvers/integer.py:93, _chunk_var00), the Hermitian
+// pseudo-inverse (core/psi.py:92), the SPD clip (linalg/spd.py:27) and
+// ADMM's PSD projections (solvers/admm.py:244, 371), and the cuSOLVER
+// torch.linalg.eigh behind the port's copies of them.  Those calls read
+// their convergence status back to the host on every call (ATen checks
+// the info), so an iteration that made them could not be one CUDA graph,
+// and the corner search paid a synchronisation per chunk.  These kernels
+// write a status per matrix to device memory instead and never
+// synchronise; the IPM folds the status into the factorization statuses
+// of its one packed read, the corner search reads it with the results.
+// Their plain versions are those torch.linalg calls
+// (bluest_tpu_torch/ops/psd_eig.py).
 //
 // K3, bluest_sym_eigvalsh_f64: the eigenvalues, ascending, of each
 //   symmetric A (B, n, n) -> w (B, n), from its lower triangle (as
@@ -24,6 +31,15 @@
 //   rotations are computed together and applied together: rows, then
 //   columns, then the pair's closed-form diagonal (a_pp - t a_pq,
 //   a_qq + t a_pq) and a zero at (p, q) (Golub and Van Loan, sym.schur2).
+// K5, bluest_sym_eigh_f64 and bluest_pinv00_f64: K3 with its rotations
+//   accumulated (a template mode of K3's kernels, so K3's eigenvalues are
+//   K5's, bit for bit).  V starts at the identity and takes each rotation
+//   J of the pair (p, q) on its columns p and q, V J, as A's columns do;
+//   at the end A = V diag(w) V^T.  sym_eigh returns w ascending with V's
+//   columns moved alike.  pinv00 returns pinv(A)[0, 0] = sum v0_j^2 / w_j
+//   over |w_j| > rcond max|w| (the JAX package's _chunk_var00 cutoff), and
+//   accumulates only the row e0^T V: n values a matrix, rotated by the
+//   same c and s.
 // K4, bluest_nt_svd_f64: the left singular vectors U (B, n, n) and the
 //   singular values S (B, n), descending, of each M.  One-sided (Hestenes)
 //   Jacobi on G = M^T: a rotation of columns p, q of G (rows p, q of M)
@@ -93,6 +109,13 @@
 // - squares in the threshold, t without tau's division and one rsqrt for
 //   c shorten the chain;
 // - warp shuffles reduce the scaling's largest entry and its norm.
+// - K5's V is one-sided: the lane of pair (p, q) owns V's columns p and
+//   q for the round, so it rotates them alone (n pairs of entries a
+//   round; of e0^T V one), and the round's one __syncwarp still
+//   suffices.  Its bound at the corner search's batches (n = 10, 8192
+//   blocks) is ~2.2 us either way: 6.6 MB read at 3.35 TB/s, or Golub
+//   and Van Loan's ~9 n^3 flops a block with the vectors at 34 TFLOP/s;
+//   far from reached, for the same reason as K3's.
 // Past n = 32 (the 32-model group's 33) the block kernels run: each
 // thread block one matrix, the round's phases parted by __syncthreads,
 // the same pairs, rotation and thresholds; they compute both triangles
@@ -102,8 +125,9 @@
 // 12 n^3 for the SVD's sigma and U1 (m = n); chip_smoke.py sets the
 // bound from those counts.
 //
-// Memory: a warp kernel's matrix (K3) sits in n_pad (n_pad + 1) doubles
-// of dynamic shared memory, K4's in registers (instantiated per even
+// Memory: a warp kernel's matrix (K3, K5) sits in n_pad (n_pad + 1)
+// doubles of dynamic shared memory, K5's V in as many more beside it (its
+// e0^T V in n_pad + 1), K4's in registers (instantiated per even
 // n_pad, so every register index is a constant).  A block kernel's
 // working copy (and K4's U) and the round's rotations sit in dynamic
 // shared memory while they fit in PSD_SHARED_BYTES (n <= 74 for K3,
@@ -127,6 +151,11 @@
 #define PSD_WARP_N 32
 #define PSD_FULL 0xffffffffu
 #define PSD_EPS2 (DBL_EPSILON * DBL_EPSILON)
+// what an eigenvalue kernel returns: K3's eigenvalues, K5's eigenvalues
+// and vectors (sym_eigh), or K5's pinv(A)[0, 0] (pinv00)
+#define PSD_VALS 0
+#define PSD_VECS 1
+#define PSD_PINV 2
 
 // the rotation that zeroes the coupling `num` of a pair whose diagonal
 // difference is `diff` (a_qq - a_pp, or beta - alpha): t, c and s
@@ -186,24 +215,57 @@ __device__ __forceinline__ int scale_exponent(double mx)
     return mx > 0.0 ? ilogb(mx) : 0;
 }
 
-// ------------------------- K3, one warp a matrix ------------------------- //
+// columns p and q of a row of V times a rotation (V J, as A J rotates A's
+// columns)
+__device__ __forceinline__ void rotate_pair(double* row, int p, int q,
+                                            double c, double s)
+{
+    const double x = row[p], y = row[q];
+    row[p] = c * x - s * y;
+    row[q] = s * x + c * y;
+}
+
+// NaN outputs of a matrix with a non-finite entry, written by threads tid
+// of nt (out: the matrix's eigenvalues; vecs: the batch's V or var)
+template <int MODE>
+__device__ void psd_nan_outputs(double* out, double* vecs, int n, int tid,
+                                int nt)
+{
+    if (MODE != PSD_PINV)
+        for (int i = tid; i < n; i += nt)
+            out[i] = NAN;
+    if (MODE == PSD_VECS)
+        for (int i = tid; i < n * n; i += nt)
+            vecs[(size_t)blockIdx.x * n * n + i] = NAN;
+    if (MODE == PSD_PINV && tid == 0)
+        vecs[blockIdx.x] = NAN;
+}
+
+// --------------------- K3 and K5, one warp a matrix --------------------- //
 
 // ITEMS: the most 2 x 2 blocks a lane owns, ceil((n_pad / 2)(n_pad / 2 + 1)
 // / 2 / 32); the block grid is one warp of 32 threads a matrix
-template <int ITEMS>
+template <int ITEMS, int MODE>
 __global__ void __launch_bounds__(32)
 eigvalsh_warp_kernel(const double* __restrict__ A, double* __restrict__ w,
-                     int* __restrict__ status, int* __restrict__ sweeps_out,
-                     int n)
+                     double* __restrict__ vecs, int* __restrict__ status,
+                     int* __restrict__ sweeps_out, int n, double rcond)
 {
     extern __shared__ double a[];        // n_pad x ld, row-major
     const int lane = threadIdx.x;
     const int np = (n + 1) / 2, m = 2 * np - 1, ld = 2 * np + 1;
     const double* src = A + (size_t)blockIdx.x * n * n;
     double* out = w + (size_t)blockIdx.x * n;
+    // K5: V (n_pad x ld, from the identity) or e0^T V (n_pad, from e0)
+    double* v = a + (m + 1) * ld;
 
-    for (int i = lane; i < (m + 1) * ld; i += 32)
+    for (int i = lane; i < (m + 1) * ld; i += 32) {
         a[i] = 0.0;
+        if (MODE == PSD_VECS)
+            v[i] = i % (ld + 1) == 0 ? 1.0 : 0.0;
+    }
+    if (MODE == PSD_PINV && lane <= m)
+        v[lane] = lane == 0 ? 1.0 : 0.0;
     __syncwarp();
     // lane y reads column y of every row; the lower triangle, mirrored
     double mx = 0.0;
@@ -220,8 +282,7 @@ eigvalsh_warp_kernel(const double* __restrict__ A, double* __restrict__ w,
         }
     }
     if (__any_sync(PSD_FULL, bad)) {
-        if (lane < n)
-            out[lane] = NAN;
+        psd_nan_outputs<MODE>(out, vecs, n, lane, 32);
         if (lane == 0) {
             status[blockIdx.x] = 1;
             if (sweeps_out)
@@ -301,8 +362,18 @@ eigvalsh_warp_kernel(const double* __restrict__ A, double* __restrict__ w,
             if (__any_sync(PSD_FULL, rot)) {
                 rotated = true;
                 double t = 0.0, c = 1.0, s = 0.0;
-                if (rot)
+                if (rot) {
                     rotation(x2[0], y2[0] - x1[0], &t, &c, &s);
+                    // K5: V J, columns p and q of V (or of e0^T V), which
+                    // no other lane touches this round
+                    const int p = pP[0], q = qP[0];
+                    if (MODE == PSD_VECS) {
+                        for (int k = 0; k < n; ++k)
+                            rotate_pair(v + k * ld, p, q, c, s);
+                    } else if (MODE == PSD_PINV) {
+                        rotate_pair(v, p, q, c, s);
+                    }
+                }
 #pragma unroll
                 for (int it = 0; it < ITEMS; ++it) {
                     const double cP = __shfl_sync(PSD_FULL, c, P[it]);
@@ -350,18 +421,37 @@ eigvalsh_warp_kernel(const double* __restrict__ A, double* __restrict__ w,
         }
         converged = !rotated;
     }
-    // the diagonal, scaled back, in ascending order (rank by comparison)
+    // the diagonal, scaled back, in ascending order (rank by comparison);
+    // K5's sym_eigh moves V's column with its eigenvalue, its pinv00 sums
+    // v0^2 / w over the eigenvalues past the cutoff
     bool nonfinite = false;
+    double wl = 0.0, term = 0.0;
     if (lane < n) {
         const double d = a[lane * ld + lane];
-        int rank = 0;
-        for (int k = 0; k < n; ++k) {
-            const double o = a[k * ld + k];
-            rank += (o < d) || (o == d && k < lane);
+        wl = ldexp(d, e);
+        nonfinite = !isfinite(wl);
+        if (MODE != PSD_PINV) {
+            int rank = 0;
+            for (int k = 0; k < n; ++k) {
+                const double o = a[k * ld + k];
+                rank += (o < d) || (o == d && k < lane);
+            }
+            out[rank] = wl;
+            if (MODE == PSD_VECS) {
+                double* vo = vecs + (size_t)blockIdx.x * n * n;
+                for (int k = 0; k < n; ++k)
+                    vo[k * n + rank] = v[k * ld + lane];
+            }
         }
-        const double v = ldexp(d, e);
-        out[rank] = v;
-        nonfinite = !isfinite(v);
+    }
+    if (MODE == PSD_PINV) {
+        const double cutoff = rcond * warp_max(fabs(wl));
+        if (lane < n && fabs(wl) > cutoff)
+            term = v[lane] * (1.0 / wl) * v[lane];
+        const double var = warp_sum(term);
+        nonfinite |= !isfinite(var);
+        if (lane == 0)
+            vecs[blockIdx.x] = var;
     }
     nonfinite = __any_sync(PSD_FULL, nonfinite);
     if (lane == 0) {
@@ -575,26 +665,37 @@ __device__ bool load_scaled(const double* __restrict__ src, double* a,
     return true;
 }
 
-template <bool SHARED>
+// the doubles of a block kernel's working set a matrix (kind 3: K3, 4:
+// K4, 5: K5's sym_eigh, 6: K5's pinv00): the matrix (K4: and U; K5: and
+// V or e0^T V) and the round's rotations
+static __host__ __device__ size_t words_for(int kind, int n)
+{
+    const size_t nn = (size_t)n * n, np = (size_t)(n + 1) / 2;
+    const size_t vw = kind == 4 || kind == 5 ? nn : (kind == 6 ? n : 0);
+    return nn + vw + 4 * np;
+}
+
+template <bool SHARED, int MODE>
 __global__ void __launch_bounds__(PSD_MAX_THREADS)
 eigvalsh_kernel(const double* __restrict__ A, double* __restrict__ w,
-                int* __restrict__ status, int* __restrict__ sweeps_out,
-                double* __restrict__ work, int n)
+                double* __restrict__ vecs, int* __restrict__ status,
+                int* __restrict__ sweeps_out, double* __restrict__ work,
+                int n, double rcond)
 {
     extern __shared__ double smem[];
     __shared__ double red[PSD_MAX_THREADS];
     const int np = (n + 1) / 2, m = 2 * np - 1;
     const int tid = threadIdx.x, nt = blockDim.x;
-    const size_t words = (size_t)n * n + 4 * (size_t)np;
+    const size_t words = words_for(MODE == PSD_VALS ? 3 : 4 + MODE, n);
     double* a = SHARED ? smem : work + blockIdx.x * words;
-    double* rot = a + (size_t)n * n;      // per pair: c, s, new a_pp, a_qq
+    double* v = a + (size_t)n * n;        // K5: V, or e0^T V
+    double* rot = a + words - 4 * np;     // per pair: c, s, new a_pp, a_qq
     double* out = w + (size_t)blockIdx.x * n;
     int e = 0;
     double f = 0.0;
     if (!load_scaled(A + (size_t)blockIdx.x * n * n, a, n, true, red, &e,
                      &f)) {
-        for (int i = tid; i < n; i += nt)
-            out[i] = NAN;
+        psd_nan_outputs<MODE>(out, vecs, n, tid, nt);
         if (tid == 0) {
             status[blockIdx.x] = 1;
             if (sweeps_out)
@@ -603,6 +704,12 @@ eigvalsh_kernel(const double* __restrict__ A, double* __restrict__ w,
         return;
     }
     const double floor = PSD_EPS2 * sqrt(f);
+    if (MODE == PSD_VECS)
+        for (int i = tid; i < n * n; i += nt)
+            v[i] = (i / n == i % n) ? 1.0 : 0.0;
+    if (MODE == PSD_PINV)
+        for (int i = tid; i < n; i += nt)
+            v[i] = i == 0 ? 1.0 : 0.0;
     bool converged = false;
     int sweep = 0;
     for (; sweep < PSD_MAX_SWEEPS && !converged; ++sweep) {
@@ -651,6 +758,10 @@ eigvalsh_kernel(const double* __restrict__ A, double* __restrict__ w,
                 const double x = a[k * n + p], y = a[k * n + q];
                 a[k * n + p] = c * x - s * y;
                 a[k * n + q] = s * x + c * y;
+                if (MODE == PSD_VECS)                     // K5: V J
+                    rotate_pair(v + k * n, p, q, c, s);
+                else if (MODE == PSD_PINV && k == 0)
+                    rotate_pair(v, p, q, c, s);
             }
             __syncthreads();
             for (int j = tid; j < np; j += nt) {
@@ -667,18 +778,41 @@ eigvalsh_kernel(const double* __restrict__ A, double* __restrict__ w,
         }
         converged = !__syncthreads_or(rotated);
     }
-    // the diagonal, scaled back, in ascending order (rank by comparison)
+    // the diagonal, scaled back, in ascending order (rank by comparison);
+    // K5 as in the warp kernel
     int bad = 0;
+    double wmax = 0.0;
     for (int i = tid; i < n; i += nt) {
         const double d = a[i * n + i];
+        const double wi = ldexp(d, e);
+        bad |= !isfinite(wi);
+        wmax = fmax(wmax, fabs(wi));
+        if (MODE == PSD_PINV)
+            continue;
         int rank = 0;
         for (int k = 0; k < n; ++k) {
             const double o = a[k * n + k];
             rank += (o < d) || (o == d && k < i);
         }
-        const double v = ldexp(d, e);
-        out[rank] = v;
-        bad |= !isfinite(v);
+        out[rank] = wi;
+        if (MODE == PSD_VECS) {
+            double* vo = vecs + (size_t)blockIdx.x * n * n;
+            for (int k = 0; k < n; ++k)
+                vo[k * n + rank] = v[k * n + i];
+        }
+    }
+    if (MODE == PSD_PINV) {
+        const double cutoff = rcond * block_reduce(wmax, red, false);
+        double term = 0.0;
+        for (int i = tid; i < n; i += nt) {
+            const double wi = ldexp(a[i * n + i], e);
+            if (fabs(wi) > cutoff)
+                term += v[i] * (1.0 / wi) * v[i];
+        }
+        const double var = block_reduce(term, red, true);
+        bad |= !isfinite(var);
+        if (tid == 0)
+            vecs[blockIdx.x] = var;
     }
     bad = __syncthreads_or(bad);
     if (tid == 0) {
@@ -815,14 +949,9 @@ static int threads_for(int n)
     return t;
 }
 
-static size_t words_for(int kind, int n)
-{
-    const size_t nn = (size_t)n * n, np = (size_t)(n + 1) / 2;
-    return (kind == 3 ? nn : 2 * nn) + 4 * np;
-}
-
-// doubles of global workspace a matrix needs (kind 3: K3, 4: K4), 0 when
-// its working set fits in shared memory (always, for n <= PSD_WARP_N)
+// doubles of global workspace a matrix needs (kind 3: K3, 4: K4, 5: K5's
+// sym_eigh, 6: K5's pinv00), 0 when its working set fits in shared memory
+// (always, for n <= PSD_WARP_N)
 extern "C" long long bluest_psd_work_doubles(int kind, int n)
 {
     const size_t words = words_for(kind, n);
@@ -830,15 +959,53 @@ extern "C" long long bluest_psd_work_doubles(int kind, int n)
         ? 0 : (long long)words;
 }
 
-// K3's 2 x 2 blocks a lane owns, as a template argument
-template <int ITEMS>
-static void launch_k3_warp(const double* A, double* w, int* status,
-                           int* sweeps, int batch, int n, cudaStream_t s)
+// K3's (and K5's) 2 x 2 blocks a lane owns, as a template argument; the
+// warp's shared memory holds the matrix and K5's V or e0^T V
+template <int ITEMS, int MODE>
+static void launch_eig_warp(const double* A, double* w, double* vecs,
+                            int* status, int* sweeps, int batch, int n,
+                            double rcond, cudaStream_t s)
 {
-    const int np = (n + 1) / 2;
-    const size_t bytes = (size_t)(2 * np) * (2 * np + 1) * sizeof(double);
-    eigvalsh_warp_kernel<ITEMS><<<batch, 32, bytes, s>>>(A, w, status,
-                                                         sweeps, n);
+    const size_t np2 = 2 * ((n + 1) / 2), ld = np2 + 1;
+    const size_t words = np2 * ld * (MODE == PSD_VECS ? 2 : 1)
+        + (MODE == PSD_PINV ? ld : 0);
+    eigvalsh_warp_kernel<ITEMS, MODE><<<batch, 32, words * sizeof(double),
+                                        s>>>(A, w, vecs, status, sweeps, n,
+                                             rcond);
+}
+
+// K3 (MODE PSD_VALS) and K5 (PSD_VECS, PSD_PINV): one warp a matrix to
+// n = 32, one block past it
+template <int MODE>
+static int launch_eig(const double* A, double* w, double* vecs, int* status,
+                      int* sweeps, double* work, int batch, int n,
+                      double rcond, cudaStream_t s)
+{
+    if (n <= PSD_WARP_N) {
+        const int np = (n + 1) / 2, blocks = np * (np + 1) / 2;
+        switch ((blocks + 31) / 32) {
+        case 1: launch_eig_warp<1, MODE>(A, w, vecs, status, sweeps, batch,
+                                         n, rcond, s); break;
+        case 2: launch_eig_warp<2, MODE>(A, w, vecs, status, sweeps, batch,
+                                         n, rcond, s); break;
+        case 3: launch_eig_warp<3, MODE>(A, w, vecs, status, sweeps, batch,
+                                         n, rcond, s); break;
+        case 4: launch_eig_warp<4, MODE>(A, w, vecs, status, sweeps, batch,
+                                         n, rcond, s); break;
+        default: launch_eig_warp<5, MODE>(A, w, vecs, status, sweeps, batch,
+                                          n, rcond, s); break;
+        }
+        return (int)cudaGetLastError();
+    }
+    const size_t bytes =
+        words_for(MODE == PSD_VALS ? 3 : 4 + MODE, n) * sizeof(double);
+    if (bytes <= PSD_SHARED_BYTES)
+        eigvalsh_kernel<true, MODE><<<batch, threads_for(n), bytes, s>>>(
+            A, w, vecs, status, sweeps, work, n, rcond);
+    else
+        eigvalsh_kernel<false, MODE><<<batch, threads_for(n), 0, s>>>(
+            A, w, vecs, status, sweeps, work, n, rcond);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int bluest_sym_eigvalsh_f64(const double* A, double* w,
@@ -846,26 +1013,27 @@ extern "C" int bluest_sym_eigvalsh_f64(const double* A, double* w,
                                        double* work, int batch, int n,
                                        void* stream)
 {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (n <= PSD_WARP_N) {
-        const int np = (n + 1) / 2, blocks = np * (np + 1) / 2;
-        switch ((blocks + 31) / 32) {
-        case 1: launch_k3_warp<1>(A, w, status, sweeps, batch, n, s); break;
-        case 2: launch_k3_warp<2>(A, w, status, sweeps, batch, n, s); break;
-        case 3: launch_k3_warp<3>(A, w, status, sweeps, batch, n, s); break;
-        case 4: launch_k3_warp<4>(A, w, status, sweeps, batch, n, s); break;
-        default: launch_k3_warp<5>(A, w, status, sweeps, batch, n, s); break;
-        }
-        return (int)cudaGetLastError();
-    }
-    const size_t bytes = words_for(3, n) * sizeof(double);
-    if (bytes <= PSD_SHARED_BYTES)
-        eigvalsh_kernel<true><<<batch, threads_for(n), bytes, s>>>(
-            A, w, status, sweeps, work, n);
-    else
-        eigvalsh_kernel<false><<<batch, threads_for(n), 0, s>>>(
-            A, w, status, sweeps, work, n);
-    return (int)cudaGetLastError();
+    return launch_eig<PSD_VALS>(A, w, nullptr, status, sweeps, work, batch,
+                                n, 0.0, (cudaStream_t)stream);
+}
+
+// K5, sym_eigh: w (B, n) ascending and V (B, n, n), A = V diag(w) V^T
+extern "C" int bluest_sym_eigh_f64(const double* A, double* w, double* V,
+                                   int* status, int* sweeps, double* work,
+                                   int batch, int n, void* stream)
+{
+    return launch_eig<PSD_VECS>(A, w, V, status, sweeps, work, batch, n,
+                                0.0, (cudaStream_t)stream);
+}
+
+// K5, pinv00: var (B,) = pinv(A)[0, 0], the eigenvalues |w| <= rcond
+// max|w| cut off
+extern "C" int bluest_pinv00_f64(const double* A, double* var, int* status,
+                                 int* sweeps, double* work, double rcond,
+                                 int batch, int n, void* stream)
+{
+    return launch_eig<PSD_PINV>(A, nullptr, var, status, sweeps, work, batch,
+                                n, rcond, (cudaStream_t)stream);
 }
 
 #define PSD_K4_WARP(N)                                                      \

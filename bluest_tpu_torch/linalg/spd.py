@@ -14,14 +14,17 @@ import numpy as np
 import torch
 
 from ..config import SPD_THRESHOLD, UNCORRELATED_RHO_TOL, allocation_device
+from ..ops import psd_eig
 from .spg import spg
 
 
 def clip_spd(C: torch.Tensor, eps: float = SPD_THRESHOLD) -> torch.Tensor:
-    """Symmetrize and clip eigenvalues at ``eps`` (blue_models.py:366-371)."""
+    """Symmetrize and clip eigenvalues at ``eps`` (blue_models.py:366-371;
+    K5's sym_eigh on a card)."""
     S = (C + C.T) / 2
-    w, V = torch.linalg.eigh(S)
-    w = torch.clamp(w, min=eps)
+    w, V, status = psd_eig.sym_eigh(S[None].contiguous())
+    psd_eig.require_converged(status, "clip_spd")
+    w, V = torch.clamp(w[0], min=eps), V[0]
     return (V * w) @ V.T
 
 

@@ -129,6 +129,7 @@ import numpy as np
 import torch
 
 from ..config import allocation_device
+from ..ops import psd_eig
 from .sdp import ConeLPResult
 
 __all__ = ["solve_cone_lp_admm"]
@@ -251,7 +252,8 @@ def _admm_run(cols, coefs, Ar, D, bh, ch, drow, ecol, scb, bnorm_o, cnorm_o,
         if nb:
             h = z[p:].reshape(nb, ns) * inv_w
             Zs = h[:, mat_idx].reshape(nb, n, n)
-            lam, V = torch.linalg.eigh(Zs)
+            lam, V, status = psd_eig.sym_eigh(Zs.contiguous())
+            psd_eig.require_converged(status, "ADMM's PSD projection")
             lam = torch.clamp(lam, min=0.0)
             Zp = (V * lam[:, None, :]) @ V.transpose(-1, -2)
             z_psd = (Zp[:, iu0_t, iu1_t] * svec_w).reshape(-1)
@@ -382,7 +384,9 @@ def _admm_run(cols, coefs, Ar, D, bh, ch, drow, ecol, scb, bnorm_o, cnorm_o,
                 valid, torch.diagonal(Gram), zero))), 1e-30)
             Gm = torch.where(valid[:, None] & valid[None, :], Gram, zero)
             Gm = Gm + torch.diag(torch.where(valid, lam * one, one))
-            ew, V = torch.linalg.eigh(Gm)
+            ew, V, status = psd_eig.sym_eigh(Gm[None].contiguous())
+            psd_eig.require_converged(status, "ADMM's history Gram matrix")
+            ew, V = ew[0], V[0]
             cut = max(float(torch.max(torch.abs(ew))), 1e-300) * 1e-14
             ewi = torch.where(torch.abs(ew) > cut, 1.0 / ew, zero)
             a = V @ (ewi * (V.T @ valid.to(F64)))

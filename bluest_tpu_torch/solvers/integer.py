@@ -6,12 +6,16 @@ search (``best_integer_blue``), the multi-output one
 forms run (``best_integer_generic``; misc.py:134-413 of the reference): pick
 the ~1.2*N largest allocation entries, enumerate all floor/ceil corners
 (2^LL of them), and select the best feasible corner.  The batched
-evaluation -- thousands of (M x M) Hermitian pseudo-inverses -- is one
-batched ``torch.linalg.eigh`` per chunk on the allocation device;
-everything else is host bookkeeping, identical to the JAX package
-(including its documented divergences from the reference: intersection
-coverage filter, deterministic greedy rounding past the brute-force
-limit).
+evaluation -- thousands of (M x M) Hermitian pseudo-inverses -- runs on
+the allocation device as the JAX package runs it: the corners in chunks
+of ``_CHUNK``, their PHIs assembled there and handed to K5's ``pinv00``
+(``ops.psd_eig``; ``torch.linalg.eigh`` and the cutoff on the host),
+every chunk of every output dispatched before any is read, then
+one host read of all variances and statuses (``_gather``).  A search
+uploads its inputs in one non-blocking copy a dispatch.  Everything else
+is host bookkeeping, identical to the JAX package (including its
+documented divergences from the reference: intersection coverage filter,
+deterministic greedy rounding past the brute-force limit).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import allocation_device
+from ..ops import psd_eig
 
 _PINV_RCOND = 1.0e-10
 _CHUNK = 8192
@@ -72,34 +77,85 @@ def corner_matrix(lb: np.ndarray, ub: np.ndarray) -> np.ndarray:
     return out
 
 
-def _chunk_var00(P: torch.Tensor) -> torch.Tensor:
-    """pinv(P_b)[0, 0] for a (C, M, M) batch via one batched eigh."""
-    w, V = torch.linalg.eigh(P)
-    cutoff = _PINV_RCOND * torch.max(torch.abs(w), dim=-1, keepdim=True).values
-    inv_w = torch.where(torch.abs(w) > cutoff, 1.0 / w,
-                        torch.zeros((), dtype=w.dtype, device=w.device))
-    v0 = V[:, 0, :]  # first row of V
-    return torch.sum(v0 * inv_w * v0, dim=-1)
+def _upload(arrays, dev: torch.device):
+    """numpy arrays -> float64 tensors on ``dev``.  On a card all of them
+    go through one pinned host buffer in one non-blocking copy, which does
+    not make the host wait; on the host they are the arrays' data."""
+    arrays = [np.ascontiguousarray(a, dtype=np.float64) for a in arrays]
+    if dev.type == "cpu":
+        return [torch.from_numpy(a) for a in arrays]
+    offs = np.cumsum([0] + [a.size for a in arrays])
+    host = torch.empty(int(offs[-1]), dtype=torch.float64, pin_memory=True)
+    flat = host.numpy()
+    for a, o in zip(arrays, offs):
+        flat[o:o + a.size] = a.ravel()
+    buf = host.to(dev, non_blocking=True)
+    return [buf[o:o + a.size].view(a.shape) for a, o in zip(arrays, offs)]
+
+
+def _gather(pending):
+    """Every dispatched (var, status) pair read back in one host copy:
+    a list of (var, status) numpy pairs."""
+    if not pending:
+        return []
+    flat = torch.cat([t for var, status in pending
+                      for t in (var, status.to(var.dtype))]).cpu().numpy()
+    out, o = [], 0
+    for var, _ in pending:
+        n = var.shape[0]
+        out.append((flat[o:o + n], flat[o + n:o + 2 * n]))
+        o += 2 * n
+    return out
+
+
+def _chunk_var00(P: torch.Tensor):
+    """pinv(P_b)[0, 0] for a (C, M, M) batch through K5 (the plain eigh on
+    the host): (var (C,), status (C,)), not read back."""
+    return psd_eig.pinv00(P.contiguous(), _PINV_RCOND)
+
+
+def _chunk_corner_var(basephi: torch.Tensor, psi_idx: torch.Tensor,
+                      ms_chunk: torch.Tensor):
+    """Fused corner-PHI assembly + Hermitian pinv[0,0] on the device:
+    basephi (M^2,), psi_idx (M^2, LL), ms_chunk (LL, C) -> (var (C,),
+    status (C,))."""
+    M = int(round(np.sqrt(basephi.shape[0])))
+    phis = (basephi[:, None] + psi_idx @ ms_chunk).T.reshape(-1, M, M)
+    return _chunk_var00(phis)
+
+
+def _corner_var_dispatch(basephi: np.ndarray, psi_idx: np.ndarray,
+                         ms: np.ndarray):
+    """Dispatch the corner-variance chunks of ``_CHUNK`` columns without
+    reading any back: a (var, status) pair of device tensors a chunk.
+    Callers gather every pending chunk, across outputs too, in one
+    ``_gather``; the inputs go up in one copy.  The JAX package pads the
+    chunks and LL for its compile cache; eager PyTorch and K5 take any
+    shape, so nothing is padded here."""
+    bphi, pidx, cols = _upload([basephi, psi_idx, ms], allocation_device())
+    return [_chunk_corner_var(bphi, pidx, cols[:, s:s + _CHUNK])
+            for s in range(0, ms.shape[1], _CHUNK)]
+
+
+def _corner_var_assemble(host_chunks) -> np.ndarray:
+    """The variances of gathered chunks.  A block whose Jacobi sweeps ran
+    out (status 2) raises; a non-finite one (status 1) gives NaN, as the
+    JAX package's eigh does."""
+    if not host_chunks:
+        return np.zeros(0)
+    var = np.concatenate([v for v, _ in host_chunks])
+    status = np.concatenate([s for _, s in host_chunks])
+    psd_eig.require_converged(status, "corner search")
+    var[status == 1] = np.nan
+    return var
 
 
 def _corner_variances(basephi: np.ndarray, psi_idx: np.ndarray,
                       ms: np.ndarray) -> np.ndarray:
-    """Variances of all corner candidates: the corner PHIs are assembled
-    and inverted chunk by chunk on the allocation device."""
-    dev = allocation_device()
-    M = int(round(np.sqrt(basephi.shape[0])))
-    bphi = torch.as_tensor(basephi, dtype=torch.float64, device=dev)
-    pidx = torch.as_tensor(psi_idx, dtype=torch.float64, device=dev)
-    LL, B = ms.shape
-    out = []
-    for s in range(0, B, _CHUNK):
-        # (a copy: callers hand in reversed column views, and torch takes
-        # no negative strides)
-        chunk = torch.as_tensor(np.ascontiguousarray(ms[:, s:s + _CHUNK]),
-                                dtype=torch.float64, device=dev)
-        phis = (bphi[:, None] + pidx @ chunk).T.reshape(-1, M, M)
-        out.append(_chunk_var00(phis).cpu().numpy())
-    return np.concatenate(out) if out else np.zeros(0)
+    """Variances of all corner candidates, assembled and inverted on the
+    allocation device in chunks, read back once."""
+    return _corner_var_assemble(_gather(
+        _corner_var_dispatch(basephi, psi_idx, ms)))
 
 
 def best_integer_generic(sol, obj: Callable, constr: Callable, N: int,
@@ -131,16 +187,15 @@ def best_integer_generic(sol, obj: Callable, constr: Callable, N: int,
 
 def _batch_variances_multi(vals, psis, mappings):
     """Per-output variances of a batch of full integer allocations:
-    vals (L, B) -> list of (B,) arrays (pinv(PHI_n)[0,0])."""
-    dev = allocation_device()
-    out = []
+    vals (L, B) -> list of (B,) arrays (pinv(PHI_n)[0,0]).  Every
+    output's PHIs go up in one copy and come back in one read."""
+    phis = []
     for n in range(len(mappings)):
         Phi = psis[n] @ vals[mappings[n], :].astype(np.float64)  # (M^2, B)
         M = int(round(np.sqrt(psis[n].shape[0])))
-        phis = torch.as_tensor(Phi.T.reshape(-1, M, M), dtype=torch.float64,
-                               device=dev)
-        out.append(_chunk_var00(phis).cpu().numpy())
-    return out
+        phis.append(Phi.T.reshape(-1, M, M))
+    pending = [_chunk_var00(t) for t in _upload(phis, allocation_device())]
+    return [_corner_var_assemble([h]) for h in _gather(pending)]
 
 
 def _feasible_multi(vals, psis, w, e, mappings, budget, eps,
@@ -435,8 +490,14 @@ def _multi_helper(sol, psis, w, e, mappings, budget, eps, lb, ub, idx,
     if ms.size == 0:
         return None, np.inf
 
-    Vs = [_corner_variances(basephis[n], psis[n][:, idxs[n]],
-                            ms[redmaps[n], :]) for n in range(No)]
+    # dispatch every output's chunks first, then one read for all of them
+    pend = [_corner_var_dispatch(basephis[n], psis[n][:, idxs[n]],
+                                 ms[redmaps[n], :]) for n in range(No)]
+    host = _gather([c for chunks in pend for c in chunks])
+    Vs, k = [], 0
+    for chunks in pend:
+        Vs.append(_corner_var_assemble(host[k:k + len(chunks)]))
+        k += len(chunks)
     V_max = np.max(np.stack(Vs), axis=0)
 
     if budget is not None:

@@ -177,9 +177,10 @@ def _raise_if_failed(infos: list) -> None:
     """Host check of factorization statuses, for code that runs once a
     solve (the start and the final polish), where the iteration's
     exception contract still holds."""
-    if infos and not bool(_all_ok(infos)):
-        raise torch.linalg.LinAlgError("a Cholesky factorization or an "
-                                       "eigenvalue solve failed")
+    if infos:
+        psd_eig.require_converged(torch.cat(infos), "a Cholesky "
+                                  "factorization or an eigenvalue solve",
+                                  strict=True)
 
 
 def _chol_factor(H, infos, jitter=1e-14):
@@ -713,7 +714,8 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
     def shift_psd(V):
         if nb == 0:
             return V
-        lam = float(torch.min(torch.linalg.eigvalsh(V)))
+        lam = float(torch.min(_eigvalsh(V, infos)))
+        _raise_if_failed(infos)
         return V + (1.0 - min(lam, 0.0)) * eye_n[None] if lam < 1e-8 else V
 
     s_lp = shift_lp(s_lp)
@@ -746,7 +748,8 @@ def _ipm_solve(cj, Glj, hlj, Aj, Hj, Gall, GtG, gl_diag, Rj, cnorm, hnorm,
             dZ = wlam * 1e-6 * (1.0 + float(torch.mean(torch.abs(Z))))
 
             def psd_floor(V, delta):
-                lam_min = torch.linalg.eigvalsh(V)[:, 0]
+                lam_min = _eigvalsh(V, infos)[:, 0]
+                _raise_if_failed(infos)
                 add = torch.clamp(delta - lam_min, min=0.0)
                 return V + add[:, None, None] * eye_n[None]
 

@@ -67,11 +67,24 @@ Phases (any failure raises, so the exit code is non-zero):
      with the plain version and the torch.linalg call (and an earlier
      design, below), and as 100 calls in one CUDA graph, as the IPM runs
      them, beside an empty kernel's (the launch floor), with the cycles a
-     Jacobi round at the SM clock nvidia-smi reads;
+     Jacobi round at the SM clock nvidia-smi reads; then K5 (the
+     allocation's Jacobi eigh, K3 with its rotations accumulated:
+     sym_eigh and pinv00) against its plain versions (torch.linalg.eigh,
+     and for pinv00 its cutoff and sum) on a host copy at every scale and
+     on the card at unit scale (k5_eigh_holds, k5_pinv_holds: sym_eigh's
+     eigenvalues K3's bit for bit and within 32 n eps ||A||_F, ||V^T V -
+     I||_F <= 32 n eps, ||V diag(w) V^T - A||_F <= 64 n eps ||A||_F;
+     pinv00 within 64 n eps kappa sum|v0^2/w|) at n in K5_CHECK_N and B
+     in K5_CHECK_B (B n^2 <= K5_CHECK_MAX), each launch counted, a NaN
+     block flagged, cuSOLVER's eigh against LAPACK printed, the first
+     call's host wall; each timed at K5_TIMED beside its bound, eager in
+     turns with the plain version and torch.linalg.eigh and as calls in
+     one CUDA graph beside the launch floor, with sweeps a block and
+     cycles a round;
   4. drive the flagship end to end on the default device (the card):
      pilot (4096 samples) + SPD projection, setup_solver(K=4) with the
-     budget calibrated to ~1e6 samples (K3's and K4's launches counted
-     from 0 just before and read just after: the kernel line's
+     budget calibrated to ~1e6 samples (K3's, K4's and K5's launches
+     counted from 0 just before and read just after: the kernel line's
      "flagship_alloc"), split (setup_probes) into psi assembly, the IPM
      (its graph captures apart), the cleanup walk, the integer projection
      and the rest, with the host wall of the first and later calls of
@@ -88,7 +101,8 @@ Phases (any failure raises, so the exit code is non-zero):
      counters (two problems loaded from the saved graph);
   5. target RMSE on the same problem, at eps* = the largest error of
      phase 4's integer budget solve: setup_solver(K=4, eps=eps*) (cost
-     within 2% of phase 4's, tolerance met, no NLP fallback), then
+     within 2% of phase 4's, tolerance met, no NLP fallback; K3/K4/K5
+     launches counted: the kernel line's "eps_star_alloc"), then
      MLBLUE, MC, MLMC and MFMC at eps* -- each estimate checked against
      its error bar and against MLBLUE's, each path's model evaluations
      counted through K1 -- then complexity_test([2 eps*, eps*, eps*/2])
@@ -128,7 +142,8 @@ Phases (any failure raises, so the exit code is non-zero):
          launches in the solve are the kernel line's "snapshots" path;
      (d) a black-box numpy model with an inf sentinel (models 0 and 1
          never coupled), host_workers=2: the masked SPG projection
-         converges, no group of setup_solver(K=3, eps) holds 0 and 1, and
+         converges through K5's sym_eigh (its launches counted: the
+         kernel line's "masked_spg"), no group of setup_solver(K=3, eps) holds 0 and 1, and
          solve_mc is within 4 error bars of exp(0.5);
   7. the allocation's solver families (in f64 on the problems' device,
      the card, as every allocation of phases 4-10 is; the scipy NLP and
@@ -223,11 +238,14 @@ Phases (any failure raises, so the exit code is non-zero):
      warm cache emptied): per set-up the wall and its split (psi
      assembly, IPM, cleanup walk, integer projection, rest), the IPM's
      iterations and ms an iteration beside ipm_iteration_flops over the
-     card's FP64 rate, each capture's host wall and K3's and K4's
+     card's FP64 rate, each capture's host wall and K3's, K4's and K5's
      launches (the kernel line's "alloc_on_card" paths: the last graph
      turn's); gated graph against host: the same status for every cone
      solve, continuous cost within 1e-6 relative, max-variance within
-     1e-3 relative, the budget or eps* met; gated graph against eager:
+     1e-3 relative, the budget or eps* met (whether the set-ups' integer
+     samples are the same is printed: the IPMs stop at other points of a
+     degenerate face, ROADMAP queue 3); gated on the card: K3, K4 and K5
+     launched, no torch.linalg eigensolver called on a CUDA tensor; gated graph against eager:
      the same statuses, each cone solve's iterations and done code, its
      x bit-equal (or within 1e-12 relative, printed); then one more card
      set-up of each program under torch.cuda.set_sync_debug_mode("warn")
@@ -235,6 +253,10 @@ Phases (any failure raises, so the exit code is non-zero):
      replays, packed reads and step copies (gate: 1), those of the
      captures, the replays an iteration (gate: 1), each graph's nodes
      (cuGraphGetNodes), and the synchronising calls left by call site;
+     then each program's integer search alone from the host set-up's
+     continuous point (integer_search_gate): on the card and on the host
+     (gated: the same samples; printed: the chosen max-variance gap and
+     the card's wall; its synchronising calls are the listing's);
      (a)'s card allocation sampled through K1 (the kernel line's
      "mlblue_alloc_on_card" launches), estimates within 4 error bars of
      phase 4's; host reads an IPM iteration (<= 2) and aten operations
@@ -243,8 +265,9 @@ Phases (any failure raises, so the exit code is non-zero):
 Each of phases 4-11 logs where its allocations ran (the device of every
 MOSAP built and of every cone solve).
 The second-to-last line is the kernel report as JSON, an entry for K1,
-one for its wide tier, one for K2 and one each for K3 and K4; the last
-line is {"ok": true, "device": {...}}.
+one for its wide tier, one for K2, one each for K3 and K4 and one each
+for K5's sym_eigh and pinv00; the last line is {"ok": true, "device":
+{...}}.
 
 With --parent-source PATH (another csrc/diffusion.cu with the same C
 interface to its wide tier, e.g. the previous commit's, written out
@@ -256,12 +279,14 @@ before the variants, written out under build/), phase 1 builds it and
 its step probes beside the others, and the K2 check prints its SASS
 counts and times it in turns with this K2 (parent, new, new, parent) at
 K2_TURNS: model 0 at n=256 and 16384 and the group at 16384.  With
---k34-parent-source PATH (another csrc/psd_eig.cu with the C interface
-of the one-block-a-matrix design, without a sweeps argument, e.g. the
-commit's before the warp kernels, written out under build/),
-phase 1 builds it beside the others and the K3/K4 check times its K3
-and K4 in turns with this one (parent, new, new, parent), eager and in
-a graph, at every K3_TIMED and K4_TIMED shape.
+--k34-parent-source PATH (another csrc/psd_eig.cu with this one's C
+interface to K3 and K4, e.g. the commit's before K5, written out under
+build/), phase 1 builds it beside the others and the K3/K4 check times
+its K3 and K4 in turns with this one (parent, new, new, parent), eager
+and in a graph, at every K3_TIMED and K4_TIMED shape, and counts the
+check shapes at which the two K3s give the same eigenvalues bit for
+bit.  tools/integer_search_turns.py times phase 11's integer search in
+turns with another integer.py.
 
 With --profile, one more budget solve after phase 4 runs under
 torch.profiler and a line gives K1's device time, the device's busy share
@@ -314,6 +339,22 @@ K3_REPLACES = ("bluest_tpu/solvers/sdp.py:320 (eigvalsh in the IPM's "
                "lax.while_loop, XLA)")
 K4_REPLACES = ("bluest_tpu/solvers/sdp.py:304 (svd in the IPM's "
                "lax.while_loop, XLA)")
+K5_REPLACES = {
+    "sym_eigh": ("bluest_tpu/core/psi.py:92, linalg/spd.py:27, "
+                 "solvers/admm.py:244,371 (eigh, XLA)"),
+    "pinv00": ("bluest_tpu/solvers/integer.py:93 (_chunk_var00's eigh, "
+               "XLA)")}
+# the K5 check: block sizes (the flagship's M=10 and M+1, HH's 12 and 13,
+# a 32-model group's 33, 64 and 100 past the warp kernel and the shared
+# tiles), batches (1 for the SPD clip and psi's variance, 3 and 77 odd,
+# 1024, the corner search's 8192-corner chunk) while B n^2 <= K5_CHECK_MAX;
+# the timed (n, B): the corner search's chunks at M=10 (flagship) and 12
+# (HH), a short chunk, ADMM's and psi's single blocks
+K5_CHECK_N = (1, 2, 5, 10, 11, 12, 13, 33, 64, 100)
+K5_CHECK_B = (1, 3, 77, 1024, 8192)
+K5_CHECK_MAX = 8192 * 13 * 13
+K5_TIMED = ((10, 8192), (12, 8192), (10, 1024), (11, 1), (33, 1))
+K5_RCOND = 1.0e-10          # the corner search's cutoff (integer._PINV_RCOND)
 # the K3/K4 check: block sizes (n = M + 1: the flagship's 11, HH's 13 at
 # K=5, a 32-model group's 33; 64 past K4's shared-memory tile and 100
 # past K3's) and batches (nb, 2 nb, 4 nb of the IPM, and 1024)
@@ -430,7 +471,7 @@ def phase_build(k2_parent_source=None, k34_parent_source=None):
     from bluest_tpu_torch.ops import diffusion as k1
     from bluest_tpu_torch.ops import hodgkin_huxley as k2
     from bluest_tpu_torch.ops import psd_eig as k34
-    mods = (("K1", k1), ("K2", k2), ("K3/K4", k34))
+    mods = (("K1", k1), ("K2", k2), ("K3/K4/K5", k34))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods) + 4) as pool:
         jobs = [pool.submit(mod.build_library) for _, mod in mods]
@@ -448,7 +489,7 @@ def phase_build(k2_parent_source=None, k34_parent_source=None):
         parent = parent.result() if parent else None
         psd_parent = psd_parent.result() if psd_parent else None
     dt = time.perf_counter() - t0
-    log("K1, K2 and K3/K4 build, in parallel%s%s: %.2f s"
+    log("K1, K2 and K3/K4/K5 build, in parallel%s%s: %.2f s"
         % (" (with K2's step probes%s)"
            % (" and the parent K2" if parent else ""),
            " and the parent K3/K4" if psd_parent else "", dt))
@@ -1185,12 +1226,12 @@ def parent_k2(src):
 
 
 def parent_psd(src):
-    """K3 and K4 of another csrc/psd_eig.cu with the C interface of the
-    block design (bluest_sym_eigvalsh_f64 and bluest_nt_svd_f64 without a
-    sweeps argument), built with the package's nvcc flags beside its
+    """K3 and K4 of another csrc/psd_eig.cu with this one's C interface
+    to them (bluest_sym_eigvalsh_f64 and bluest_nt_svd_f64 with a sweeps
+    argument, passed null), built with the package's nvcc flags beside its
     libraries, as launchers {"eigvalsh": x -> (w, status), "svd": x ->
-    (U, S, status)} on the current stream.  For timing in turns only:
-    counted nowhere and never on a path."""
+    (U, S, status)} on the current stream.  For timing in turns and K3's
+    bit-equality only: counted nowhere and never on a path."""
     import ctypes
     import torch
     from bluest_tpu_torch.ops import _build
@@ -1198,9 +1239,9 @@ def parent_psd(src):
     lib = ctypes.CDLL(_build.build(src, k34.NVCC_FLAGS))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.bluest_sym_eigvalsh_f64.restype = I
-    lib.bluest_sym_eigvalsh_f64.argtypes = [P, P, P, P, I, I, P]
+    lib.bluest_sym_eigvalsh_f64.argtypes = [P, P, P, P, P, I, I, P]
     lib.bluest_nt_svd_f64.restype = I
-    lib.bluest_nt_svd_f64.argtypes = [P, P, P, P, P, I, I, P]
+    lib.bluest_nt_svd_f64.argtypes = [P, P, P, P, P, P, I, I, P]
     lib.bluest_psd_work_doubles.restype = ctypes.c_longlong
     lib.bluest_psd_work_doubles.argtypes = [I, I]
 
@@ -1218,7 +1259,7 @@ def parent_psd(src):
         w = torch.empty((B, n), dtype=torch.float64, device=x.device)
         st = torch.empty(B, dtype=torch.int32, device=x.device)
         check(lib.bluest_sym_eigvalsh_f64(
-            x.data_ptr(), w.data_ptr(), st.data_ptr(),
+            x.data_ptr(), w.data_ptr(), st.data_ptr(), None,
             work(3, x).data_ptr(), B, n,
             torch.cuda.current_stream().cuda_stream), "K3", x)
         return w, st
@@ -1229,7 +1270,7 @@ def parent_psd(src):
         S = torch.empty((B, n), dtype=torch.float64, device=x.device)
         st = torch.empty(B, dtype=torch.int32, device=x.device)
         check(lib.bluest_nt_svd_f64(
-            x.data_ptr(), U.data_ptr(), S.data_ptr(), st.data_ptr(),
+            x.data_ptr(), U.data_ptr(), S.data_ptr(), st.data_ptr(), None,
             work(4, x).data_ptr(), B, n,
             torch.cuda.current_stream().cuda_stream), "K4", x)
         return U, S, st
@@ -1605,6 +1646,7 @@ def phase_psd_check(parent=None):
     log("K3/K4 first calls in the process (host wall, ms; first / second): "
         "K3 %.3f / %.3f, K4 %.3f / %.3f" % (*first["K3"], *first["K4"]))
     worst = {3: [0.0, 0.0, 0.0], 4: [0.0, 0.0, 0.0]}
+    same_as_parent = []
     for n in PSD_CHECK_N:
         for B in PSD_CHECK_B:
             A = psd_blocks(n, B, 1000 * n + B, 3)
@@ -1612,6 +1654,8 @@ def phase_psd_check(parent=None):
             w, st = k34.sym_eigvalsh(A)
             if k34.sym_eigvalsh.launches != before + 1:
                 raise AssertionError("K3 launch not counted")
+            if parent:
+                same_as_parent.append(torch.equal(w, parent["eigvalsh"](A)[0]))
             refs = [r[0] for r in _psd_refs(k34.sym_eigvalsh_plain, A)]
             got = k3_holds(A, w, st, refs, "n=%d B=%d" % (n, B))
             worst[3] = [max(a, b) for a, b in zip(worst[3], got)]
@@ -1646,6 +1690,9 @@ def phase_psd_check(parent=None):
         "(svd)"
         % (PSD_CHECK_N, PSD_CHECK_B, worst[3][0], worst[3][1], worst[4][0],
            worst[4][1], worst[3][2], worst[4][2]))
+    if parent:
+        log("K3's eigenvalues bit-equal to the parent source's at %d of %d "
+            "check shapes" % (sum(same_as_parent), len(same_as_parent)))
     timed = {}
     lib = k34.build_library()
     for kind, shapes in ((3, K3_TIMED), (4, K4_TIMED)):
@@ -1734,6 +1781,290 @@ def phase_psd_check(parent=None):
             "K4": line(4, "K4_flagship_n11_B3")}
 
 
+def k5_work(kind, n, B):
+    """The work of K5's sym_eigh (kind 5) or pinv00 (kind 6) on B blocks
+    of n x n, from Golub and Van Loan's flop counts: sym_eigh ~9 n^3 a
+    block for the symmetric eigenvalues with their vectors
+    (tridiagonalization with Q, then QR); pinv00 needs the eigenvalues
+    (4 n^3/3) and only e0^T V, one row of the 4 n^3/3 that form Q and of
+    the 6 n^3 that accumulate QR's rotations into it (4 n^2/3 + 6 n^2),
+    plus the cut and the sum (3 n).  Each input read once and each output
+    written once (sym_eigh: w, V and the status, pinv00: var and the
+    status)."""
+    if kind == 5:
+        return B * 9.0 * n ** 3, B * (n * n * 8 + n * 8 + n * n * 8 + 4)
+    ops = 4.0 * n ** 3 / 3.0 + 22.0 * n ** 2 / 3.0 + 3.0 * n
+    return B * ops, B * (n * n * 8 + 8 + 4)
+
+
+def k5_bound_ms(kind, n, B):
+    """The least time of K5's work: its operations over the card's FP64
+    rate outside the tensor cores or its bytes over HBM bandwidth,
+    whichever is larger (NVIDIA H100 SXM data sheet, 700 W)."""
+    ops, nbytes = k5_work(kind, n, B)
+    t_ops, t_bytes = ops / OTHER_FLOPS[8] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def k5_eigh_holds(A, w, V, status, w3, refs, where):
+    """K5's sym_eigh against its plain version (torch.linalg.eigh),
+    ``refs`` its (card, host) (w, V): every status 0; w bit-equal to K3's
+    eigenvalues ``w3`` on the same blocks (K5 is K3 with its rotations
+    accumulated); w within 32 n eps ||A||_F of the host's (LAPACK) on
+    every block and of the card's (cuSOLVER) on the unit-scale ones;
+    ||V^T V - I||_F <= 32 n eps and ||V diag(w) V^T - A||_F <= 64 n eps
+    ||A||_F.  Returns the largest eigenvalue difference from the host
+    over ||A||_F, the largest absolute one from the card's at unit scale,
+    the orthogonality and reconstruction errors, and cuSOLVER's
+    eigenvalue difference from LAPACK over ||A||_F and its own
+    reconstruction error."""
+    import torch
+    n = A.shape[1]
+    (cw, cV), (hw, _) = refs
+    if not bool((status == 0).all()):
+        raise AssertionError("K5 sym_eigh %s: statuses %s"
+                             % (where, status.tolist()))
+    if not torch.equal(w, w3):
+        raise AssertionError("K5 sym_eigh %s: eigenvalues not K3's bit for "
+                             "bit" % where)
+    nrm = torch.clamp(torch.linalg.norm(A, dim=(1, 2)), min=1e-300)
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+
+    def rec_of(w, V):
+        wn = w / nrm[:, None]
+        return (torch.linalg.norm((V * wn[:, None, :]) @ V.mT
+                                  - A / nrm[:, None, None], dim=(1, 2))
+                .max().item())
+    rel = ((w - hw).abs().amax(dim=1) / nrm).max().item()
+    unit = (w - cw)[::4].abs().amax(dim=1)
+    orth = torch.linalg.norm(V.mT @ V - eye, dim=(1, 2)).max().item()
+    rec = rec_of(w, V)
+    plain_off = ((cw - hw).abs().amax(dim=1) / nrm).max().item()
+    if not (rel <= 32 * n * EPS64 and orth <= 32 * n * EPS64
+            and rec <= 64 * n * EPS64
+            and bool((unit <= 32 * n * EPS64 * nrm[::4]).all())):
+        raise AssertionError("K5 sym_eigh %s: eigenvalues off the host's by "
+                             "%.3g ||A||_F, off the card's at unit scale by "
+                             "%.3g; ||V^T V - I|| %.3g, ||V w V^T - A|| %.3g "
+                             "||A||" % (where, rel, unit.max().item(), orth,
+                                        rec))
+    return rel, unit.max().item(), orth, rec, plain_off, rec_of(cw, cV)
+
+
+def k5_pinv_holds(A, var, status, refs, rcond, where):
+    """K5's pinv00 against its plain version, ``refs`` its (card, host)
+    variances: every status 0; |var - host| <= 64 n eps kappa
+    sum_j |v0_j^2 / w_j| on every block and the same against the card's
+    on the unit-scale ones, with kappa = max|w| / min kept |w| and the
+    sum over the kept eigenvalues (|var| for a positive semidefinite
+    block), both from the host's eigendecomposition; blocks with an
+    eigenvalue within 1e-3 relative of the cutoff, where either side may
+    keep it, are left out and counted.  Returns the largest difference
+    over its bound (host, card), the blocks left out, the largest
+    difference from the host over sum |terms| and the largest absolute
+    difference from the card's at unit scale."""
+    import torch
+    n = A.shape[1]
+    card, host = refs
+    if not bool((status == 0).all()):
+        raise AssertionError("K5 pinv00 %s: statuses %s"
+                             % (where, status.tolist()))
+    hw, hV = torch.linalg.eigh(A.cpu())
+    aw = hw.abs()
+    cutoff = rcond * aw.amax(dim=1, keepdim=True)
+    keep = aw > cutoff
+    near = ((aw - cutoff).abs() <= 1e-3 * cutoff).any(dim=1)
+    kept = torch.where(keep, aw, torch.full_like(aw, float("inf")))
+    kappa = aw.amax(dim=1) / kept.amin(dim=1)
+    v0 = hV[:, 0, :]
+    mag = torch.where(keep, v0 * v0 / aw, torch.zeros_like(aw)).sum(dim=1)
+    bound = (64 * n * EPS64 * kappa * mag).to(A.device)
+    far = ~near.to(A.device)
+    d_host = (var - host).abs()
+    d_card = (var - card).abs()[::4]
+    r_host = (d_host / torch.clamp(bound, min=1e-300))[far].max().item() \
+        if bool(far.any()) else 0.0
+    unit = far[::4]
+    r_card = ((d_card / torch.clamp(bound[::4], min=1e-300))[unit].max()
+              .item() if bool(unit.any()) else 0.0)
+    if not (r_host <= 1.0 and r_card <= 1.0):
+        raise AssertionError("K5 pinv00 %s: off the host's by %.3g of its "
+                             "bound, off the card's at unit scale by %.3g"
+                             % (where, r_host, r_card))
+    rel = ((d_host / torch.clamp(mag.to(A.device), min=1e-300))[far].max()
+           .item() if bool(far.any()) else 0.0)
+    abs_card = d_card[unit].max().item() if bool(unit.any()) else 0.0
+    return r_host, r_card, int(near.sum()), rel, abs_card
+
+
+def phase_k5_check():
+    """K5 (sym_eigh and pinv00, csrc/psd_eig.cu) against its plain
+    versions (torch.linalg.eigh, and for pinv00 its cutoff and sum) on
+    the same inputs, on a host copy (LAPACK) at every scale and on the
+    card (cuSOLVER) at unit scale (k5_eigh_holds, k5_pinv_holds), at every
+    K5_CHECK shape (psd_blocks: scales 1e-150 ... 1e150, repeated and
+    zero eigenvalues), each launch counted, sym_eigh's eigenvalues
+    bit-equal to K3's; a NaN block flagged; how far cuSOLVER's eigh is
+    from LAPACK there; then each at K5_TIMED beside its bound and the
+    blocks' sweeps: eager in turns with the plain version and
+    torch.linalg.eigh (plain, torch.linalg, kernel, kernel, torch.linalg,
+    plain), and as 100 calls in one CUDA graph beside an empty kernel's
+    (kernel, empty, empty, kernel), with the cycles a Jacobi round at the
+    SM clock nvidia-smi reads."""
+    import torch
+    from bluest_tpu_torch.ops import psd_eig as k5
+    t_phase = time.perf_counter()
+    first = {}
+    for key, fn in (("sym_eigh", k5.sym_eigh),
+                    ("pinv00", lambda x: k5.pinv00(x, K5_RCOND))):
+        x = psd_blocks(10, 3, 15, 3)
+        first[key] = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(x)
+            torch.cuda.synchronize()
+            first[key].append(1e3 * (time.perf_counter() - t0))
+    log("K5 first calls in the process (host wall, ms; first / second): "
+        "sym_eigh %.3f / %.3f, pinv00 %.3f / %.3f"
+        % (*first["sym_eigh"], *first["pinv00"]))
+    worst = {"eigh": [0.0] * 6, "pinv": [0.0, 0.0, 0, 0.0, 0.0]}
+    for n in K5_CHECK_N:
+        for B in K5_CHECK_B:
+            if B * n * n > K5_CHECK_MAX:
+                continue
+            A = psd_blocks(n, B, 2000 * n + B, 3)
+            before = (k5.sym_eigh.launches, k5.pinv00.launches)
+            w, V, st = k5.sym_eigh(A)
+            var, st6 = k5.pinv00(A, K5_RCOND)
+            if (k5.sym_eigh.launches, k5.pinv00.launches) != (
+                    before[0] + 1, before[1] + 1):
+                raise AssertionError("K5 launch not counted")
+            w3, _ = k5.sym_eigvalsh(A)
+            card = k5.sym_eigh_plain(A)
+            host = k5.sym_eigh_plain(A.cpu())
+            refs = ((card[0], card[1]),
+                    tuple(t.to(A.device) for t in host[:2]))
+            got = k5_eigh_holds(A, w, V, st, w3, refs, "n=%d B=%d" % (n, B))
+            worst["eigh"] = [max(a, b) for a, b in zip(worst["eigh"], got)]
+            prefs = (k5.pinv00_plain(A, K5_RCOND)[0],
+                     k5.pinv00_plain(A.cpu(), K5_RCOND)[0].to(A.device))
+            got = k5_pinv_holds(A, var, st6, prefs, K5_RCOND,
+                                "n=%d B=%d" % (n, B))
+            near = worst["pinv"][2] + got[2]       # blocks left out, summed
+            worst["pinv"] = [max(a, b) for a, b in zip(worst["pinv"], got)]
+            worst["pinv"][2] = near
+        A = psd_blocks(n, 3, n + 1, 3)
+        A[1, n - 1, 0] = float("nan")
+        w, V, st = k5.sym_eigh(A)
+        var, st6 = k5.pinv00(A, K5_RCOND)
+        if not (st.tolist() == st6.tolist() == [0, 1, 0]
+                and bool(w[1].isnan().all()) and bool(V[1].isnan().all())
+                and bool(var[1].isnan())
+                and not bool(w[::2].isnan().any())
+                and not bool(var[::2].isnan().any())):
+            raise AssertionError("K5 n=%d: a NaN block gave statuses %s / %s"
+                                 % (n, st.tolist(), st6.tolist()))
+    log("K5 check: every block converged at n in %s, B in %s (B n^2 <= %d); "
+        "sym_eigh's eigenvalues bit-equal to K3's, within %.3g ||A||_F of "
+        "the plain version's on the host (LAPACK) and %.3g absolute of its "
+        "on the card at unit scale, ||V^T V - I||_F <= %.3g, ||V w V^T - "
+        "A||_F <= %.3g ||A||_F; pinv00 within %.3g (host) and %.3g (card) of "
+        "its bound 64 n eps kappa sum|v0^2/w|, %.3g of sum|v0^2/w| from the "
+        "host's, %d blocks near the cutoff left out; NaN blocks flagged.  "
+        "cuSOLVER's eigh on the card is off LAPACK by up to %.3g ||A||_F "
+        "(eigenvalues) and reconstructs A within %.3g ||A||_F"
+        % (K5_CHECK_N, K5_CHECK_B, K5_CHECK_MAX, worst["eigh"][0],
+           worst["eigh"][1], worst["eigh"][2], worst["eigh"][3],
+           worst["pinv"][0], worst["pinv"][1], worst["pinv"][3],
+           worst["pinv"][2], worst["eigh"][4], worst["eigh"][5]))
+    lib = k5.build_library()
+    timed = {}
+    for kind, name, fn, plain in (
+            (5, "sym_eigh", k5.sym_eigh, k5.sym_eigh_plain),
+            (6, "pinv00", lambda x: k5.pinv00(x, K5_RCOND),
+             lambda x: k5.pinv00_plain(x, K5_RCOND))):
+        counter = k5.sym_eigh if kind == 5 else k5.pinv00
+        for n, B in K5_TIMED:
+            x = psd_blocks(n, B, 9 * n + B, 3)
+            sweeps = psd_sweeps(kind, x)
+            reps = 50 if B < 1024 else 10
+            counts = (counter.launches, counter.captured)
+            with smi_sampler() as smi:
+                eager = {k: [] for k in ("plain", "library", "kernel")}
+                calls = {"plain": lambda: plain(x),
+                         "library": lambda: torch.linalg.eigh(x),
+                         "kernel": lambda: fn(x)}
+                for key in ("plain", "library", "kernel", "kernel",
+                            "library", "plain"):
+                    eager[key].append(_time_ms(calls[key], reps))
+
+                def floor():
+                    rc = lib.bluest_psd_empty(
+                        B, torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError("empty kernel: CUDA error %d" % rc)
+                graphs = {"kernel": [], "floor": []}
+                for key in ("kernel", "floor", "floor", "kernel"):
+                    graphs[key].append(_graph_ms(
+                        calls["kernel"] if key == "kernel" else floor,
+                        calls=100 if B < 8192 else 20))
+            counter.launches, counter.captured = counts
+            clock = (statistics.median(c for c, _, _ in smi) if smi
+                     else float("nan"))
+            bound, by = k5_bound_ms(kind, n, B)
+            ms, graph_ms = min(eager["kernel"]), min(graphs["kernel"])
+            rounds = sweeps["max"] * (n + (n & 1) - 1)
+            cycles = ((graph_ms - min(graphs["floor"])) * 1e-3 * clock * 1e6
+                      / max(rounds, 1))
+            log("K5 %s timing n=%d B=%d (sweeps a block: mean %.2f, most %d; "
+                "%d rounds): eager kernel %s ms, torch.linalg.eigh %s, plain "
+                "%s (plain, torch.linalg.eigh, kernel, kernel, "
+                "torch.linalg.eigh, plain); in one CUDA graph: kernel %s ms "
+                "a call, empty kernel %s (the launch floor; kernel, empty, "
+                "empty, kernel); SM clock %.0f MHz: %.0f cycles a round; "
+                "bound %.6f ms (%s), kernel at %.4f%% of it"
+                % (name, n, B, sweeps["mean"], sweeps["max"], rounds,
+                   _turns(eager["kernel"]), _turns(eager["library"]),
+                   _turns(eager["plain"]), _turns(graphs["kernel"]),
+                   _turns(graphs["floor"]), clock, cycles, bound, by,
+                   100 * bound / ms))
+            timed["%s_n%d_B%d" % (name, n, B)] = {
+                "ms": ms, "graph_ms": graph_ms,
+                "launch_floor_ms": min(graphs["floor"]),
+                "plain_ms": min(eager["plain"]),
+                "library_ms": min(eager["library"]),
+                "bound_ms": bound, "bound_by": by,
+                "mean_sweeps": sweeps["mean"], "max_sweeps": sweeps["max"],
+                "sm_clock_mhz": clock, "cycles_per_round": cycles,
+                "eager_turns": eager, "graph_turns": graphs}
+    log("K5 check: %.3f s" % (time.perf_counter() - t_phase))
+
+    def line(name, key):
+        t = timed[key]
+        errs = ({"max_abs_err": worst["eigh"][1],
+                 "max_err_over_norm": worst["eigh"][0],
+                 "orthogonality": worst["eigh"][2],
+                 "reconstruction": worst["eigh"][3],
+                 "plain_card_err_over_norm": worst["eigh"][4]}
+                if name == "sym_eigh" else
+                {"max_abs_err": worst["pinv"][4],
+                 "max_err_over_sum": worst["pinv"][3],
+                 "max_err_over_bound": max(worst["pinv"][:2]),
+                 "near_cutoff_left_out": worst["pinv"][2]})
+        return errs | {
+            k: t[k] for k in ("ms", "graph_ms", "launch_floor_ms",
+                              "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "mean_sweeps")} | {
+            "timed_at": key, "first_call_ms": first[name],
+            "timed": {k: {f: v for f, v in r.items()
+                          if not f.endswith("_turns")}
+                      for k, r in timed.items() if k.startswith(name)}}
+    return {"sym_eigh": line("sym_eigh", "sym_eigh_n11_B1"),
+            "pinv00": line("pinv00", "pinv00_n10_B8192")}
+
+
 def _turns(values):
     """Times taken in turns, as ' / '-joined ms (or '-' if none)."""
     return " / ".join("%.4f" % v for v in values) if values else "-"
@@ -1760,10 +2091,11 @@ def _graph_ms(fn, calls=100, replays=5):
 
 
 def psd_launcher(lib, kind, x):
-    """A launch of ``lib``'s K3 (kind 3) or K4 (kind 4) on ``x`` into
-    outputs of its own, with the sweeps of each block, on the current
-    stream; counted nowhere (measurement only).  Returns (call, (values,
-    status, sweeps)), values the eigenvalues or the singular values."""
+    """A launch of ``lib``'s K3 (kind 3), K4 (kind 4) or K5 (5: sym_eigh,
+    6: pinv00 at K5_RCOND) on ``x`` into outputs of its own, with the
+    sweeps of each block, on the current stream; counted nowhere
+    (measurement only).  Returns (call, (values, status, sweeps)), values
+    the eigenvalues, the singular values or pinv00's variances."""
     import torch
     B, n = x.shape[0], x.shape[1]
     dev = x.device
@@ -1771,8 +2103,9 @@ def psd_launcher(lib, kind, x):
     sw = torch.empty(B, dtype=torch.int32, device=dev)
     work = torch.empty(B * lib.bluest_psd_work_doubles(kind, n),
                        dtype=torch.float64, device=dev)
-    vals = torch.empty((B, n), dtype=torch.float64, device=dev)
-    U = torch.empty((B, n, n) if kind == 4 else 0, dtype=torch.float64,
+    vals = torch.empty((B, n) if kind != 6 else B, dtype=torch.float64,
+                       device=dev)
+    U = torch.empty((B, n, n) if kind in (4, 5) else 0, dtype=torch.float64,
                     device=dev)
 
     def call():
@@ -1781,19 +2114,28 @@ def psd_launcher(lib, kind, x):
             rc = lib.bluest_sym_eigvalsh_f64(
                 x.data_ptr(), vals.data_ptr(), st.data_ptr(), sw.data_ptr(),
                 work.data_ptr(), B, n, stream)
-        else:
+        elif kind == 4:
             rc = lib.bluest_nt_svd_f64(
                 x.data_ptr(), U.data_ptr(), vals.data_ptr(), st.data_ptr(),
                 sw.data_ptr(), work.data_ptr(), B, n, stream)
+        elif kind == 5:
+            rc = lib.bluest_sym_eigh_f64(
+                x.data_ptr(), vals.data_ptr(), U.data_ptr(), st.data_ptr(),
+                sw.data_ptr(), work.data_ptr(), B, n, stream)
+        else:
+            rc = lib.bluest_pinv00_f64(
+                x.data_ptr(), vals.data_ptr(), st.data_ptr(), sw.data_ptr(),
+                work.data_ptr(), K5_RCOND, B, n, stream)
         if rc != 0:
-            raise RuntimeError("K%d at n=%d B=%d: CUDA error %d"
+            raise RuntimeError("kind %d at n=%d B=%d: CUDA error %d"
                                % (kind, n, B, rc))
     return call, (vals, st, sw)
 
 
 def psd_sweeps(kind, x):
-    """The mean and largest sweeps a block of ``x`` takes in K3 (kind 3)
-    or K4 (kind 4), from the package library's measurement output."""
+    """The mean and largest sweeps a block of ``x`` takes in K3 (kind 3),
+    K4 (kind 4) or K5 (5, 6), from the package library's measurement
+    output."""
     from bluest_tpu_torch.ops import psd_eig as k34
     call, (_, st, sw) = psd_launcher(k34.build_library(), kind, x)
     call()
@@ -1803,16 +2145,23 @@ def psd_sweeps(kind, x):
     return {"mean": sw.double().mean().item(), "max": int(sw.max().item())}
 
 
+PSD_KERNELS = ("sym_eigvalsh", "nt_svd", "sym_eigh", "pinv00")
+# K3/K4/K5 launches of the paths that phases 5 and 6(d) drive, for the
+# kernel line (phases 4 and 11 return theirs)
+PSD_PATHS = {}
+
+
 def psd_launches():
-    """K3's and K4's launch counts (eager calls plus graph replays)."""
-    from bluest_tpu_torch.ops import psd_eig as k34
-    return {"sym_eigvalsh": k34.sym_eigvalsh.launches,
-            "nt_svd": k34.nt_svd.launches}
+    """K3's, K4's and K5's launch counts (eager calls plus graph
+    replays)."""
+    from bluest_tpu_torch.ops import psd_eig as k35
+    return {k: getattr(k35, k).launches for k in PSD_KERNELS}
 
 
 def reset_psd_launches():
-    from bluest_tpu_torch.ops import psd_eig as k34
-    k34.sym_eigvalsh.launches = k34.nt_svd.launches = 0
+    from bluest_tpu_torch.ops import psd_eig as k35
+    for k in PSD_KERNELS:
+        getattr(k35, k).launches = 0
 
 
 def _total_samples(problem):
@@ -1965,13 +2314,15 @@ def phase_flagship(smi, graph):
     L = problem.MOSAP.L
     certs = problem.MOSAP_output["certificates"]
     log("allocation: L=%d, budget %.6g, %d samples, %.3f s, certificates %s;"
-        " K3 launches %d, K4 launches %d"
+        " K3 launches %d, K4 launches %d, K5 launches: pinv00 %d, sym_eigh %d"
         % (L, budget, _total_samples(problem), alloc_s,
            [(c["form"], c["status"], c["iterations"]) for c in certs],
-           k34["sym_eigvalsh"], k34["nt_svd"]))
-    if not (k34["sym_eigvalsh"] > 0 and k34["nt_svd"] > 0):
-        raise AssertionError("the card's allocation launched K3 %d and K4 %d"
-                             " times" % (k34["sym_eigvalsh"], k34["nt_svd"]))
+           k34["sym_eigvalsh"], k34["nt_svd"], k34["pinv00"],
+           k34["sym_eigh"]))
+    if not (k34["sym_eigvalsh"] > 0 and k34["nt_svd"] > 0
+            and k34["pinv00"] > 0):
+        raise AssertionError("the card's allocation launched K3, K4 and "
+                             "K5's pinv00 %s times" % k34)
     if L != 385:
         raise AssertionError("expected L=385 groups, got %d" % L)
     if not certs or any(c["status"] not in ("optimal", "inaccurate")
@@ -2090,10 +2441,18 @@ def phase_target_rmse(problem, graph, launches_by_path):
     log("target RMSE: eps* = %.10e (phase 4 budget-mode cost %.10g)"
         % (eps_star, budget_cost))
 
-    # eps-mode MLBLUE allocation
+    # eps-mode MLBLUE allocation (K3/K4/K5 counted from 0 just before and
+    # read just after: the kernel line's "eps_star_alloc")
+    reset_psd_launches()
     t0 = time.perf_counter()
     problem.setup_solver(K=K, eps=eps_star)
+    _sync()
     alloc_eps_s = time.perf_counter() - t0
+    PSD_PATHS["eps_star_alloc"] = psd_launches()
+    log("eps* allocation: K3 %(sym_eigvalsh)d, K4 %(nt_svd)d, K5 pinv00 "
+        "%(pinv00)d, sym_eigh %(sym_eigh)d launches" % PSD_PATHS["eps_star_alloc"])
+    if not PSD_PATHS["eps_star_alloc"]["pinv00"] > 0:
+        raise AssertionError("the eps* allocation launched no K5")
     out = problem.MOSAP_output
     certs = out["certificates"]
     ratio = float(max(out["variances"])) / eps_star ** 2
@@ -2744,13 +3103,23 @@ def phase_host_model(times):
         raise AssertionError("the black-box model took a device path")
     Cp = p.get_covariance(0)
     spg = p.params["spg_params"]
+    # the masked SPG's projections through K5's sym_eigh (its count set to
+    # 0 just before and read just after: the kernel line's "masked_spg")
+    reset_psd_launches()
     t0 = time.perf_counter()
     _, err, res = project_covariance_masked(
         Cp, (~np.isnan(Cp)).astype(float), spd_eps=spg["spd_threshold"],
         spg_eps=spg["eps"], maxit=spg["maxit"], max_fevals=spg["max_fevals"])
+    PSD_PATHS["masked_spg"] = psd_launches()
     p.project_covariances()
     p.check_graphs(remove_uncorrelated=p.params["remove_uncorrelated"])
     times["host_projection_s"] = time.perf_counter() - t0
+    log("masked SPG: K5 sym_eigh launches %d over %d iterations"
+        % (PSD_PATHS["masked_spg"]["sym_eigh"], res.it))
+    if not PSD_PATHS["masked_spg"]["sym_eigh"] > res.it:
+        raise AssertionError("the masked SPG projection launched K5 %d times "
+                             "in %d iterations"
+                             % (PSD_PATHS["masked_spg"]["sym_eigh"], res.it))
     log("host model: pilot (%d samples, 2 workers) %.3f s; masked SPG: "
         "solver_info %d, %d iterations, error %.3e, %.3f s"
         % (HOST_PILOT, times["host_pilot_s"], res.solver_info, res.it, err,
@@ -3830,6 +4199,95 @@ def _probe_summary(rec):
                             c["count"]) for k, c in r["calls"].items())))
 
 
+@contextlib.contextmanager
+def recording_searches(calls):
+    """Append to ``calls`` the arguments of every best_integer_blue_multi
+    call that a MOSAP's integer projection makes in the block."""
+    import copy
+    from bluest_tpu_torch.allocation import mosap
+    real = mosap.best_integer_blue_multi
+
+    def rec(*a, **k):
+        calls.append((copy.deepcopy(a), dict(k)))
+        return real(*a, **k)
+    mosap.best_integer_blue_multi = rec
+    try:
+        yield calls
+    finally:
+        mosap.best_integer_blue_multi = real
+
+
+@contextlib.contextmanager
+def counting_card_eigensolves(count):
+    """Count in ``count`` the torch.linalg eigensolver and SVD calls made
+    on CUDA tensors in the block (the card's allocation makes none: K3,
+    K4 and K5 take their place)."""
+    import torch
+    names = ("eigh", "eigvalsh", "eig", "eigvals", "svd", "svdvals")
+    real = {n: getattr(torch.linalg, n) for n in names}
+
+    def wrap(n):
+        def f(A, *a, **k):
+            if isinstance(A, torch.Tensor) and A.is_cuda:
+                count[n] = count.get(n, 0) + 1
+            return real[n](A, *a, **k)
+        return f
+    for n in names:
+        setattr(torch.linalg, n, wrap(n))
+    try:
+        yield count
+    finally:
+        for n in names:
+            setattr(torch.linalg, n, real[n])
+
+
+def _searches(mod, device, calls):
+    """``mod.best_integer_blue_multi`` on each recorded call, on
+    ``device``: (results, wall s)."""
+    import copy
+    from bluest_tpu_torch.config import allocation_device_scope
+    args = [(copy.deepcopy(a), k) for a, k in calls]
+    _sync()
+    t0 = time.perf_counter()
+    with allocation_device_scope(device):
+        out = [mod.best_integer_blue_multi(*a, **k) for a, k in args]
+    _sync()
+    return out, time.perf_counter() - t0
+
+
+def _same_results(a, b):
+    """(the same samples from every search, the largest relative
+    difference of the chosen corners' max-variances)."""
+    import numpy as np
+    same, dv = True, 0.0
+    for (va, fa), (vb, fb) in zip(a, b):
+        if va is None or vb is None:
+            same &= va is None and vb is None
+            continue
+        same &= bool(np.array_equal(va, vb))
+        dv = max(dv, abs(fa - fb) / abs(fb))
+    return same, dv
+
+
+def integer_search_gate(name, calls):
+    """Phase 11's integer search alone, from the host set-up's continuous
+    point (the recorded arguments of its best_integer_blue_multi calls),
+    on the card and on the host: whether the samples are the same (the
+    gate) and the chosen corners' max-variance gap, and the card's wall
+    (after one warm run).  tools/integer_search_turns.py times it in
+    turns with another integer.py."""
+    from bluest_tpu_torch.solvers import integer
+    _searches(integer, DEV, calls)             # warm: first calls
+    card, wall = _searches(integer, DEV, calls)
+    host = _searches(integer, "cpu", calls)[0]
+    same, dv = _same_results(card, host)
+    log("phase 11%s integer search from the host's continuous point (%d "
+        "calls): card vs host same samples %s, chosen max-variance rel "
+        "diff %.3e; card wall %.4f s" % (name, len(calls), same, dv, wall))
+    return {"same_samples_card_host": same,
+            "maxvar_rel_diff_card_host": dv, "card_wall_s": wall}
+
+
 def _cold_setup(problem, where, how, loop=None):
     """One set-up from nothing: a fresh MOSAP (psi assembly included)
     and an empty warm cache, on the problem's device, the card
@@ -3839,7 +4297,9 @@ def _cold_setup(problem, where, how, loop=None):
     iteration is a graph replay.  Records each cone solve's iterations,
     done code and best x, K3's and K4's launches, and the host wall of
     each graph capture (the warm-up's enqueue, the capture and the
-    graph's instantiation)."""
+    graph's instantiation); a host set-up records the arguments of its
+    integer searches, a card set-up counts the torch.linalg eigensolver
+    calls it made on the card."""
     import numpy as np
     from bluest_tpu_torch.solvers import sdp
     sdp._WARM_CACHE.clear()
@@ -3861,8 +4321,11 @@ def _cold_setup(problem, where, how, loop=None):
 
     sdp._ipm_solve = recording
     reset_psd_launches()
+    rec["searches"], rec["card_eigensolves"] = [], {}
+    watch = (counting_card_eigensolves(rec["card_eigensolves"])
+             if where == "card" else recording_searches(rec["searches"]))
     try:
-        with setup_probes(rec):
+        with setup_probes(rec), watch:
             problem.setup_solver(**how)
     finally:
         sdp._ipm_solve = real_ipm
@@ -3948,8 +4411,8 @@ def _host_iteration_counts(problem, how):
 
 def _linalg_calls(n_x):
     """Each torch.linalg call of the IPM on the card, at the flagship's
-    shapes (3 PSD blocks of 11 x 11, an n_x x n_x normal matrix), and K3
-    and K4, which replace its eigvalsh and svd: whether
+    shapes (3 PSD blocks of 11 x 11, an n_x x n_x normal matrix), and K3,
+    K4 and K5, which replace its eigvalsh, svd and eigh: whether
     it makes the host wait for the card (it raises under
     set_sync_debug_mode("error")) and its wall a call over 50 calls."""
     import torch
@@ -3969,8 +4432,11 @@ def _linalg_calls(n_x):
                  L, B, upper=False),
              "eigvalsh": lambda: torch.linalg.eigvalsh(S),
              "svd": lambda: torch.linalg.svd(S),
+             "eigh": lambda: torch.linalg.eigh(S),
              "sym_eigvalsh (K3)": lambda: k34.sym_eigvalsh(S),
-             "nt_svd (K4)": lambda: k34.nt_svd(S)}
+             "nt_svd (K4)": lambda: k34.nt_svd(S),
+             "sym_eigh (K5)": lambda: k34.sym_eigh(S),
+             "pinv00 (K5)": lambda: k34.pinv00(S, K5_RCOND)}
     out = {}
     for name, fn in calls.items():
         fn()
@@ -4123,7 +4589,9 @@ def _gate_against_host(name, card, host, how):
 def phase_allocation_on_card(flagship, graph, hh_graph, launches_by_path):
     """Phase 11: the allocation on the card against the host, in turns
     (card, host, host, card), each set-up cold, on problems loaded from
-    phase 4's saved graph and phase 6(b)'s HH pilot."""
+    phase 4's saved graph and phase 6(b)'s HH pilot; then each program's
+    integer search alone from the host's continuous point
+    (integer_search_gate)."""
     import statistics as st
     import numpy as np
     from bluest_tpu_torch.models import hodgkin_huxley as hh
@@ -4137,6 +4605,9 @@ def phase_allocation_on_card(flagship, graph, hh_graph, launches_by_path):
                  dict(K=HH_K_CARD, budget=HH_BUDGET)))
     summary = {}
     card_budget = None
+    # programs whose integer search, from the host's continuous point,
+    # gives other samples on the card than on the host
+    mismatched = []
     order = (("card", "eager"), ("card", None), ("host", None), ("host", None),
              ("card", None), ("card", "eager"))
     for name, problem, how in programs:
@@ -4153,23 +4624,32 @@ def phase_allocation_on_card(flagship, graph, hh_graph, launches_by_path):
                 "%.3f (%d iterations, %.3f ms an iteration, bound %.6f ms; "
                 "captures %s s) + cleanup %.3f + integer %.3f + rest %.3f; "
                 "statuses %s, continuous cost %.10g, max variance %.8e; K3 "
-                "launches %d, K4 %d"
+                "launches %d, K4 %d, K5 pinv00 %d, sym_eigh %d"
                 % (name, t["device"], t["loop"], t["L"], t["wall_s"],
                    t["psi_s"], t["ipm_s"], t["iterations"],
                    1e3 * t["ipm_s"] / max(t["iterations"], 1), bound,
                    [round(c, 4) for c in t["capture_s"]], t["cleanup_s"],
                    t["integer_s"], t["rest_s"], t["status"], t["cont_cost"],
                    t["maxvar"], t["psd_launches"]["sym_eigvalsh"],
-                   t["psd_launches"]["nt_svd"]))
+                   t["psd_launches"]["nt_svd"], t["psd_launches"]["pinv00"],
+                   t["psd_launches"]["sym_eigh"]))
         for c in by["card"]:
             for h in by["host"]:
                 dc, dv = _gate_against_host(name, c, h, how)
             for e in by["eager"]:
                 bit_equal, dx = _gate_graph_against_eager(name, c, e)
             if not (c["psd_launches"]["sym_eigvalsh"] > 0
-                    and c["psd_launches"]["nt_svd"] > 0):
-                raise AssertionError("%s: the card's set-up launched K3/K4 "
+                    and c["psd_launches"]["nt_svd"] > 0
+                    and c["psd_launches"]["pinv00"] > 0):
+                raise AssertionError("%s: the card's set-up launched K3/K4/K5 "
                                      "%s" % (name, c["psd_launches"]))
+        for t in by["card"] + by["eager"]:
+            if t["card_eigensolves"]:
+                raise AssertionError("%s: the card's set-up called "
+                                     "torch.linalg on the card: %s"
+                                     % (name, t["card_eigensolves"]))
+        same = bool(np.array_equal(by["card"][0]["samples"],
+                                   by["host"][0]["samples"]))
         log("phase 11%s: card vs host: statuses %s / %s, IPM iterations "
             "%s / %s, continuous cost rel diff %.3e, max-variance rel diff "
             "%.3e, same integer samples %s; graph vs eager card: the same "
@@ -4177,22 +4657,25 @@ def phase_allocation_on_card(flagship, graph, hh_graph, launches_by_path):
             "rel diff %.3e)"
             % (name, by["card"][0]["status"], by["host"][0]["status"],
                [t["iterations"] for t in by["card"]],
-               [t["iterations"] for t in by["host"]], dc, dv,
-               bool(np.array_equal(by["card"][0]["samples"],
-                                   by["host"][0]["samples"])),
+               [t["iterations"] for t in by["host"]], dc, dv, same,
                bit_equal, dx))
+        search = integer_search_gate(name, by["host"][-1]["searches"])
+        if not search["same_samples_card_host"]:
+            mismatched.append(name)
         counts = _graph_counts(problem, how)
         log("phase 11%s graph counts (one card set-up, sync debug mode "
             "warn): synchronisations an iteration %.4f (replays, packed "
             "reads and step copies), in the captures %d; replays an "
             "iteration %.4f over %d iterations; %d graphs of %s nodes (one "
             "iteration each); capture walls %s s; synchronising calls in "
-            "the set-up %d %s"
+            "the set-up %d, %d of them in the integer search's module, %s"
             % (name, counts["syncs_per_iteration"], counts["capture_syncs"],
                counts["replays_per_iteration"], counts["iterations"],
                counts["graphs"], counts["nodes"],
                [round(c, 4) for c in counts["capture_s"]],
                sum(counts["sites"].values()),
+               sum(v for k, v in counts["sites"].items()
+                   if "solvers/integer.py" in k),
                json.dumps(counts["sites"], sort_keys=True)))
         if not (counts["syncs_per_iteration"] == 1.0
                 and counts["replays_per_iteration"] == 1.0):
@@ -4223,6 +4706,8 @@ def phase_allocation_on_card(flagship, graph, hh_graph, launches_by_path):
             / st.median(t["wall_s"] for t in by["card"]), 4)
         summary[name]["graph_vs_eager_bit_equal"] = bit_equal
         summary[name]["psd_launches"] = by["card"][-1]["psd_launches"]
+        summary[name]["same_integer_samples"] = same
+        summary[name]["integer_search"] = search
         summary[name]["graph_counts"] = {
             k: v for k, v in counts.items() if k != "sites"}
         if name.startswith("(a)"):
@@ -4247,11 +4732,15 @@ def phase_allocation_on_card(flagship, graph, hh_graph, launches_by_path):
     if not reads <= 2:
         raise AssertionError("%.2f host reads an IPM iteration" % reads)
     calls = _linalg_calls(fp.MOSAP.L)
-    log("phase 11 torch.linalg calls of the IPM on the card and K3/K4 "
+    log("phase 11 torch.linalg calls of the IPM on the card and K3/K4/K5 "
         "(flagship shapes): %s" % json.dumps(calls, sort_keys=True))
     summary["host_reads_per_iteration"] = round(reads, 4)
     summary["ops_per_iteration"] = round(ops, 1)
     log("phase 11: %s" % json.dumps(summary, sort_keys=True))
+    if mismatched:
+        raise AssertionError("%s: from the same continuous point the card's "
+                             "integer search gives other samples than the "
+                             "host's" % ", ".join(mismatched))
     return summary
 
 
@@ -4295,6 +4784,7 @@ def main():
     w = phase_wide_check(parent)
     h = phase_k2_check(built["k2_parent"], built["sass"])
     psd = phase_psd_check(built["k34_parent"])
+    k5 = phase_k5_check()
     hh_launches = {}                    # K2's launches per path
     hh_by_variant = {}                  # and by variant
     with tempfile.TemporaryDirectory() as d:
@@ -4324,20 +4814,24 @@ def main():
             alloc = phase_allocation_on_card(f, graph, hh_graph,
                                              launches_by_path)
         log("phase 11: %.3f s" % (time.perf_counter() - t0))
-    # K3's and K4's launches per path: phase 4's calibrated allocation and
+    # K3's, K4's and K5's launches per path: phase 4's calibrated
+    # allocation, phase 5's eps* allocation, phase 6(d)'s masked SPG and
     # each of phase 11's programs (its last graph turn)
-    psd_paths = {"flagship_alloc": f["psd_launches"]}
+    psd_paths = {"flagship_alloc": f["psd_launches"]} | PSD_PATHS
     for program, rec in alloc.items():
         if isinstance(rec, dict) and "psd_launches" in rec:
             psd_paths["alloc_on_card " + program] = rec["psd_launches"]
     psd_lines = []
-    for key, fn, replaces in (("K3", "sym_eigvalsh", K3_REPLACES),
-                              ("K4", "nt_svd", K4_REPLACES)):
+    for fn, replaces, measured in (
+            ("sym_eigvalsh", K3_REPLACES, psd["K3"]),
+            ("nt_svd", K4_REPLACES, psd["K4"]),
+            ("sym_eigh", K5_REPLACES["sym_eigh"], k5["sym_eigh"]),
+            ("pinv00", K5_REPLACES["pinv00"], k5["pinv00"])):
         by_path = {p: c[fn] for p, c in psd_paths.items()}
         psd_lines.append({"name": fn, "route": "cuda", "source": K34_SOURCE,
                           "replaces": replaces,
                           "launches": sum(by_path.values()),
-                          "launches_by_path": by_path} | psd[key])
+                          "launches_by_path": by_path} | measured)
     print(json.dumps({"kernels": [{
         "name": "diffusion_outputs", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,

@@ -665,12 +665,13 @@ def test_cone_program_card_matches_host(cuda, cold_ipm, case):
     assert min(its) - 1 <= rc.iterations <= max(its) + 1
 
 
-def _flagship_width(device):
+def _flagship_width(device, seed=2):
     """The flagship-width problem of the allocation tests (M=10, three
-    outputs, seeded covariances, the bench's grid costs), on ``device``."""
+    outputs, seeded covariances, the bench's grid costs), on ``device``;
+    seed 2 is the allocation tests' own."""
     from bluest_tpu_torch import BLUEProblem
     grids = (1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
-    rng = np.random.default_rng(2)
+    rng = np.random.default_rng(seed)
     M = len(grids)
     Cs = []
     for _ in range(3):
@@ -750,6 +751,7 @@ def test_ipm_iteration_syncs_only_at_its_read(cuda, cold_ipm, monkeypatch):
     eigenvalue and SVD calls, which read their status back).  Counted:
     one packed read and one graph replay an iteration, the iteration
     itself called twice (warm-up and capture), and K3/K4 launches of the
+    start's two shifts into the cone (one eigenvalue solve each), of the
     warm-up, of each replay (three eigenvalue solves and one SVD) and of
     the final polish (one eigenvalue solve)."""
     from bluest_tpu_torch.config import allocation_device_scope
@@ -798,7 +800,7 @@ def test_ipm_iteration_syncs_only_at_its_read(cuda, cold_ipm, monkeypatch):
     assert it == res.iterations == 3
     assert calls["read"] == it and calls["core"] == 2
     assert calls["adopt"] == it
-    assert k3.launches - before[0] == 3 + 3 * it + 1
+    assert k3.launches - before[0] == 2 + 3 + 3 * it + 1
     assert k4.launches - before[1] == 1 + it
 
 
@@ -955,3 +957,244 @@ def test_ipm_graph_matches_eager_card_retry(cuda, cold_ipm, case):
                             fail_first=True)
     _graph_equals_eager(out)
     assert out["graph"][0].dims["retried"]
+
+
+# ------------- K5: the allocation's Jacobi eigh and pinv(A)[0, 0] ------------ #
+
+K5_SHAPES = [(n, B) for n in (1, 2, 10, 11, 12, 13, 33, 64, 100)
+             for B in (1, 3, 77, 1024, 8192) if B * n * n <= 8192 * 13 * 13]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,B", K5_SHAPES)
+def test_k5_matches_plain(cuda, n, B):
+    """K5's sym_eigh and pinv00 against their plain versions on seeded
+    blocks at scales 1e-150 ... 1e150 with repeated and zero eigenvalues
+    (chip_smoke.py's K5 check and tolerances: sym_eigh's eigenvalues K3's
+    bit for bit and within 32 n eps ||A||_F of LAPACK's on a host copy and
+    of cuSOLVER's at unit scale, ||V^T V - I||_F <= 32 n eps, ||V diag(w)
+    V^T - A||_F <= 64 n eps ||A||_F; pinv00 within 64 n eps kappa
+    sum|v0^2/w| of the plain version's on the host and, at unit scale, on
+    the card), each launch counted; n = 33 runs the block kernel from
+    shared memory, 64 and 100 from the global workspace."""
+    from chip_smoke import (K5_RCOND, k5_eigh_holds, k5_pinv_holds,
+                            psd_blocks)
+    from bluest_tpu_torch.ops import psd_eig
+    A = psd_blocks(n, B, 17 * n + B, 3)
+    before = (psd_eig.sym_eigh.launches, psd_eig.pinv00.launches)
+    w, V, st = psd_eig.sym_eigh(A)
+    var, st6 = psd_eig.pinv00(A, K5_RCOND)
+    assert (psd_eig.sym_eigh.launches, psd_eig.pinv00.launches) == (
+        before[0] + 1, before[1] + 1)
+    w3, _ = psd_eig.sym_eigvalsh(A)
+    card, host = psd_eig.sym_eigh_plain(A), psd_eig.sym_eigh_plain(A.cpu())
+    k5_eigh_holds(A, w, V, st, w3, (card[:2], tuple(t.cuda() for t in
+                                                     host[:2])), "n=%d" % n)
+    refs = (psd_eig.pinv00_plain(A, K5_RCOND)[0],
+            psd_eig.pinv00_plain(A.cpu(), K5_RCOND)[0].cuda())
+    k5_pinv_holds(A, var, st6, refs, K5_RCOND, "n=%d" % n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 11, 33, 100])
+def test_k5_flags_non_finite_blocks(cuda, n):
+    """A NaN or an inf block gets status 1 and NaN results; its
+    neighbours are solved as alone."""
+    from bluest_tpu_torch.ops import psd_eig
+    A = torch.eye(n, dtype=torch.float64, device=cuda).repeat(4, 1, 1)
+    A[1, n - 1, 0] = float("nan")
+    A[2, 0, 0] = float("inf")
+    w, V, st = psd_eig.sym_eigh(A)
+    var, st6 = psd_eig.pinv00(A, 1e-12)
+    assert st.tolist() == st6.tolist() == [0, 1, 1, 0]
+    assert bool(w[1:3].isnan().all()) and bool(V[1:3].isnan().all())
+    assert bool(var[1:3].isnan().all())
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+    assert torch.equal(V[[0, 3]], eye.repeat(2, 1, 1))
+    assert var[[0, 3]].tolist() == [1.0, 1.0]
+
+
+@pytest.mark.gpu
+def test_k5_refuses_on_the_card(cuda):
+    from bluest_tpu_torch.ops import psd_eig
+    good = torch.eye(3, dtype=torch.float64, device=cuda)[None]
+    for fn in (psd_eig.sym_eigh, lambda A: psd_eig.pinv00(A, 1e-10)):
+        with pytest.raises(TypeError):
+            fn(good.float())
+        with pytest.raises(ValueError):
+            fn(good[0])
+        with pytest.raises(ValueError):
+            fn(torch.zeros(2, 3, 4, dtype=torch.float64, device=cuda))
+        with pytest.raises(ValueError):
+            fn(torch.zeros(2, 4, 4, dtype=torch.float64,
+                           device=cuda).transpose(1, 2))
+
+
+@pytest.mark.gpu
+def test_k5_launches_count_at_replay(cuda):
+    """K5's launches recorded in a graph capture count in ``captured``;
+    count_replay adds them per replay, as for K3 and K4."""
+    from bluest_tpu_torch.ops import psd_eig
+    A = 2.0 * torch.eye(5, dtype=torch.float64, device=cuda).repeat(3, 1, 1)
+    psd_eig.sym_eigh(A)
+    psd_eig.pinv00(A, 1e-10)
+    torch.cuda.synchronize()
+    fns = (psd_eig.sym_eigh, psd_eig.pinv00)
+    before = [(f.launches, f.captured) for f in fns]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        g.capture_begin()
+        w, V, st = psd_eig.sym_eigh(A)
+        var, st6 = psd_eig.pinv00(A, 1e-10)
+        g.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    assert [(f.launches, f.captured) for f in fns] == [
+        (n, c + 1) for n, c in before]
+    for _ in range(2):
+        g.replay()
+        psd_eig.count_replay({f: 1 for f in fns})
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [n + 2 for n, _ in before]
+    assert torch.equal(w, torch.full((3, 5), 2.0, dtype=torch.float64,
+                                     device=cuda))
+    assert var.tolist() == [0.5] * 3 and st.tolist() == st6.tolist() == [0] * 3
+
+
+def _search_instance(seed, mode):
+    """A seeded multi-output flagship instance (M=10, 3 outputs, L=385)
+    and a continuous point on 12 of its groups, at budget 2e5 or at the
+    point's own variances (each output's eps^2 its variance there, so the
+    point meets the tolerance); tests/test_torch_integer_dispatch.py
+    holds the port's search on them against the JAX package's."""
+    p = _flagship_width("cpu", seed)
+    p.prewarm_solver(K=4)
+    m = p.MOSAP
+    rng = np.random.default_rng(seed)
+    sol = np.zeros(m.L)
+    sol[rng.choice(np.arange(1, m.L), 11, replace=False)] = rng.uniform(
+        0.5, 30.0, 11)
+    sol[0] = 3.0
+    budget = eps = None
+    if mode == "budget":
+        budget = 2.0e5
+        sol *= budget / float(sol @ m.costs)
+    else:
+        sol *= 1.0e4 / float(sol @ m.costs)
+        eps = np.sqrt(np.asarray(m.variances(sol)))
+    return (sol, [s.psi for s in m.SAPS], m.costs, m.e, m.mappings,
+            dict(budget=budget, eps=eps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ll_max", [15, 4])
+@pytest.mark.parametrize("mode", ["budget", "eps"])
+@pytest.mark.parametrize("seed", [2, 3])
+def test_integer_search_card_matches_host(cuda, seed, mode, ll_max):
+    """The corner search (ll_max 15) and the greedy waves with their
+    polish (ll_max 4) on the card through K5 give the host's samples on
+    the seeded instances (the host's agree with the JAX package's there:
+    tests/test_torch_integer_dispatch.py), and the same max-variance
+    within 1e-12 relative."""
+    from bluest_tpu_torch.config import allocation_device_scope
+    from bluest_tpu_torch.ops import psd_eig
+    from bluest_tpu_torch.solvers import integer
+    sol, psis, w, e, maps, how = _search_instance(seed, mode)
+    before = psd_eig.pinv00.launches
+    with allocation_device_scope("cuda"):
+        got, gv = integer.best_integer_blue_multi(sol, psis, w, e, maps,
+                                                  ll_max=ll_max, **how)
+    assert psd_eig.pinv00.launches > before
+    with allocation_device_scope("cpu"):
+        ref, rv = integer.best_integer_blue_multi(sol, psis, w, e, maps,
+                                                  ll_max=ll_max, **how)
+    assert got is not None and ref is not None
+    np.testing.assert_array_equal(got, ref)
+    assert abs(gv - rv) <= 1e-12 * abs(rv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ll_max", [15, 4])
+def test_integer_search_syncs_once_a_read(cuda, monkeypatch, ll_max):
+    """Under torch.cuda.set_sync_debug_mode("warn") the search on the card
+    makes the host wait once a _gather (one a _multi_helper call, one a
+    greedy wave) and nowhere else: its uploads are pinned and
+    non-blocking, K5 writes its statuses to the card."""
+    import warnings
+    from bluest_tpu_torch.config import allocation_device_scope
+    from bluest_tpu_torch.solvers import integer
+    sol, psis, w, e, maps, how = _search_instance(2, "budget")
+    gathers = [0]
+    real = integer._gather
+
+    def counted(pending):
+        gathers[0] += 1
+        return real(pending)
+    monkeypatch.setattr(integer, "_gather", counted)
+    with allocation_device_scope("cuda"):
+        integer.best_integer_blue_multi(sol, psis, w, e, maps, ll_max=ll_max,
+                                        **how)           # warm
+        torch.cuda.synchronize()
+        gathers[0] = 0
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                got, _ = integer.best_integer_blue_multi(
+                    sol, psis, w, e, maps, ll_max=ll_max, **how)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w_ for w_ in caught if "synchroniz" in str(w_.message)]
+    sites = {"%s:%d" % (w_.filename, w_.lineno) for w_ in syncs}
+    assert got is not None and gathers[0] >= 1
+    assert len(syncs) == gathers[0], sites
+    assert all("integer.py" in s for s in sites), sites
+
+
+@pytest.mark.gpu
+def test_card_sites_call_no_torch_linalg_eigensolver(cuda, cold_ipm,
+                                                    monkeypatch):
+    """On the card the allocation's eigensolves are K3 and K5: a budget
+    set-up of the flagship-width problem (the IPM's start, psi's variance
+    and pseudo-inverse, the integer search), the SPD clip and the masked
+    SPG projection, ADMM's PSD projection and its history Gram matrix
+    call no torch.linalg eigensolver on a CUDA tensor, and launch K3 and
+    K5."""
+    import bluest_tpu_torch.linalg.spd as spd
+    from bluest_tpu_torch.config import allocation_device_scope
+    from bluest_tpu_torch.core import psi as psimod
+    from bluest_tpu_torch.ops import psd_eig
+    from bluest_tpu_torch.solvers.admm import solve_cone_lp_admm
+    names = ("eigh", "eigvalsh", "eig", "eigvals")
+    calls = []
+    for n in names:
+        real = getattr(torch.linalg, n)
+
+        def guard(A, *a, _real=real, _n=n, **k):
+            if isinstance(A, torch.Tensor) and A.is_cuda:
+                calls.append(_n)
+            return _real(A, *a, **k)
+        monkeypatch.setattr(torch.linalg, n, guard)
+    before = {k: getattr(psd_eig, k).launches
+              for k in ("sym_eigvalsh", "sym_eigh", "pinv00")}
+    p = _flagship_width("cuda")
+    p.setup_solver(K=4, budget=2.0e5)
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((10, 10))
+    C = X @ X.T - 3.0 * np.eye(10)
+    with allocation_device_scope("cuda"):
+        Cc = spd.clip_spd(torch.as_tensor(C, device=cuda), 1e-3)
+        mask = np.ones((10, 10))
+        mask[0, 1] = mask[1, 0] = 0.0
+        spd.project_covariance_masked(C, mask, maxit=20)
+        data = p.MOSAP.SAPS[0].data
+        m = torch.ones(data.L, dtype=torch.float64, device=cuda)
+        v = psimod.variance(data, m)
+        g = psimod.variance_grad_hess(data, m)
+        res = solve_cone_lp_admm(*_alloc_programs()["min-eig"](),
+                                 max_iter=50)
+    assert not calls, calls
+    assert Cc.is_cuda and v.is_cuda and res.x is not None and g is not None
+    got = {k: getattr(psd_eig, k).launches - b for k, b in before.items()}
+    assert all(v_ > 0 for v_ in got.values()), got
