@@ -35,6 +35,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .. import profiling
 from ..config import (allocation_device, on_allocation_device,
                       on_own_device)
 from ..core import psi as psimod
@@ -367,6 +368,9 @@ class MOSAP:
             self.SAPS[n].samples = samples[self.mappings[n]]
         return samples
 
+    @profiling.traced("alloc.sdp", after=lambda m, self, *a, **k: {
+        "L": self.L, "iterations": sum(int(c.get("iterations", 0))
+                                       for c in self.certificates)})
     @on_own_device
     def sdp_solve(self, budget=None, eps=None, max_model_samples=None,
                   solver_params=None, backend="ipm"):
@@ -891,6 +895,7 @@ class MOSAP:
 
     # ------------------------ cleanup sparsifier ----------------------- #
 
+    @profiling.traced("alloc.cleanup", walk="null-space")
     @on_own_device
     def cleanup_solution(self, m, delta: float = 0.0, tol: float = 0.0):
         """Null-space walk reducing the number of active groups without
@@ -959,6 +964,7 @@ class MOSAP:
 
     # ------------------------ integer projection ----------------------- #
 
+    @profiling.traced("alloc.integer")
     @on_own_device
     def integer_projection(self, samples, budget=None, eps=None,
                            max_model_samples=None):
@@ -1037,6 +1043,8 @@ class MOSAP:
 
     # ------------------------ estimator assembly ----------------------- #
 
+    @profiling.traced("estimate", after=lambda out, self, *a, **k: {
+        "outputs": self.n_outputs})
     def compute_BLUE_estimators(self, sums, samples):
         """(mus, Vars) per output (reference mosap.py:113-123)."""
         samples = np.asarray(samples, dtype=float)

@@ -51,6 +51,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import profiling
+
 __all__ = ["polish_eps"]
 
 
@@ -64,6 +66,7 @@ def _mosap_closures(mos):
     return [mos], [np.arange(mos.L)], mos.costs, mos.L, 1
 
 
+@profiling.traced("alloc.cleanup", walk="polish")
 def polish_eps(mos, m0, eps, support_rtol: float = 1e-9,
                active_rtol: float = 1e-3, max_newton: int = 40,
                tol: float = 1e-12, trace: bool = False,

@@ -17,6 +17,8 @@ import subprocess
 import tempfile
 import threading
 
+from .. import profiling
+
 __all__ = ["BUILD_DIR", "BASE_FLAGS", "find_nvcc", "build", "build_logs"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -56,24 +58,29 @@ def build(source: str, flags) -> str:
     path = os.path.join(BUILD_DIR, "libbluest_%s_%s.so" % (stem, tag[:16]))
     with _locks_lock:
         lock = _locks.setdefault(path, threading.Lock())
-    with lock:              # one build of a library at a time, others apart
-        if os.path.exists(path):
-            return path
-        nvcc = find_nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([nvcc] + flags + ["-o", tmp, source],
-                                  capture_output=True, text=True,
-                                  timeout=600)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed to build %s:\n%s"
-                                   % (source, log))
-            os.replace(tmp, path)         # atomic: concurrent builds agree
-            build_logs[path] = log
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+    with (profiling.span("kernels.load", library=os.path.basename(path),
+                         nvcc=False)
+          if profiling.recording else profiling.OFF) as sp:
+        with lock:          # one build of a library at a time, others apart
+            if os.path.exists(path):
+                return path
+            nvcc = find_nvcc()
+            if sp is not None:
+                sp.attrs["nvcc"] = True
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                proc = subprocess.run([nvcc] + flags + ["-o", tmp, source],
+                                      capture_output=True, text=True,
+                                      timeout=600)
+                log = proc.stdout + proc.stderr
+                if proc.returncode != 0:
+                    raise RuntimeError("nvcc failed to build %s:\n%s"
+                                       % (source, log))
+                os.replace(tmp, path)     # atomic: concurrent builds agree
+                build_logs[path] = log
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
     return path

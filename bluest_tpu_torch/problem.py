@@ -53,7 +53,8 @@ each sample rank evaluates a block of the chunks of every call and that
 one copy is preceded by one ``all_reduce`` over the sample group; the
 allocation runs redundantly on every rank and rank 0's is broadcast, and
 only rank 0 prints and writes snapshot files.  ``profile_dir`` writes a
-``torch.profiler`` trace of the sampling of each ``solve`` there.
+``torch.profiler`` trace of the sampling and the estimate of each
+``solve`` there, with the solve's spans (``profiling.py``).
 """
 
 from __future__ import annotations
@@ -75,7 +76,7 @@ from .graph import CovarianceGraph, cliques
 from .linalg.spd import (mark_uncorrelated, project_covariance_full,
                          project_covariance_masked)
 from .parallel.mesh import Mesh, sample_mesh
-from .profiling import device_trace
+from . import profiling
 from .sampling import host_engine, snapshots
 from .sampling.engine import F64, SamplingEngine, zero_sums
 from .sampling.group_engine import GroupEngine
@@ -711,14 +712,26 @@ class BLUEProblem:
                     first_chunk=first_chunk + base // engine.batch,
                     acc=total)
                 if vals is not None:
-                    vals, inputs = vals[valid], inputs[valid]
+                    with (profiling.host_sync("collect")
+                          if profiling.recording else profiling.OFF):
+                        vals = vals[valid]
+                    with (profiling.host_sync("collect")
+                          if profiling.recording else profiling.OFF):
+                        inputs = inputs[valid]
                 if self.mesh is not None:
-                    vals, inputs = (self.mesh.fetch_rows(t)
-                                    for t in (vals, inputs))
-                vals = vals.cpu().numpy()
+                    with (profiling.host_sync("collect")
+                          if profiling.recording else profiling.OFF):
+                        vals, inputs = (self.mesh.fetch_rows(t)
+                                        for t in (vals, inputs))
+                with (profiling.host_sync("collect")
+                      if profiling.recording else profiling.OFF):
+                    vals = vals.cpu().numpy()
                 if vals.ndim == 4 and vals.shape[-1] == 1:
                     vals = vals[..., 0]
-                sink.add(vals, inputs.cpu().numpy(), n_c)
+                with (profiling.host_sync("collect")
+                      if profiling.recording else profiling.OFF):
+                    inputs = inputs.cpu().numpy()
+                sink.add(vals, inputs, n_c)
             if own:
                 sink.write(samplefile, key_ls)
         finally:
@@ -744,9 +757,13 @@ class BLUEProblem:
             key_ls = tuple(int(l) for l in g)
             counter = self._call_counter
             self._call_counter += 1
+            with (profiling.span("sample.group", models=key_ls, N=n,
+                                 counter=counter, first_chunk=0)
+                  if profiling.recording else profiling.OFF):
+                sums = self._device_sums(key_ls, n, counter)
             out.append({"ls": key_ls, "N": n, "counter": counter,
                         "chunks": math.ceil(n / batch), "sink": None,
-                        "sums": self._device_sums(key_ls, n, counter)})
+                        "sums": sums})
         return out
 
     def _sums_to_host(self, flat: torch.Tensor) -> np.ndarray:
@@ -762,29 +779,43 @@ class BLUEProblem:
         live = [d for d in dispatched if d is not None]
         if not live:
             return [None] * len(dispatched)
-        if self.mesh is not None and self._output_dim is None:
-            # a rank that held no chunk yet has not seen the model's
-            # output dimension, which sizes its zeros: agree on it once
-            d = max([x["sums"].sumse.shape[-1] for x in live
-                     if x["sums"] is not None], default=0)
-            self._output_dim = int(self.mesh.all_reduce_samples(
-                torch.tensor([d], device=self.device), op="max")[0])
-        sums = [x["sums"] if x["sums"] is not None
-                else zero_sums(self.n_outputs, len(x["ls"]), self.device,
-                               self._output_dim) for x in live]
-        flat = torch.cat([t.reshape(-1).to(F64) for s in sums for t in s])
-        if self.mesh is not None:
-            flat = self.mesh.all_reduce_samples(flat)
-        flat = self._sums_to_host(flat)
-        fetched, off = [], 0
-        for s in sums:
-            parts = []
-            for t in s:
-                parts.append(flat[off:off + t.numel()].reshape(
-                    tuple(t.shape)))
-                off += t.numel()
-            parts[-1] = int(parts[-1])
-            fetched.append(parts)
+        with (profiling.span("sample.fetch", groups=len(live))
+              if profiling.recording else profiling.OFF) as sp:
+            if self.mesh is not None and self._output_dim is None:
+                # a rank that held no chunk yet has not seen the model's
+                # output dimension, which sizes its zeros: agree on it once
+                d = max([x["sums"].sumse.shape[-1] for x in live
+                         if x["sums"] is not None], default=0)
+                with (profiling.host_sync("fetch") if profiling.recording
+                      else profiling.OFF):
+                    self._output_dim = int(self.mesh.all_reduce_samples(
+                        torch.tensor([d], device=self.device), op="max")[0])
+            with (profiling.span("sample.pack") if profiling.recording
+                  else profiling.OFF):
+                sums = [x["sums"] if x["sums"] is not None
+                        else zero_sums(self.n_outputs, len(x["ls"]),
+                                       self.device, self._output_dim)
+                        for x in live]
+                flat = torch.cat([t.reshape(-1).to(F64)
+                                  for s in sums for t in s])
+                if self.mesh is not None:
+                    flat = self.mesh.all_reduce_samples(flat)
+            if sp is not None:
+                sp.attrs["bytes"] = flat.numel() * flat.element_size()
+            with (profiling.host_sync("fetch") if profiling.recording
+                  else profiling.OFF):
+                flat = self._sums_to_host(flat)
+            with (profiling.span("sample.unpack") if profiling.recording
+                  else profiling.OFF):
+                fetched, off = [], 0
+                for s in sums:
+                    parts = []
+                    for t in s:
+                        parts.append(flat[off:off + t.numel()].reshape(
+                            tuple(t.shape)))
+                        off += t.numel()
+                    parts[-1] = int(parts[-1])
+                    fetched.append(parts)
         fetched = iter(fetched)
         return [None if d is None else next(fetched) for d in dispatched]
 
@@ -815,39 +846,58 @@ class BLUEProblem:
         snapshot file too, through one sink per group for all rounds.
         Under a mesh every rank holds the same sums after a fetch and so
         takes the same decisions."""
-        t0 = time()
-        samplefile = self.params["samplefile"]
-        batch = int(self.params["device_batch_size"])
-        disp = self._dispatch_all(group_list, n_list)
-        host = self._batch_fetch_sums(disp)
-        try:
-            for _ in range(4):
-                again = [i for i, h in enumerate(host)
-                         if h is not None and h[-1] > 0]
-                if not again:
-                    break
-                for i in again:
-                    d, deficit = disp[i], host[i][-1]
-                    if samplefile is not None and d["sink"] is None:
-                        d["sink"] = self._collect_sink(d["ls"], deficit,
-                                                       samplefile)
-                    d["sums"] = self._device_sums(
-                        d["ls"], deficit, d["counter"],
-                        first_chunk=d["chunks"], sink=d["sink"])
-                    d["chunks"] += math.ceil(deficit / batch)
-                extra = self._batch_fetch_sums(
-                    [d if i in again else None for i, d in enumerate(disp)])
-                for i in again:
-                    host[i] = [a + b for a, b in zip(host[i][:-1],
-                                                     extra[i][:-1])] \
-                        + [extra[i][-1]]
-            for d in disp:
-                if d is not None and d["sink"] is not None:
-                    d["sink"].write(samplefile, d["ls"])
-        finally:
-            for d in disp:
-                if d is not None and d["sink"] is not None:
-                    d["sink"].close()
+        with (profiling.span("sample",
+                             groups=sum(int(n) > 0 for n in n_list))
+              if profiling.recording else profiling.OFF) as sp:
+            t0 = time()
+            samplefile = self.params["samplefile"]
+            batch = int(self.params["device_batch_size"])
+            disp = self._dispatch_all(group_list, n_list)
+            host = self._batch_fetch_sums(disp)
+            rounds = 1
+            if profiling.recording:
+                profiling.count("rows.kept", sum(
+                    d["N"] - h[-1] for d, h in zip(disp, host)
+                    if d is not None))
+            try:
+                for _ in range(4):
+                    again = [i for i, h in enumerate(host)
+                             if h is not None and h[-1] > 0]
+                    if not again:
+                        break
+                    for i in again:
+                        d, deficit = disp[i], host[i][-1]
+                        if samplefile is not None and d["sink"] is None:
+                            d["sink"] = self._collect_sink(d["ls"], deficit,
+                                                           samplefile)
+                        with (profiling.span(
+                                "sample.group", models=d["ls"], N=deficit,
+                                counter=d["counter"], first_chunk=d["chunks"])
+                              if profiling.recording else profiling.OFF):
+                            d["sums"] = self._device_sums(
+                                d["ls"], deficit, d["counter"],
+                                first_chunk=d["chunks"], sink=d["sink"])
+                        d["chunks"] += math.ceil(deficit / batch)
+                    extra = self._batch_fetch_sums(
+                        [d if i in again else None
+                         for i, d in enumerate(disp)])
+                    rounds += 1
+                    if profiling.recording:
+                        profiling.count("rows.kept", sum(
+                            host[i][-1] - extra[i][-1] for i in again))
+                    for i in again:
+                        host[i] = [a + b for a, b in zip(host[i][:-1],
+                                                         extra[i][:-1])] \
+                            + [extra[i][-1]]
+                for d in disp:
+                    if d is not None and d["sink"] is not None:
+                        d["sink"].write(samplefile, d["ls"])
+            finally:
+                for d in disp:
+                    if d is not None and d["sink"] is not None:
+                        d["sink"].close()
+            if sp is not None:
+                sp.attrs["fetch_rounds"] = rounds
         self._attribute_batch_wall(disp, time() - t0)
         for h in host:
             if h is not None and h[-1] > 0 and self.verbose:
@@ -863,9 +913,11 @@ class BLUEProblem:
             return [self.blue_fn(g, int(n))[0] if n > 0 else None
                     for g, n in zip(group_list, n_list)]
         host = self._sample_groups(group_list, n_list)
-        return [None if h is None
-                else self._reference_layout(g, h, None)[0]
-                for g, h in zip(group_list, host)]
+        with (profiling.span("estimate.sums") if profiling.recording
+              else profiling.OFF):
+            return [None if h is None
+                    else self._reference_layout(g, h, None)[0]
+                    for g, h in zip(group_list, host)]
 
     # ----------------------------- solvers ----------------------------- #
 
@@ -881,6 +933,8 @@ class BLUEProblem:
         del background, budget, max_model_samples
         return self._ensure_mosap(K, None).L
 
+    @profiling.traced("alloc.structure",
+                      after=lambda mosap, *a, **k: {"L": mosap.L})
     def _ensure_mosap(self, K, multi_groups):
         """Build (or reuse from the structure cache) the MOSAP for this
         group configuration, on the allocation device (its callers run
@@ -977,64 +1031,89 @@ class BLUEProblem:
         if groups is not None and multi_groups is None:
             multi_groups = [groups for _ in range(self.n_outputs)]
 
-        self._ensure_mosap(K, multi_groups)
-        self.MOSAP.solve(budget=budget, eps=eps, solver=solver,
-                         continuous_relaxation=continuous_relaxation,
-                         max_model_samples=max_model_samples,
-                         solver_params=optimization_solver_params)
-        if self.mesh is not None:
-            # every rank solved the same allocation, but the integer
-            # cleanup turns on 1e-15 changes of its input: take the root's,
-            # so that no rank can sample another allocation
-            m = self.MOSAP
-            m.samples, m.continuous_solution, m.tot_cost = \
-                self.mesh.broadcast_from_root(
-                    (m.samples, m.continuous_solution, m.tot_cost))
-        if self.MOSAP.samples is None:
-            self.MOSAP_output = None
-            raise BLUESTError("MOSAP solution failed!")
+        with (profiling.span("setup_solver", K=K, budget=budget, eps=eps,
+                             solver=solver)
+              if profiling.recording else profiling.OFF):
+            self._ensure_mosap(K, multi_groups)
+            self.MOSAP.solve(budget=budget, eps=eps, solver=solver,
+                             continuous_relaxation=continuous_relaxation,
+                             max_model_samples=max_model_samples,
+                             solver_params=optimization_solver_params)
+            if self.mesh is not None:
+                # every rank solved the same allocation, but the integer
+                # cleanup turns on 1e-15 changes of its input: take the root's,
+                # so that no rank can sample another allocation
+                m = self.MOSAP
+                m.samples, m.continuous_solution, m.tot_cost = \
+                    self.mesh.broadcast_from_root(
+                        (m.samples, m.continuous_solution, m.tot_cost))
+            if self.MOSAP.samples is None:
+                self.MOSAP_output = None
+                raise BLUESTError("MOSAP solution failed!")
 
-        Vs = self.MOSAP.variances(self.MOSAP.samples.astype(float))
-        cost_BLUE = self.MOSAP.tot_cost
-        C = self.MOSAP.C
-        N_MC = max(C[n][0, 0] / Vs[n] for n in range(self.n_outputs))
-        cost_MC = N_MC * self.get_costs()[0]
-        if self.verbose:
-            print("\nBLUE cost:", cost_BLUE, "MC cost:", cost_MC,
-                  "Savings:", cost_MC / cost_BLUE)
+            Vs = self.MOSAP.variances(self.MOSAP.samples.astype(float))
+            cost_BLUE = self.MOSAP.tot_cost
+            C = self.MOSAP.C
+            N_MC = max(C[n][0, 0] / Vs[n] for n in range(self.n_outputs))
+            cost_MC = N_MC * self.get_costs()[0]
+            if self.verbose:
+                print("\nBLUE cost:", cost_BLUE, "MC cost:", cost_MC,
+                      "Savings:", cost_MC / cost_BLUE)
 
-        self.MOSAP_output = {"budget": budget, "eps": eps,
-                             "samples": self.MOSAP.samples,
-                             "flattened_groups": self.MOSAP.flattened_groups,
-                             "variances": np.asarray(Vs), "cost": cost_BLUE,
-                             "certificates": list(self.MOSAP.certificates)}
-        if self.verbose and self.MOSAP.certificates:
-            best = min(self.MOSAP.certificates,
-                       key=lambda cc: max(cc["relgap"], cc["pres"],
-                                          cc["dres"]))
-            print("SDP certificate [%s]: status=%s relgap=%.2e "
-                  "pres=%.2e dres=%.2e (%d iters)"
-                  % (best["form"], best["status"], best["relgap"],
-                     best["pres"], best["dres"], best["iterations"]))
+            self.MOSAP_output = {
+                "budget": budget, "eps": eps, "samples": self.MOSAP.samples,
+                "flattened_groups": self.MOSAP.flattened_groups,
+                "variances": np.asarray(Vs), "cost": cost_BLUE,
+                "certificates": list(self.MOSAP.certificates)}
+            if self.verbose and self.MOSAP.certificates:
+                best = min(self.MOSAP.certificates,
+                           key=lambda cc: max(cc["relgap"], cc["pres"],
+                                              cc["dres"]))
+                print("SDP certificate [%s]: status=%s relgap=%.2e "
+                      "pres=%.2e dres=%.2e (%d iters)"
+                      % (best["form"], best["status"], best["relgap"],
+                         best["pres"], best["dres"], best["iterations"]))
 
-        sel = np.where(self.MOSAP_output["samples"] > 0)[0]
-        which_groups = [self.MOSAP_output["flattened_groups"][i] for i in sel]
-        blue_data = {"models": which_groups,
-                     "samples": self.MOSAP_output["samples"][sel].copy(),
-                     "errors": np.sqrt(np.asarray(Vs)),
-                     "total_cost": cost_BLUE}
-        if self.verbose:
-            print("\nModel groups selected: %s\n" % (which_groups,))
-            print("BLUE estimator setup. Max error:",
-                  float(np.sqrt(max(Vs))), " Cost:", cost_BLUE, "\n")
-        return blue_data
+            sel = np.where(self.MOSAP_output["samples"] > 0)[0]
+            which_groups = [self.MOSAP_output["flattened_groups"][i]
+                            for i in sel]
+            blue_data = {"models": which_groups,
+                         "samples": self.MOSAP_output["samples"][sel].copy(),
+                         "errors": np.sqrt(np.asarray(Vs)),
+                         "total_cost": cost_BLUE}
+            if self.verbose:
+                print("\nModel groups selected: %s\n" % (which_groups,))
+                print("BLUE estimator setup. Max error:",
+                      float(np.sqrt(max(Vs))), " Cost:", cost_BLUE, "\n")
+            return blue_data
 
     def solve(self, K=4, budget=None, eps=None, groups=None,
               multi_groups=None, solver=None, verbose=True,
               continuous_relaxation=False, max_model_samples=None,
               optimization_solver_params=None):
         """(blue_models.py:540-576): allocation (if needed), sampling of
-        every active group on the device, BLUE estimators."""
+        every active group on the device, BLUE estimators.  A call is one
+        request of the span recorder, under its root span ``solve``
+        (``profiling.py``); ``profile_dir`` turns the recorder on for the
+        call where it is off."""
+        trace_dir = self.params["profile_dir"]
+        own = bool(trace_dir) and not profiling.recording
+        if own:
+            profiling.enable_spans()
+        try:
+            with (profiling.span("solve", K=K, budget=budget, eps=eps)
+                  if profiling.recording else profiling.OFF) as sp:
+                return self._solve(
+                    sp, trace_dir, K, budget, eps, groups, multi_groups,
+                    solver, verbose, continuous_relaxation,
+                    max_model_samples, optimization_solver_params)
+        finally:
+            if own:
+                profiling.disable_spans()
+
+    def _solve(self, sp, trace_dir, K, budget, eps, groups, multi_groups,
+               solver, verbose, continuous_relaxation, max_model_samples,
+               optimization_solver_params):
         if solver is None:
             solver = self.params["optimization_solver"]
         need_setup = self.MOSAP_output is None
@@ -1063,41 +1142,48 @@ class BLUEProblem:
         sample_list = self.MOSAP_output["samples"]
         n_active = int(sum(1 for N in sample_list if N > 0))
         total_N = int(sum(int(N) for N in sample_list))
+        if sp is not None:
+            sp.attrs.update(groups=n_active, samples=total_N)
         done_groups = 0
         done_N = 0
         t0 = time()
         sums = [[] for _ in range(self.n_outputs)]
         pipelined = self._has_torch_model()
-        trace_dir = self.params["profile_dir"]
-        with device_trace(trace_dir) if trace_dir else nullcontext():
+        with profiling.device_trace(trace_dir) if trace_dir else nullcontext():
             # torch models: every group is dispatched before the one fetch
             # of all their sums; black-box models sample group by group
             sumse_list = (self._pipelined_sumse(flattened_groups, sample_list)
                           if pipelined else None)
-            for gi, (ls, N) in enumerate(zip(flattened_groups, sample_list)):
-                if N == 0:
+            # the pipelined path laid out every group's sums: gather them
+            # for the estimator (black-box models sample in this loop)
+            with (profiling.span("estimate.sums")
+                  if profiling.recording and pipelined else profiling.OFF):
+                for gi, (ls, N) in enumerate(zip(flattened_groups,
+                                                 sample_list)):
+                    if N == 0:
+                        for n in range(self.n_outputs):
+                            sums[n].append([0 for _ in range(len(ls))])
+                        continue
+                    if pipelined:
+                        sumse = sumse_list[gi]
+                    else:
+                        sumse, _, _ = self.blue_fn(ls, int(N),
+                                                   verbose=verbose)
                     for n in range(self.n_outputs):
-                        sums[n].append([0 for _ in range(len(ls))])
-                    continue
-                if pipelined:
-                    sumse = sumse_list[gi]
-                else:
-                    sumse, _, _ = self.blue_fn(ls, int(N), verbose=verbose)
-                for n in range(self.n_outputs):
-                    sums[n].append(sumse[n])
-                done_groups += 1
-                done_N += int(N)
-                if self.verbose and verbose:
-                    print("  group %s: %d samples | %d/%d groups, %d/%d "
-                          "samples" % (list(ls), int(N), done_groups,
-                                       n_active, done_N, total_N),
-                          flush=True)
-        if self.verbose and verbose and total_N:
-            wall = max(time() - t0, 1e-9)
-            print("  estimation: %d samples in %.2fs (%.0f samples/s)"
-                  % (total_N, wall, total_N / wall), flush=True)
+                        sums[n].append(sumse[n])
+                    done_groups += 1
+                    done_N += int(N)
+                    if self.verbose and verbose:
+                        print("  group %s: %d samples | %d/%d groups, %d/%d "
+                              "samples" % (list(ls), int(N), done_groups,
+                                           n_active, done_N, total_N),
+                              flush=True)
+            if self.verbose and verbose and total_N:
+                wall = max(time() - t0, 1e-9)
+                print("  estimation: %d samples in %.2fs (%.0f samples/s)"
+                      % (total_N, wall, total_N / wall), flush=True)
 
-        mus, Vs = self.MOSAP.compute_BLUE_estimators(sums, sample_list)
+            mus, Vs = self.MOSAP.compute_BLUE_estimators(sums, sample_list)
         errs = np.sqrt(Vs)
         return mus, errs, self.MOSAP_output["cost"]
 

@@ -40,6 +40,8 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import profiling as prof
+
 F64 = torch.float64
 
 
@@ -159,14 +161,30 @@ class SamplingEngine:
     def _chunks(self, ls, seed: int, counter: int, N: int, first_chunk: int):
         """This rank's chunks of the call: chunk c draws from the stream
         ``(seed, counter, first_chunk + c)``."""
-        gen = torch.Generator(device=self.device)
+        with prof.span("sample.seed") if prof.recording else prof.OFF:
+            gen = torch.Generator(device=self.device)
         for c in rank_chunks(math.ceil(N / self.batch), self.mesh):
             base = c * self.batch
             n_c = min(self.batch, N - base)
-            gen.manual_seed(generator_seed(seed, counter, first_chunk + c))
-            theta = self.sample_inputs(gen, n_c)
-            outs = torch.stack([self.evaluate_model(l, theta) for l in ls])
-            yield theta, outs, combine(outs, base, N)
+            with (prof.span("sample.chunk", chunk=first_chunk + c, rows=n_c)
+                  if prof.recording else prof.OFF):
+                with (prof.span("sample.seed") if prof.recording
+                      else prof.OFF):
+                    gen.manual_seed(generator_seed(seed, counter,
+                                                   first_chunk + c))
+                with (prof.span("sample.inputs", rows=n_c)
+                      if prof.recording else prof.OFF):
+                    theta = self.sample_inputs(gen, n_c)
+                with (prof.span("model.evaluate", models=len(ls), rows=n_c)
+                      if prof.recording else prof.OFF):
+                    outs = torch.stack([self.evaluate_model(l, theta)
+                                        for l in ls])
+                with (prof.span("sample.combine", rows=n_c)
+                      if prof.recording else prof.OFF):
+                    part = combine(outs, base, N)
+            if prof.recording:
+                prof.count("rows.drawn", n_c)
+            yield theta, outs, part
 
     def sample_sums(self, ls: Sequence[int], seed: int, counter: int, N: int,
                     first_chunk: int = 0) -> Optional[SampleSums]:

@@ -40,6 +40,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from .. import profiling as prof
 from .engine import (SampleSums, add_sums, check_device, combine,
                      finite_rows, flat_inputs, generator_seed, rank_chunks,
                      zero_sums)
@@ -89,38 +90,68 @@ class GroupEngine:
         d]), ok (n,)).  Non-finite rows are redrawn: each round draws
         ``redraw_rows`` candidates and gives its finite ones, in order, to
         the rows still failing."""
-        inputs = self.sample_group(gen, ls, n)
-        outs = self.evaluate_group(ls, inputs)
+        inputs, outs = self._evaluate(gen, ls, n)
         ok = finite_rows(outs)
-        drawn, accepted = n, int(ok.sum())
+        with prof.host_sync("draw.count") if prof.recording else prof.OFF:
+            accepted = int(ok.sum())
+        drawn = n
         for _ in range(self.max_resample):
-            bad = torch.nonzero(~ok).flatten()
+            with prof.host_sync("draw.bad") if prof.recording else prof.OFF:
+                bad = torch.nonzero(~ok).flatten()
             if bad.numel() == 0:
                 break
             m = self.redraw_rows(bad.numel(), drawn, accepted)
-            new_in = self.sample_group(gen, ls, m)
-            new_out = self.evaluate_group(ls, new_in)
-            good = torch.nonzero(finite_rows(new_out)).flatten()
-            drawn, accepted = drawn + m, accepted + good.numel()
-            good = good[:bad.numel()]
-            take = bad[:good.numel()]
-            outs = outs.index_copy(0, take, new_out[good])
-            inputs = _put_rows(inputs, take, _take_rows(new_in, good))
-            ok = ok.index_fill(0, take, True)
+            with (prof.span("sample.redraw", failing=bad.numel(), rows=m)
+                  if prof.recording else prof.OFF):
+                new_in, new_out = self._evaluate(gen, ls, m)
+                with (prof.host_sync("draw.good") if prof.recording
+                      else prof.OFF):
+                    good = torch.nonzero(finite_rows(new_out)).flatten()
+                drawn, accepted = drawn + m, accepted + good.numel()
+                with (prof.span("sample.splice") if prof.recording
+                      else prof.OFF):
+                    good = good[:bad.numel()]
+                    take = bad[:good.numel()]
+                    outs = outs.index_copy(0, take, new_out[good])
+                    inputs = _put_rows(inputs, take,
+                                       _take_rows(new_in, good))
+                    ok = ok.index_fill(0, take, True)
+        if prof.recording:
+            prof.count("rows.drawn", drawn)
         return inputs, outs, ok
+
+    def _evaluate(self, gen: torch.Generator, ls, n: int):
+        """(inputs, outputs) of n fresh draws of group ``ls``."""
+        with (prof.span("sample.inputs", rows=n) if prof.recording
+              else prof.OFF):
+            inputs = self.sample_group(gen, ls, n)
+        with (prof.span("model.evaluate", models=len(ls), rows=n)
+              if prof.recording else prof.OFF):
+            outs = self.evaluate_group(ls, inputs)
+        return inputs, outs
 
     def _chunks(self, ls, seed: int, counter: int, N: int, first_chunk: int):
         """This rank's chunks of the call: chunk c draws, and redraws, from
         the stream ``(seed, counter, first_chunk + c)``; the resample
         rounds are local to the rank (no collective inside)."""
-        gen = torch.Generator(device=self.device)
+        with prof.span("sample.seed") if prof.recording else prof.OFF:
+            gen = torch.Generator(device=self.device)
         for c in rank_chunks(math.ceil(N / self.batch), self.mesh):
             base = c * self.batch
             n_c = min(self.batch, N - base)
-            gen.manual_seed(generator_seed(seed, counter, first_chunk + c))
-            inputs, outs, ok = self.draw(gen, ls, n_c)
-            # combine masks non-finite rows itself; the rows are model-major
-            yield inputs, outs, ok, combine(outs.movedim(2, 0), base, N)
+            with (prof.span("sample.chunk", chunk=first_chunk + c, rows=n_c)
+                  if prof.recording else prof.OFF):
+                with (prof.span("sample.seed") if prof.recording
+                      else prof.OFF):
+                    gen.manual_seed(generator_seed(seed, counter,
+                                                   first_chunk + c))
+                inputs, outs, ok = self.draw(gen, ls, n_c)
+                # combine masks non-finite rows itself; the rows are
+                # model-major
+                with (prof.span("sample.combine", rows=n_c)
+                      if prof.recording else prof.OFF):
+                    part = combine(outs.movedim(2, 0), base, N)
+            yield inputs, outs, ok, part
 
     def sample_sums(self, ls: Sequence[int], seed: int, counter: int, N: int,
                     first_chunk: int = 0) -> Optional[SampleSums]:

@@ -2656,6 +2656,35 @@ def phase_target_rmse(problem, graph, launches_by_path):
                              % vt_ratio)
 
 
+def device_busy(prof, kernel_name=None) -> dict:
+    """Device activity of a finished ``torch.profiler`` trace, in
+    microseconds: ``busy_us`` (the union of all device items), ``by_name``
+    (summed per item name) and, for the items whose name holds
+    ``kernel_name``, ``kernel_us`` and ``kernel_n``."""
+    import torch
+    spans, by_name, k_us, k_n = [], {}, 0.0, 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        spans.append((t0, t1))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (t1 - t0)
+        if kernel_name is not None and kernel_name in e.name:
+            k_us += t1 - t0
+            k_n += 1
+    spans.sort()
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return {"busy_us": busy, "by_name": by_name, "kernel_us": k_us,
+            "kernel_n": k_n}
+
+
 def phase_profile(problem):
     """One more budget solve of phase 4's problem under torch.profiler:
     K1's device time and launches, the union of all device activity over
@@ -2664,10 +2693,11 @@ def phase_profile(problem):
     make the host wait for the card, by call site (phase 11 lists those
     of one allocation, in every run)."""
     import torch
-    from bluest_tpu_torch.profiling import device_busy, device_trace
+    from torch.profiler import ProfilerActivity, profile
     budget = problem.MOSAP_output["budget"]
     torch.cuda.synchronize()
-    with device_trace() as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         problem.solve(K=K, budget=budget)
         torch.cuda.synchronize()

@@ -6,8 +6,10 @@ through K1, the allocation on the card against the host (the seeded
 cone programs of the allocation and warm-cache tests, the flagship-width
 MOSAP, the integer projection from one continuous point, and the IPM's
 iterations under the synchronisation debug mode), K3 and K4 (the IPM's
-Jacobi eigenvalue and SVD kernels) against torch.linalg, and the IPM's
-graph loop against its eager card loop.
+Jacobi eigenvalue and SVD kernels) against torch.linalg, the IPM's
+graph loop against its eager card loop, and the span recorder's
+host-sync spans against the synchronisation debug mode and the
+profiler's device-to-host copies.
 
 These tests need a CUDA card and nvcc; without a card they skip.  They
 import neither jax nor the JAX package, so they also run on a machine
@@ -1198,3 +1200,123 @@ def test_card_sites_call_no_torch_linalg_eigensolver(cuda, cold_ipm,
     assert Cc.is_cuda and v.is_cuda and res.x is not None and g is not None
     got = {k: getattr(psd_eig, k).launches - b for k, b in before.items()}
     assert all(v_ > 0 for v_ in got.values()), got
+
+
+def _span_problem(cuda):
+    """A small Hodgkin-Huxley problem on the card whose Euler model at dt
+    0.08 blows up on most draws, set up, solved once (K2 built, caches
+    warm) and synchronised."""
+    from bluest_tpu_torch.models import hodgkin_huxley as hh
+    from bluest_tpu_torch.solvers import sdp
+    sdp._WARM_CACHE.clear()          # a cold allocation, alike each time
+    corr = np.array([[1.0, 0.9, 0.8], [0.9, 1.0, 0.85], [0.8, 0.85, 1.0]])
+    p = hh.HodgkinHuxleyProblem(models=((0, 0.04), (1, 0.04), (1, 0.08)),
+                                C=[corr] * 5, verbose=False, device=cuda,
+                                device_batch_size=4096, seed=3)
+    p.setup_solver(K=3, budget=2e4)
+    p.solve(K=3, budget=2e4)
+    torch.cuda.synchronize()
+    return p
+
+
+@pytest.mark.gpu
+def test_span_host_syncs_are_the_synchronising_calls(cuda):
+    """One solve on the card: its ``host.sync`` spans are as many as the
+    synchronising calls that the synchronisation debug mode reports, and
+    the request's counters say the same."""
+    import os
+    import warnings
+    from bluest_tpu_torch import profiling
+    p = _span_problem(cuda)
+    profiling.enable_spans()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            p.solve(K=3, budget=2e4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        profiling.disable_spans()
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = "%s:%d" % (os.path.basename(w.filename), w.lineno)
+            sites[site] = sites.get(site, 0) + 1
+    spans = profiling.spans()
+    syncs = [s for s in spans if s.name == "host.sync"]
+    root = next(s for s in spans if s.name == "solve")
+    counted = sum(v for k, v in root.attrs["counters"].items()
+                  if k.startswith("host.sync."))
+    assert len(syncs) == sum(sites.values()) == counted, (len(syncs), sites)
+    assert root.attrs["counters"]["k2.launches"] == sum(
+        s.name == "model.evaluate" for s in spans)
+
+
+@pytest.mark.gpu
+def test_span_fetch_copy_lies_inside_its_span(cuda):
+    """On the profiler's clock each ``fetch`` read's device-to-host copy
+    lies inside its ``host.sync`` span (50 us of slack at either end), and
+    so does every other device-to-host copy of the solve inside some
+    ``host.sync`` span."""
+    from torch.profiler import ProfilerActivity, profile
+    from bluest_tpu_torch import profiling
+    p = _span_problem(cuda)
+    profiling.enable_spans()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            p.solve(K=3, budget=2e4)
+            torch.cuda.synchronize()
+    finally:
+        profiling.disable_spans()
+    start = prof.profiler.kineto_results.trace_start_ns()
+    copies = [(start + e.time_range.start * 1e3,
+               start + e.time_range.end * 1e3)
+              for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "DtoH" in e.name]
+    syncs = [(profiling.unix_ns(s.start_ns), profiling.unix_ns(s.end_ns),
+              s.attrs["site"]) for s in profiling.spans()
+             if s.name == "host.sync"]
+    slack = 50e3
+    fetches = [(a, b) for a, b, site in syncs if site == "fetch"]
+    assert fetches
+    for a, b in fetches:
+        inside = [c for c in copies
+                  if a - slack <= c[0] and c[1] <= b + slack]
+        assert len(inside) == 1, (a, b, [c for c in copies
+                                         if c[1] > a - 1e6 and c[0] < b + 1e6])
+    assert copies
+    for c in copies:
+        assert any(a - slack <= c[0] and c[1] <= b + slack
+                   for a, b, _ in syncs), c
+
+
+@pytest.mark.gpu
+def test_span_recorder_adds_no_device_work(cuda):
+    """Two problems alike, one solved with the recorder off and one with
+    it on: the card runs the same items, in the same order, and the means
+    and error bars are bit-equal."""
+    from torch.profiler import ProfilerActivity, profile
+    from bluest_tpu_torch import profiling
+    runs = []
+    for on in (False, True):
+        p = _span_problem(cuda)
+        if on:
+            profiling.enable_spans()
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                mus, errs, _ = p.solve(K=3, budget=2e4)
+                torch.cuda.synchronize()
+        finally:
+            profiling.disable_spans()
+        items = [e.name for e in sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        runs.append((items, mus, errs))
+    assert profiling.spans()
+    (off, mus0, errs0), (on, mus1, errs1) = runs
+    assert len(off) == len(on) and off == on
+    for a, b in zip(mus0, mus1):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    assert np.array_equal(np.asarray(errs0), np.asarray(errs1))
