@@ -21,8 +21,10 @@ synchronises, so the card runs the same items with it on or off.
 A span with no open span above it (in its thread) is a request's root:
 its id is the request id of every span opened inside it, and its
 ``attrs["counters"]`` holds the request's counters (:func:`count`,
-:func:`host_sync`, and ``k2.launches``: the change of
-``ops.hodgkin_huxley.hh_group_outputs.launches`` across the root).
+:func:`host_sync`, and the kernels' launches across the root:
+``k2.launches``, the change of
+``ops.hodgkin_huxley.hh_group_outputs.launches``, and ``k6.launches``, of
+``ops.combine.combine_sums.launches``).
 Times are ``time.perf_counter_ns()``; :func:`unix_ns` moves one onto the
 clock of ``torch.profiler``'s events (Unix-epoch nanoseconds: the
 profiler's ``kineto_results.trace_start_ns()`` plus an event's relative
@@ -73,11 +75,20 @@ def _stack() -> list:
     return stack
 
 
-def _k2_launches() -> int:
-    """K2's launch counter; 0 while its module is not loaded (then no K2
-    launch has happened)."""
-    mod = sys.modules.get("bluest_tpu_torch.ops.hodgkin_huxley")
-    return 0 if mod is None else mod.hh_group_outputs.launches
+# a request's launch counters: (counter, the kernel's module, its wrapper)
+_KERNELS = (("k2.launches", "bluest_tpu_torch.ops.hodgkin_huxley",
+             "hh_group_outputs"),
+            ("k6.launches", "bluest_tpu_torch.ops.combine", "combine_sums"))
+
+
+def _launches() -> Tuple[int, ...]:
+    """The kernels' launch counters, in :data:`_KERNELS`' order; 0 for a
+    kernel whose module is not loaded (then it has not launched)."""
+    out = []
+    for _, module, wrapper in _KERNELS:
+        mod = sys.modules.get(module)
+        out.append(0 if mod is None else getattr(mod, wrapper).launches)
+    return tuple(out)
 
 
 def _clock_pair() -> Tuple[int, int]:
@@ -130,7 +141,8 @@ class span:
     is the open span (``s.attrs`` may take attributes known only at its
     end).  Enter it only while :data:`recording`."""
 
-    __slots__ = ("name", "attrs", "id", "parent", "root", "start_ns", "k2")
+    __slots__ = ("name", "attrs", "id", "parent", "root", "start_ns",
+                 "launches")
 
     def __init__(self, name: str, **attrs):
         self.name = name
@@ -148,7 +160,7 @@ class span:
         else:
             self.parent, self.root = None, self
             self.attrs["counters"] = {}
-            self.k2 = _k2_launches()
+            self.launches = _launches()
         stack.append(self)
         self.start_ns = perf_counter_ns()
         return self
@@ -162,7 +174,10 @@ class span:
             stack.remove(self)
         root = self.root
         if root is self:
-            self.attrs["counters"]["k2.launches"] = _k2_launches() - self.k2
+            counters = self.attrs["counters"]
+            for (name, _, _), now, then in zip(_KERNELS, _launches(),
+                                               self.launches):
+                counters[name] = now - then
         _done.append((self.name, root.id, self.id, self.parent,
                       self.start_ns, end, self.attrs))
         return False

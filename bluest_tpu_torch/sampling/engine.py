@@ -16,7 +16,9 @@ samples
   * folds the outputs into the MLBLUE sums in float64 on the device:
     sums of outputs, cross products and pairwise MLMC differences, with
     rows whose index is >= N or whose outputs are non-finite weighted 0
-    (non-finite rows are counted in ``n_failed``).
+    (non-finite rows are counted in ``n_failed``): on a card one launch
+    of K6 (``ops/combine.py``) a chunk, which adds the chunk's sums into
+    the call's running sums; on the host ``combine_plain``'s einsums.
 
 The sums stay on the device; the caller copies the sums of all its
 groups to the host in one piece.  Under a mesh of R sample ranks
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import profiling as prof
+from ..ops.combine import combine_sums
 
 F64 = torch.float64
 
@@ -75,8 +78,9 @@ def rank_chunks(n_chunks: int, mesh=None) -> range:
     return range(lo, min(lo + per, n_chunks))
 
 
-def combine(outs: torch.Tensor, base: int, N: int) -> SampleSums:
-    """Masked f64 MLBLUE sums of one chunk.
+def combine_plain(outs: torch.Tensor, base: int, N: int) -> SampleSums:
+    """Masked f64 MLBLUE sums of one chunk, in plain PyTorch: the CPU's
+    route and K6's reference.
 
     ``outs``: (k, rows, No) or (k, rows, No, d) -- model-major outputs of
     the chunk whose first row has global sample index ``base``.  The
@@ -101,6 +105,24 @@ def combine(outs: torch.Tensor, base: int, N: int) -> SampleSums:
     return SampleSums(se, sc, d1, d2, nf)
 
 
+def combine(outs: torch.Tensor, base: int, N: int,
+            into: Optional[SampleSums] = None) -> SampleSums:
+    """The masked f64 MLBLUE sums of one chunk (:func:`combine_plain`'s
+    arguments): new tensors, or added in place into ``into`` (running
+    sums of the same shapes that the caller owns), which is returned.  A
+    CUDA tensor launches K6 (``ops.combine.combine_sums``): one kernel
+    that reads each row once and writes or adds the chunk's sums.
+    Anything else runs :func:`combine_plain`."""
+    if outs.is_cuda:
+        return SampleSums(*combine_sums(outs, base, N, into))
+    part = combine_plain(outs, base, N)
+    if into is None:
+        return part
+    for t, p in zip(into, part):
+        t += p
+    return into
+
+
 def add_sums(a: Optional[SampleSums],
              b: Optional[SampleSums]) -> Optional[SampleSums]:
     """Elementwise sum; ``None`` (a rank that held no chunk) adds
@@ -108,6 +130,30 @@ def add_sums(a: Optional[SampleSums],
     if a is None or b is None:
         return b if a is None else a
     return SampleSums(*[x + y for x, y in zip(a, b)])
+
+
+def own_sums(acc: Optional[SampleSums]) -> Optional[SampleSums]:
+    """A contiguous copy of sums a caller hands to a call, which the call
+    then adds its chunks into (the caller's own are left as they are)."""
+    if acc is None:
+        return None
+    return SampleSums(*[t.clone(memory_format=torch.contiguous_format)
+                        for t in acc])
+
+
+def fold(combiner: Callable, acc: Optional[SampleSums], outs: torch.Tensor,
+         base: int, N: int) -> SampleSums:
+    """A call's running sums ``acc`` (None before its first chunk, else
+    the call's own) after its chunk ``outs``.  On a card ``combiner``
+    (the engine module's ``combine``) launches K6, which writes the first
+    chunk's sums and adds each later chunk into them in place.  On the
+    host the chunk's sums are a value of their own, ``combiner(outs,
+    base, N)``, added to ``acc``: bit for bit the same as ``combine(outs,
+    base, N, acc)``, and the seam where a test swaps the combiner of
+    every chunk."""
+    if outs.is_cuda:
+        return combiner(outs, base, N, acc)
+    return add_sums(acc, combiner(outs, base, N))
 
 
 def zero_sums(No: int, k: int, device, d: int = 1) -> SampleSums:
@@ -158,11 +204,15 @@ class SamplingEngine:
         self.device = check_device(device)
         self.mesh = mesh
 
-    def _chunks(self, ls, seed: int, counter: int, N: int, first_chunk: int):
+    def _chunks(self, ls, seed: int, counter: int, N: int, first_chunk: int,
+                acc: Optional[SampleSums]):
         """This rank's chunks of the call: chunk c draws from the stream
-        ``(seed, counter, first_chunk + c)``."""
+        ``(seed, counter, first_chunk + c)``.  Yields each chunk's inputs,
+        outputs and the call's running sums after it, ``acc`` plus the
+        chunks so far (``acc`` itself is left as it is)."""
         with prof.span("sample.seed") if prof.recording else prof.OFF:
             gen = torch.Generator(device=self.device)
+        acc = own_sums(acc)
         for c in rank_chunks(math.ceil(N / self.batch), self.mesh):
             base = c * self.batch
             n_c = min(self.batch, N - base)
@@ -181,10 +231,10 @@ class SamplingEngine:
                                         for l in ls])
                 with (prof.span("sample.combine", rows=n_c)
                       if prof.recording else prof.OFF):
-                    part = combine(outs, base, N)
+                    acc = fold(combine, acc, outs, base, N)
             if prof.recording:
                 prof.count("rows.drawn", n_c)
-            yield theta, outs, part
+            yield theta, outs, acc
 
     def sample_sums(self, ls: Sequence[int], seed: int, counter: int, N: int,
                     first_chunk: int = 0) -> Optional[SampleSums]:
@@ -195,9 +245,9 @@ class SamplingEngine:
         ls = [int(l) for l in ls]
         N = int(N)
         acc = zero_sums(self.No, len(ls), self.device) if N <= 0 else None
-        for _theta, _outs, part in self._chunks(ls, seed, counter, N,
-                                                first_chunk):
-            acc = add_sums(acc, part)
+        for _theta, _outs, acc in self._chunks(ls, seed, counter, N,
+                                               first_chunk, acc):
+            pass
         return acc
 
     def collect(self, ls: Sequence[int], seed: int, counter: int, N: int,
@@ -215,9 +265,8 @@ class SamplingEngine:
         ls = [int(l) for l in ls]
         N = int(N)
         vals, inputs = [], []
-        for theta, outs, part in self._chunks(ls, seed, counter, N,
-                                              first_chunk):
-            acc = add_sums(acc, part)
+        for theta, outs, acc in self._chunks(ls, seed, counter, N,
+                                             first_chunk, acc):
             vals.append(outs.movedim(0, 2))
             inputs.append(flat_inputs(theta))
         if not vals:

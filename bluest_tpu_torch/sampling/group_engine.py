@@ -30,7 +30,7 @@ order; the accepted draws are finite
 draws of the group's stream, as the JAX loop's are.  Rows still failing
 after the last round are masked out of the sums and counted in
 ``n_failed``.  The f64 sums come from the same combiner as the factored
-engine's (``engine.combine``).
+engine's (``engine.combine``: on a card K6, one launch a chunk).
 """
 
 from __future__ import annotations
@@ -41,9 +41,9 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from .. import profiling as prof
-from .engine import (SampleSums, add_sums, check_device, combine,
-                     finite_rows, flat_inputs, generator_seed, rank_chunks,
-                     zero_sums)
+from .engine import (SampleSums, check_device, combine, finite_rows,
+                     flat_inputs, fold, generator_seed, own_sums,
+                     rank_chunks, zero_sums)
 
 
 def _take_rows(inputs, idx):
@@ -130,12 +130,17 @@ class GroupEngine:
             outs = self.evaluate_group(ls, inputs)
         return inputs, outs
 
-    def _chunks(self, ls, seed: int, counter: int, N: int, first_chunk: int):
+    def _chunks(self, ls, seed: int, counter: int, N: int, first_chunk: int,
+                acc: Optional[SampleSums]):
         """This rank's chunks of the call: chunk c draws, and redraws, from
         the stream ``(seed, counter, first_chunk + c)``; the resample
-        rounds are local to the rank (no collective inside)."""
+        rounds are local to the rank (no collective inside).  Yields each
+        chunk's inputs, outputs and finite mask and the call's running
+        sums after it, ``acc`` plus the chunks so far (``acc`` itself is
+        left as it is)."""
         with prof.span("sample.seed") if prof.recording else prof.OFF:
             gen = torch.Generator(device=self.device)
+        acc = own_sums(acc)
         for c in rank_chunks(math.ceil(N / self.batch), self.mesh):
             base = c * self.batch
             n_c = min(self.batch, N - base)
@@ -150,8 +155,8 @@ class GroupEngine:
                 # model-major
                 with (prof.span("sample.combine", rows=n_c)
                       if prof.recording else prof.OFF):
-                    part = combine(outs.movedim(2, 0), base, N)
-            yield inputs, outs, ok, part
+                    acc = fold(combine, acc, outs.movedim(2, 0), base, N)
+            yield inputs, outs, ok, acc
 
     def sample_sums(self, ls: Sequence[int], seed: int, counter: int, N: int,
                     first_chunk: int = 0) -> Optional[SampleSums]:
@@ -162,9 +167,9 @@ class GroupEngine:
         ls = tuple(int(l) for l in ls)
         N = int(N)
         acc = zero_sums(self.No, len(ls), self.device) if N <= 0 else None
-        for _inputs, _outs, _ok, part in self._chunks(ls, seed, counter, N,
-                                                      first_chunk):
-            acc = add_sums(acc, part)
+        for _inputs, _outs, _ok, acc in self._chunks(ls, seed, counter, N,
+                                                     first_chunk, acc):
+            pass
         return acc
 
     def collect(self, ls: Sequence[int], seed: int, counter: int, N: int,
@@ -181,9 +186,8 @@ class GroupEngine:
         ls = tuple(int(l) for l in ls)
         N = int(N)
         vals, inputs, valid = [], [], []
-        for inp, outs, ok, part in self._chunks(ls, seed, counter, N,
-                                                first_chunk):
-            acc = add_sums(acc, part)
+        for inp, outs, ok, acc in self._chunks(ls, seed, counter, N,
+                                               first_chunk, acc):
             vals.append(outs)
             inputs.append(flat_inputs(inp))
             valid.append(ok)

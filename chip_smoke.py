@@ -8,7 +8,8 @@ Phases (any failure raises, so the exit code is non-zero):
   2. build K1 and its wide tier (bluest_tpu_torch/csrc/diffusion.cu),
      K2 (bluest_tpu_torch/csrc/hodgkin_huxley.cu), K2's step probes
      (a cubin for the SASS counts) and K3/K4
-     (bluest_tpu_torch/csrc/psd_eig.cu) with nvcc, one process each, in
+     (bluest_tpu_torch/csrc/psd_eig.cu) and K6
+     (bluest_tpu_torch/csrc/combine.cu) with nvcc, one process each, in
      parallel; print each kernel's registers and spills;
   3. hold K1 against its plain PyTorch version on the card, for
      n in {1, 2, 3, 8, 33, 64, 100, 256, 1024}, B in {1, 77, 8192} and
@@ -80,7 +81,19 @@ Phases (any failure raises, so the exit code is non-zero):
      call's host wall; each timed at K5_TIMED beside its bound, eager in
      turns with the plain version and torch.linalg.eigh and as calls in
      one CUDA graph beside the launch floor, with sweeps a block and
-     cycles a round;
+     cycles a round; then K6 (the sampling combiner) against its plain
+     version (sampling.engine.combine_plain) on the card, in the group
+     engine's strided layout and the factored engine's stacked one, f32
+     and f64, k in {1, 2, 3, 5, 12}, d in {1, 3}, rows in {1, 77, 3001}
+     with NaN, inf and past-N rows (phase_k6_check: 1e-12 of each sum's
+     largest entry, n_failed exact, each launch counted), the flagship's
+     chunks (the stacked layout, 1 to K models, its outputs, BATCH rows,
+     f32 and f64), the cell's chunk shapes (k, No) = (1, 5), (3, 5),
+     (12, 5) at 262,144 rows (two calls bit-equal, the running sums in
+     place equal to add_sums of the chunks'), each timed there beside its
+     bound (bytes at 3.35 TB/s) and the plain version's time, in turns
+     (plain, K6, K6, plain); K6's launches are counted by phase (4 to 11)
+     for the kernel line;
   4. drive the flagship end to end on the default device (the card):
      pilot (4096 samples) + SPD projection, setup_solver(K=4) with the
      budget calibrated to ~1e6 samples (K3's, K4's and K5's launches
@@ -367,6 +380,22 @@ K3_TIMED = (("flagship", 11, 3), ("flagship", 11, 6), ("flagship", 11, 12),
             ("1024", 11, 1024), ("1024", 13, 1024))
 K4_TIMED = (("flagship", 11, 3), ("hh", 13, 5), ("1024", 11, 1024),
             ("1024", 13, 1024))
+K6_SOURCE = "bluest_tpu_torch/csrc/combine.cu"
+K6_REPLACES = ("bluest_tpu/sampling/kernel_engine.py:293 (_get_combiners' "
+               "einsums, XLA)")
+# the K6 check: models a group, output dimensions, rows (one, a ragged
+# few, past a block's tile many times), both layouts, f32 and f64; the
+# cell's chunk shapes (No = 5) at its chunk of 262,144 rows, also timed
+K6_CHECK_K = (1, 2, 3, 5, 12)
+K6_CHECK_D = (1, 3)
+K6_CHECK_ROWS = (1, 77, 3001)
+K6_TIMED = ((1, 5, 1), (3, 5, 1), (12, 5, 1))
+K6_CHUNK = 262144
+# and the flagship's chunks (phases 4, 5 and 10): the factored engine's
+# stacked layout, groups of 1 to K models at BATCH rows, in f32 (the
+# flagship) and f64 (the deep flagship); its outputs a row come from
+# the model
+K6_FLAGSHIP_K = tuple(range(1, K + 1))
 # K2's check after phase 3: the batches (one redraw round of the group
 # engine may draw 4 x 16384), and the batch it is timed at (phase 6(b)'s
 # chunk)
@@ -468,10 +497,11 @@ def phase_build(k2_parent_source=None, k34_parent_source=None):
     None, "k34_parent": launchers or None}."""
     from concurrent.futures import ThreadPoolExecutor
     from bluest_tpu_torch.ops import _build
+    from bluest_tpu_torch.ops import combine as k6
     from bluest_tpu_torch.ops import diffusion as k1
     from bluest_tpu_torch.ops import hodgkin_huxley as k2
     from bluest_tpu_torch.ops import psd_eig as k34
-    mods = (("K1", k1), ("K2", k2), ("K3/K4/K5", k34))
+    mods = (("K1", k1), ("K2", k2), ("K3/K4/K5", k34), ("K6", k6))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods) + 4) as pool:
         jobs = [pool.submit(mod.build_library) for _, mod in mods]
@@ -489,7 +519,7 @@ def phase_build(k2_parent_source=None, k34_parent_source=None):
         parent = parent.result() if parent else None
         psd_parent = psd_parent.result() if psd_parent else None
     dt = time.perf_counter() - t0
-    log("K1, K2 and K3/K4/K5 build, in parallel%s%s: %.2f s"
+    log("K1, K2, K3/K4/K5 and K6 build, in parallel%s%s: %.2f s"
         % (" (with K2's step probes%s)"
            % (" and the parent K2" if parent else ""),
            " and the parent K3/K4" if psd_parent else "", dt))
@@ -1494,6 +1524,206 @@ def phase_k2_check(parent=None, sass=None):
             "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
             "bound_by": g["bound_by"], "model0": timed["model0"],
             "sm_clock_mhz": clock, "in_turns": turns_out}
+
+
+def k6_outputs(layout, dtype, k, rows, No, d, seed):
+    """Model-major outputs (k, rows, No[, d]) on the card as an engine
+    hands them to K6: the group engine's (rows, No, k[, d]) block moved
+    model-major (strided) or the factored engine's stacked tensor;
+    correlated models around an offset, a failing model on row 3, another
+    on row 10 (an inf), every model on row 40."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    shape = (rows, No) + ((d,) if d > 1 else ())
+    common = 3.0 + rng.standard_normal(shape)
+    x = np.stack([common + 0.1 * (i + 1) * rng.standard_normal(shape)
+                  for i in range(k)])
+    x[0, 3 % rows] = np.nan
+    x[k - 1, 10 % rows, 0] = np.inf
+    if rows > 40:
+        x[:, 40] = -np.inf
+    x = torch.from_numpy(x)
+    if layout == "group":
+        return x.movedim(0, 2).contiguous().to(DEV, dtype).movedim(2, 0)
+    return x.to(DEV, dtype).contiguous()
+
+
+def k6_bound_ms(k, rows, No, d, itemsize):
+    """K6's least time: each value of the chunk read once and the sums
+    written once, at HBM_BYTES_PER_S (its one or two FP64 operations a sum
+    and row stay under the FP64 rate's time to k = 12)."""
+    from bluest_tpu_torch.ops.combine import per_output
+    nbytes = itemsize * k * rows * No * d + 8 * No * (
+        k * d + 2 * k * k + k * k * d)
+    flops = 2.0 * rows * No * per_output(k, d) * d
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / OTHER_FLOPS[8])
+
+
+def k6_holds(got, ref, where):
+    """Within 1e-12 of the largest entry of each of ref's sums, and the
+    failed rows' count equal; returns the largest relative difference."""
+    worst = 0.0
+    for name, g, r in zip(("se", "sc", "d1", "d2"), got[:4], ref[:4]):
+        scale = max(float(r.abs().max()) if r.numel() else 0.0, 1e-300)
+        err = float((g - r).abs().max()) / scale if r.numel() else 0.0
+        if not err <= 1e-12:
+            raise AssertionError("K6 %s: %s off the plain version by %.3e "
+                                 "of its largest entry" % (where, name, err))
+        worst = max(worst, err)
+    if int(got[4]) != int(ref[4]):
+        raise AssertionError("K6 %s: n_failed %d, plain %d"
+                             % (where, int(got[4]), int(ref[4])))
+    return worst
+
+
+def phase_k6_check():
+    """K6 against combine_plain on the card at K6_CHECK_* in both layouts
+    and dtypes (the last five rows past N, each launch counted), at the
+    flagship's chunk shapes (stacked, K6_FLAGSHIP_K models, BATCH rows,
+    f32 and f64), at the cell's chunk shapes (two calls bit-equal), the
+    running sums in place equal to add_sums of the chunks' own sums;
+    then each timed shape at
+    K6_CHUNK rows: K6 beside its bound and the plain version, in turns
+    (plain, K6, K6, plain).  Returns the kernel line's numbers."""
+    import torch
+    from bluest_tpu_torch.models.diffusion import solve_diffusion_outputs
+    from bluest_tpu_torch.ops import combine as k6
+    from bluest_tpu_torch.sampling.engine import (add_sums, combine,
+                                                  combine_plain)
+    t0 = time.perf_counter()
+    worst, checked = 0.0, 0
+    flagship_no = solve_diffusion_outputs(
+        torch.zeros(1, N_KL, dtype=torch.float64), GRIDS[-1], SIGMA,
+        NU).shape[-1]
+    for dtype in (torch.float32, torch.float64):
+        for k in K6_FLAGSHIP_K:
+            outs = k6_outputs("stacked", dtype, k, BATCH, flagship_no, 1,
+                              BATCH + k)
+            got = combine(outs, 0, BATCH - 5)
+            worst = max(worst, k6_holds(
+                got, combine_plain(outs, 0, BATCH - 5),
+                "flagship %s k=%d No=%d rows=%d"
+                % (dtype, k, flagship_no, BATCH)))
+            checked += 1
+    for layout in ("group", "stacked"):
+        for dtype in (torch.float32, torch.float64):
+            for k in K6_CHECK_K:
+                for d in K6_CHECK_D:
+                    for rows in K6_CHECK_ROWS:
+                        outs = k6_outputs(layout, dtype, k, rows, 5, d,
+                                          rows + k)
+                        before = k6.combine_sums.launches
+                        got = combine(outs, 3, rows - 2)
+                        torch.cuda.synchronize()
+                        if k6.combine_sums.launches != before + 1:
+                            raise AssertionError("K6 did not launch once")
+                        worst = max(worst, k6_holds(
+                            got, combine_plain(outs, 3, rows - 2),
+                            "%s %s k=%d d=%d rows=%d"
+                            % (layout, dtype, k, d, rows)))
+                        checked += 1
+    for k, No, d in K6_TIMED:
+        outs = k6_outputs("group", torch.float64, k, K6_CHUNK, No, d, k)
+        a = combine(outs, 0, K6_CHUNK - 100)
+        b = combine(outs, 0, K6_CHUNK - 100)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError("K6 k=%d: two calls differ" % k)
+        worst = max(worst, k6_holds(a, combine_plain(outs, 0, K6_CHUNK - 100),
+                                    "cell k=%d" % k))
+        cuts = ((0, 100000), (100000, 200001), (200001, K6_CHUNK))
+        acc = None
+        for lo, hi in cuts:
+            acc = combine(outs[:, lo:hi], lo, K6_CHUNK, acc)
+        ref = None
+        for lo, hi in cuts:
+            ref = add_sums(ref, combine(outs[:, lo:hi], lo, K6_CHUNK))
+        if not all(torch.equal(x, y) for x, y in zip(acc, ref)):
+            raise AssertionError("K6 k=%d: the running sums in place differ "
+                                 "from add_sums of the chunks'" % k)
+    log("K6 check: %d shapes within 1e-12 of the plain version (largest "
+        "%.3e), the cell's chunks bit-equal call to call and in place; "
+        "%.2f s" % (checked + len(K6_TIMED), worst,
+                    time.perf_counter() - t0))
+    timed = {}
+    for k, No, d in K6_TIMED:
+        outs = k6_outputs("group", torch.float64, k, K6_CHUNK, No, d, k)
+        key = "k%d_No%d_rows%d" % (k, No, K6_CHUNK)
+        acc = combine(outs, 0, K6_CHUNK)
+        run = {"plain": lambda: combine_plain(outs, 0, K6_CHUNK),
+               "k6": lambda: combine(outs, 0, K6_CHUNK, acc)}
+        turns = {"plain": [], "k6": []}
+        for name in ("plain", "k6", "k6", "plain"):
+            turns[name].append(_device_ms(run[name]))
+        bound = k6_bound_ms(k, K6_CHUNK, No, d, 8)
+        ms = statistics.median(turns["k6"])
+        timed[key] = {"ms": round(ms, 5),
+                      "plain_ms": round(statistics.median(turns["plain"]),
+                                        5),
+                      "bound_ms": round(bound, 5),
+                      "share": round(bound / ms, 4),
+                      "ms_turns": [round(v, 5) for v in turns["k6"]],
+                      "plain_ms_turns": [round(v, 5)
+                                         for v in turns["plain"]],
+                      "host_us": round(1e3 * _host_ms(run["k6"]), 2),
+                      "plain_host_us": round(1e3 * _host_ms(run["plain"]),
+                                             2)}
+        log("K6 %s: device %s ms a call (plain %s ms), bound %.5f ms "
+            "(bytes at 3.35 TB/s), share %.1f%%; the host's dispatch %.1f us "
+            "a call (plain %.1f us)"
+            % (key, _turns(turns["k6"]),
+               _turns(turns["plain"]), bound, 100 * bound / ms,
+               timed[key]["host_us"], timed[key]["plain_host_us"]))
+    main = timed["k1_No5_rows%d" % K6_CHUNK]
+    return {"max_rel_err": worst, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "timed": timed}
+
+
+def _device_ms(fn, calls=20):
+    """The card's busy time a call of ``fn``: the durations of the device
+    items that ``calls`` calls run, from the profiler, over ``calls``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):          # a profile that caught no item is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        items = [e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if items:
+            return sum(e.time_range.end - e.time_range.start
+                       for e in items) / 1e3 / calls
+    raise RuntimeError("the profiler saw no device items in three tries")
+
+
+def _host_ms(fn, calls=200):
+    """The host's time to dispatch a call of ``fn``: ``calls`` calls with
+    no synchronisation between them (the card keeps up or queues), by the
+    host's clock, over ``calls``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * dt / calls
+
+
+@contextlib.contextmanager
+def counting_k6(path, into):
+    """K6's launches inside the block, added to ``into[path]``."""
+    from bluest_tpu_torch.ops import combine as k6
+    before = k6.combine_sums.launches
+    try:
+        yield
+    finally:
+        into[path] = into.get(path, 0) + k6.combine_sums.launches - before
 
 
 def psd_work(kind, n, B):
@@ -4815,35 +5045,44 @@ def main():
     h = phase_k2_check(built["k2_parent"], built["sass"])
     psd = phase_psd_check(built["k34_parent"])
     k5 = phase_k5_check()
+    k6c = phase_k6_check()
     hh_launches = {}                    # K2's launches per path
     hh_by_variant = {}                  # and by variant
+    k6_launches = {}                    # K6's launches per phase
     with tempfile.TemporaryDirectory() as d:
         graph = os.path.join(d, "flagship_graph.npz")
         hh_graph = os.path.join(d, "hh_graph.npz")
-        with allocation_log("phase 4"):
+        with allocation_log("phase 4"), counting_k6("phase 4", k6_launches):
             f = phase_flagship(smi, graph)
         launches_by_path = {"mlblue_budget": f["launches"]}
         if "--profile" in sys.argv[1:]:
-            phase_profile(f["problem"])
-        with allocation_log("phase 5"):
+            with counting_k6("profile", k6_launches):
+                phase_profile(f["problem"])
+        with allocation_log("phase 5"), counting_k6("phase 5", k6_launches):
             phase_target_rmse(f["problem"], graph, launches_by_path)
-        with allocation_log("phase 6"):
+        with allocation_log("phase 6"), counting_k6("phase 6", k6_launches):
             matern = phase_user_models(launches_by_path, hh_graph, h,
                                        hh_launches, hh_by_variant)
-        with allocation_log("phase 7"):
+        with allocation_log("phase 7"), counting_k6("phase 7", k6_launches):
             phase_allocation_families(f, matern, launches_by_path)
-        with allocation_log("phase 8"):
+        with allocation_log("phase 8"), counting_k6("phase 8", k6_launches):
             phase_distribution(f, graph, launches_by_path)
-        with allocation_log("phase 9"):
+        with allocation_log("phase 9"), counting_k6("phase 9", k6_launches):
             phase_front_door(launches_by_path, hh_launches, hh_by_variant)
-        with allocation_log("phase 10"):
+        with (allocation_log("phase 10"),
+              counting_k6("phase 10", k6_launches)):
             deep = phase_deep_flagship(smi)["launches"]
         launches_by_path["deep_flagship"] = deep["k1"]
         t0 = time.perf_counter()
-        with allocation_log("phase 11"):
+        with (allocation_log("phase 11"),
+              counting_k6("phase 11", k6_launches)):
             alloc = phase_allocation_on_card(f, graph, hh_graph,
                                              launches_by_path)
         log("phase 11: %.3f s" % (time.perf_counter() - t0))
+    log("K6 launches by phase: %s" % json.dumps(k6_launches, sort_keys=True))
+    if not all(k6_launches[p] > 0 for p in ("phase 4", "phase 6",
+                                             "phase 9", "phase 10")):
+        raise AssertionError("a sampling phase ran no K6: %s" % k6_launches)
     # K3's, K4's and K5's launches per path: phase 4's calibrated
     # allocation, phase 5's eps* allocation, phase 6(d)'s masked SPG and
     # each of phase 11's programs (its last graph turn)
@@ -4891,7 +5130,14 @@ def main():
         "timed": "the 12 default models, n=%d" % K2_TIMED_N,
         "model0": h["model0"], "sm_clock_mhz": h["sm_clock_mhz"],
         "in_turns": h["in_turns"],
-        "bit_equal_share": h["bit_equal_share"]}] + psd_lines}),
+        "bit_equal_share": h["bit_equal_share"]}] + psd_lines + [{
+        "name": "combine_sums", "route": "cuda", "source": K6_SOURCE,
+        "replaces": K6_REPLACES, "launches": sum(k6_launches.values()),
+        "launches_by_path": k6_launches,
+        "max_rel_err": k6c["max_rel_err"], "ms": k6c["ms"],
+        "plain_ms": k6c["plain_ms"], "bound_ms": k6c["bound_ms"],
+        "bound_by": k6c["bound_by"], "library_ms": None,
+        "timed": k6c["timed"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -9,7 +9,9 @@ iterations under the synchronisation debug mode), K3 and K4 (the IPM's
 Jacobi eigenvalue and SVD kernels) against torch.linalg, the IPM's
 graph loop against its eager card loop, and the span recorder's
 host-sync spans against the synchronisation debug mode and the
-profiler's device-to-host copies.
+profiler's device-to-host copies, and K6 (the sampling combiner) against
+its plain version and its CPU mirror, its running sums, its launch count
+and a group engine chunk's device items.
 
 These tests need a CUDA card and nvcc; without a card they skip.  They
 import neither jax nor the JAX package, so they also run on a machine
@@ -17,6 +19,8 @@ that has only the port's dependencies:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -1320,3 +1324,180 @@ def test_span_recorder_adds_no_device_work(cuda):
     for a, b in zip(mus0, mus1):
         assert np.array_equal(np.asarray(a), np.asarray(b))
     assert np.array_equal(np.asarray(errs0), np.asarray(errs1))
+
+
+# K6, the sampling combiner: models a group, output dimensions, rows (one,
+# a ragged few, past a block's tile many times)
+K6_K = [1, 2, 3, 5, 12]
+K6_D = [1, 3]
+K6_ROWS = [1, 77, 3001]
+# the cell's groups at its chunk of 262,144 rows: the Euler model alone,
+# the K=3 groups, a 12-model group
+K6_CELL = [(1, 5, 1), (3, 5, 1), (12, 5, 1)]
+K6_CHUNK = 262144
+
+
+def _k6_outputs(cuda, layout, dtype, k, rows, No, d, seed):
+    """Model-major outputs on the card as an engine hands them to K6: the
+    group engine's (rows, No, k[, d]) block moved model-major (strided),
+    or the factored engine's stacked (k, rows, No[, d]); with NaN, inf
+    and (through the callers' N) past-N rows."""
+    from test_torch_combine import _outputs
+    x = _outputs(k, rows, No, d, seed)
+    if layout == "group":
+        return x.movedim(0, 2).contiguous().to(cuda, dtype).movedim(2, 0)
+    return x.to(cuda, dtype).contiguous()
+
+
+def _k6_close(got, ref):
+    """1e-12 of the tensor's largest entry for the sums, n_failed exact."""
+    for g, r in zip(got[:4], ref[:4]):
+        g, r = g.cpu().numpy(), r.cpu().numpy()
+        assert g.shape == r.shape
+        assert np.abs(g - r).max(initial=0.0) <= 1e-12 * max(
+            np.abs(r).max(initial=0.0), 1e-300)
+    assert int(got[4]) == int(ref[4])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["group", "stacked"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", K6_K)
+@pytest.mark.parametrize("d", K6_D)
+@pytest.mark.parametrize("rows", K6_ROWS)
+def test_k6_matches_plain(cuda, layout, dtype, k, d, rows):
+    """One K6 launch: within 1e-12 of combine_plain on the card, n_failed
+    exact, and bit-equal to the CPU mirror of its order of summation
+    (tests/test_torch_combine.py); the last five rows past N."""
+    from test_torch_combine import k6_mirror
+    from bluest_tpu_torch.ops import combine as k6
+    from bluest_tpu_torch.sampling.engine import combine, combine_plain
+    outs = _k6_outputs(cuda, layout, dtype, k, rows, 5, d, seed=rows + k)
+    base, N = 3, rows - 2
+    before = k6.combine_sums.launches
+    got = combine(outs, base, N)
+    torch.cuda.synchronize()
+    assert k6.combine_sums.launches == before + 1
+    assert got.sumse.dtype == torch.float64
+    assert got.n_failed.dtype == torch.int64 and got.n_failed.dim() == 0
+    _k6_close(got, combine_plain(outs, base, N))
+    for g, m in zip(got, k6_mirror(outs.cpu(), base, N)):
+        assert torch.equal(g.cpu(), m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,No,d", K6_CELL)
+def test_k6_cell_chunks_match_plain_and_repeat(cuda, k, No, d):
+    """The cell's chunk shapes: within 1e-12 of combine_plain, and two
+    calls on the same rows bit-equal; each launch counted."""
+    from bluest_tpu_torch.ops import combine as k6
+    from bluest_tpu_torch.sampling.engine import combine, combine_plain
+    outs = _k6_outputs(cuda, "group", torch.float64, k, K6_CHUNK, No, d,
+                       seed=k)
+    before = k6.combine_sums.launches
+    a = combine(outs, 0, K6_CHUNK - 100)
+    b = combine(outs, 0, K6_CHUNK - 100)
+    torch.cuda.synchronize()
+    assert k6.combine_sums.launches == before + 2
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    _k6_close(a, combine_plain(outs, 0, K6_CHUNK - 100))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,d", [(1, 1), (3, 1), (2, 3), (12, 1)])
+def test_k6_running_sums_in_place(cuda, k, d):
+    """A call's chunks added in place into the sums its first chunk wrote
+    equal add_sums of the chunks' own sums bit for bit; sums a caller
+    hands to an engine call are copied (own_sums) and left as they are."""
+    from bluest_tpu_torch.sampling.engine import add_sums, combine, own_sums
+    rows, N = 3000, 2990
+    outs = _k6_outputs(cuda, "group", torch.float64, k, rows, 5, d, seed=9)
+    cuts = [(0, 1000), (1000, 1999), (1999, rows)]
+    parts = [combine(outs[:, a:b], a, N) for a, b in cuts]
+    acc = None
+    for a, b in cuts:
+        out = combine(outs[:, a:b], a, N, acc)
+        if acc is not None:
+            assert all(x.data_ptr() == y.data_ptr()
+                       for x, y in zip(out, acc))
+        acc = out
+    ref = add_sums(add_sums(parts[0], parts[1]), parts[2])
+    for x, y in zip(acc, ref):
+        assert torch.equal(x, y)
+    held = [t.clone() for t in parts[0]]
+    keep = [t.clone() for t in held]
+    out = combine(outs[:, 1000:1999], 1000, N, own_sums(held))
+    for x, y in zip(held, keep):
+        assert torch.equal(x, y)
+    for x, y in zip(out, add_sums(parts[0], parts[1])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_k6_refuses_on_the_card(cuda):
+    from bluest_tpu_torch.ops import combine as k6
+    with pytest.raises(ValueError):
+        k6.combine_sums(torch.zeros(1, 4, 4096, device=cuda), 0, 4)
+    with pytest.raises(ValueError):
+        k6.combine_sums(torch.zeros(1, 2, 3, 1, 1, device=cuda), 0, 4)
+    sums = k6.combine_sums(torch.zeros(2, 4, 3, device=cuda), 0, 4)
+    with pytest.raises(ValueError):             # running sums of a k of 2
+        k6.combine_sums(torch.zeros(3, 4, 3, device=cuda), 0, 4, sums)
+    with pytest.raises(ValueError):             # or on the host
+        k6.combine_sums(torch.zeros(2, 4, 3, device=cuda), 0, 4,
+                        [t.cpu() for t in sums])
+    with pytest.raises(ValueError):             # or not contiguous
+        k6.combine_sums(torch.zeros(2, 4, 3, device=cuda), 0, 4,
+                        [sums[0], sums[1].mT, *sums[2:]])
+
+
+@pytest.mark.gpu
+def test_k6_launches_are_the_solves_combines(cuda):
+    """A recorded solve on the card: its ``k6.launches`` equals its
+    ``sample.combine`` spans; combine_plain on a CUDA tensor launches
+    nothing."""
+    from bluest_tpu_torch import profiling
+    from bluest_tpu_torch.ops import combine as k6
+    from bluest_tpu_torch.sampling.engine import combine_plain
+    p = _span_problem(cuda)
+    profiling.enable_spans()
+    try:
+        p.solve(K=3, budget=2e4)
+    finally:
+        profiling.disable_spans()
+    spans = profiling.spans()
+    root = next(s for s in spans if s.name == "solve")
+    combines = sum(s.name == "sample.combine" for s in spans)
+    assert combines > 0
+    assert root.attrs["counters"]["k6.launches"] == combines
+    before = k6.combine_sums.launches
+    combine_plain(torch.ones(2, 8, 5, device=cuda), 0, 8)
+    torch.cuda.synchronize()
+    assert k6.combine_sums.launches == before
+
+
+@pytest.mark.gpu
+def test_group_engine_chunk_runs_no_cublas(cuda):
+    """The device items of a group engine's chunks of Hodgkin-Huxley
+    models: one K6 launch a chunk, and no cuBLAS gemv, dot or GEMM."""
+    from torch.profiler import ProfilerActivity, profile
+    from bluest_tpu_torch.models import hodgkin_huxley as hh
+    from bluest_tpu_torch.sampling.group_engine import GroupEngine
+    p = hh.HodgkinHuxleyProblem(C=[np.eye(12) + 0.5] * 5, verbose=False,
+                                device=cuda)
+    names = {}
+    for ls in ((6,), (5, 6, 9)):
+        eng = GroupEngine(p.sample_group, p.evaluate_group, 5, 4096, cuda)
+        eng.sample_sums(ls, 1, 0, 2 * 4096)           # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng.sample_sums(ls, 1, 1, 2 * 4096)
+            torch.cuda.synchronize()
+        names[ls] = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    for ls, items in names.items():
+        assert sum("combine_kernel" in n for n in items) == 2, (ls, items)
+        blas = [n for n in items if re.search(r"gemv|dot_kernel|gemm", n,
+                                              re.IGNORECASE)]
+        assert not blas, (ls, blas)

@@ -175,6 +175,7 @@ def test_host_syncs_are_counted_by_site(recorded):
     assert sites == {"draw.count": chunks, "draw.bad": chunks + redraws,
                      "draw.good": redraws, "fetch": fetches}
     assert counters["k2.launches"] == 0          # the plain model on the host
+    assert counters["k6.launches"] == 0          # and the plain combiner
     assert all(not any(c.parent == s.id for c in spans) for s in syncs)
 
 
@@ -348,7 +349,8 @@ def test_threads_record_their_own_requests():
         if s.parent is None:
             assert s.attrs["counters"] == {"n": s.attrs["thread"],
                                            "host.sync.x": 1,
-                                           "k2.launches": 0}
+                                           "k2.launches": 0,
+                                           "k6.launches": 0}
         else:
             root = ids[s.request]
             assert s.name != "child" or s.attrs["thread"] == \
