@@ -16,6 +16,11 @@ A run loads and warms up (``setup_s``), sends requests in a closed loop
 of one client for ``seconds``, reads the device's peak memory, drops the
 program's objects and checks a sample of the requests against the plain
 reference.  It prints one JSON line last on standard output.
+
+A cell whose ``chips`` is R > 1 runs as R processes, one a card
+(``ranks.py``): every rank sets up, warms up and runs the same
+requests, rank 0 deciding when the window ends, and rank 0 alone checks
+and prints.
 """
 
 from __future__ import annotations
@@ -87,16 +92,21 @@ def request_kind(kind: str):
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool,
              device: str = "cuda", t_start: float = None, bench=None,
-             overrides=None, log=sys.stderr):
+             overrides=None, log=sys.stderr, ranks=None):
     """Run the cell; returns the result dict (the line the command
-    prints).  ``overrides`` replace keys of the cell (tests only)."""
+    prints), or None on a rank other than 0.  ``ranks`` (a
+    ``ranks.Ranks``) runs it as one rank of a cell on several cards;
+    ``overrides`` replace keys of the cell (tests only)."""
     t_start = time.perf_counter() if t_start is None else t_start
     import torch
     bench = manifest() if bench is None else bench
     cell, cfg = cell_files(name)
     cell = dict(cell, **(overrides or {}))
     ctx = SimpleNamespace(cfg=cfg, cell=cell, seed=int(seed), device=device,
-                          inputs=os.path.join(ROOT, cfg["inputs"]))
+                          inputs=os.path.join(ROOT, cfg["inputs"]),
+                          rank=0, world=1, group=None)
+    if ranks is not None:
+        ctx.rank, ctx.world, ctx.group = ranks.join_group(device)
     kind = request_kind(cell["kind"])
     cuda = device.startswith("cuda")
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -104,6 +114,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     state = kind.setup(ctx)
     kind.request(state, -1)             # warm: never kept for the check
     sync()
+    if ranks is not None:
+        ranks.barrier()
     setup_s = time.perf_counter() - t_start
 
     # with a trace, the profiler records the card's activity alone (no
@@ -122,9 +134,20 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     requests = []
     w0 = time.perf_counter()
     i = 0
-    while not requests or time.perf_counter() - w0 < seconds:
-        t0 = time.perf_counter()
-        if prof is not None and t0 - w0 >= trace_for:
+    while True:
+        if ranks is None:
+            if requests and time.perf_counter() - w0 >= seconds:
+                break
+            t0 = time.perf_counter()
+            stop = prof is not None and t0 - w0 >= trace_for
+        else:           # rank 0 decides for every rank, outside [t0, t1]
+            el = time.perf_counter() - w0
+            go, stop = ranks.step(not requests or el < seconds,
+                                  prof is not None and el >= trace_for)
+            if not go:
+                break
+            t0 = time.perf_counter()
+        if stop:
             sync()
             traced_s = time.perf_counter() - w0
             prof.__exit__(None, None, None)
@@ -147,11 +170,24 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         prof.__exit__(None, None, None)
         done_prof = prof
     peak = torch.cuda.max_memory_allocated() if cuda else 0
+    if ranks is not None and hasattr(kind, "gather"):
+        gathered = ranks.gather(kind.gather(state))
+        if ranks.rank == 0:
+            state["gathered"] = gathered
 
     kind.release(state)
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    others = None
+    if ranks is not None:
+        others = _other_ranks(ranks, peak, window_s, requests, done_prof,
+                              traced_s)
+        if others is None:
+            return None
+        peak = [peak] + [o["memory_peak_bytes"] for o in others]
+        for j, r in enumerate(requests):    # failed on any rank: failed
+            r["ok"] = r["ok"] and all(o["requests"][j][2] for o in others)
     done = [r["rec"] for r in requests if r["ok"]]
     rng = np.random.default_rng([int(seed), 7])
     checks = kind.check(state, done, rng) if done else []
@@ -178,7 +214,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                     file=log)
     run = {"cell": cell, "cell_name": name, "config": cfg,
            "setup_s": setup_s, "window_s": window_s, "requests": requests,
-           "state": state, "trace": tr}
+           "state": state, "trace": tr, "ranks": others}
     metrics = {}
     for m in metrics_of(bench, name, trace):
         v = metric_reader(m["name"])(run)
@@ -186,7 +222,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     dev = {"platform": "gpu" if cuda else "cpu",
            "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
-           "count": int(cell.get("chips", 1)), "memory_peak_bytes": int(peak)}
+           "count": int(cell.get("chips", 1))}
+    if others is None:
+        dev["memory_peak_bytes"] = int(peak)
+    else:       # the size of a run is that of its fullest card
+        dev["memory_peak_bytes"] = int(max(peak))
+        dev["memory_peak_bytes_by_rank"] = [int(p) for p in peak]
     result = {"correct": correct, "attempted": len(requests),
               "failed": sum(not r["ok"] for r in requests),
               "metrics": metrics, "device": dev}
@@ -199,6 +240,26 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     return result
 
 
+def _other_ranks(ranks, peak, window_s, requests, prof, traced_s):
+    """Rank 0: the other ranks' numbers, in the order of their ranks from
+    1: each its peak memory, window, requests' host-clock spans ``[t0,
+    t1, ok, traced]`` and, with a trace, its card's busy time and items.
+    Other ranks: send their own and return None.  Ends the process
+    group."""
+    mine = {"rank": ranks.rank, "memory_peak_bytes": int(peak),
+            "window_s": window_s,
+            "requests": [[r["t0"], r["t1"], r["ok"], r["traced"]]
+                         for r in requests]}
+    if ranks.rank and prof is not None:
+        from perfbench import trace
+        tr = trace.read(prof, traced_s)
+        mine.update(busy_s=tr["busy_s"], items=tr["items"],
+                    traced_s=tr["window_s"])
+    got = ranks.gather(mine)
+    ranks.close()
+    return got[1:] if ranks.rank == 0 else None
+
+
 def main(argv=None, t_start=None):
     t_start = time.perf_counter() if t_start is None else t_start
     import argparse
@@ -207,6 +268,9 @@ def main(argv=None, t_start=None):
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    # the host instead of the card: the tests' runs, never the benchmark's
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     bench = manifest()
     cells = {w["name"]: w for w in bench["workloads"]}
@@ -217,19 +281,39 @@ def main(argv=None, t_start=None):
     import torch
     torch.set_num_threads(1)            # one process with few threads
     chips = int(cells[args.workload]["chips"])
-    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+    cuda = args.device == "cuda"
+    if cuda and (not torch.cuda.is_available()
+                 or torch.cuda.device_count() < chips):
         print("this cell needs %d CUDA card(s); %s" % (
             chips, "found %d" % torch.cuda.device_count()
             if torch.cuda.is_available() else "CUDA is not available"),
             file=sys.stderr)
         return 3
-    result = run_cell(args.workload, args.seed, args.seconds,
-                      bool(args.trace), t_start=t_start, bench=bench)
-    bad = forbidden_modules()
-    if bad:
-        print("the run loaded %s; nothing it runs may import JAX or the JAX "
-              "package" % ", ".join(bad), file=sys.stderr)
-        return 4
+    ranks = None
+    if chips > 1:
+        from perfbench.ranks import Ranks
+        ranks = Ranks(chips)
+    try:
+        if ranks is not None:
+            ranks.launch(sys.argv[1:] if argv is None else argv)
+            if cuda:
+                torch.cuda.set_device(ranks.local_rank)
+        result = run_cell(args.workload, args.seed, args.seconds,
+                          bool(args.trace), device=args.device,
+                          t_start=t_start, bench=bench, ranks=ranks)
+        bad = forbidden_modules()
+        if bad:
+            print("the run loaded %s; nothing it runs may import JAX or the "
+                  "JAX package" % ", ".join(bad), file=sys.stderr)
+            return 4
+        if ranks is not None and not ranks.wait():
+            print("a rank did not end cleanly", file=sys.stderr)
+            return 5
+    finally:
+        if ranks is not None:
+            ranks.stop()
+    if result is None:                  # a rank other than 0
+        return 0
     for k, c in result["checks"].items():
         print("check %s = %r (limit %r)" % (k, c["value"], c["limit"]),
               file=sys.stderr)

@@ -67,12 +67,19 @@ def test_every_cell_reports_enough():
 @pytest.mark.parametrize("w", BENCH["workloads"], ids=lambda w: w["name"])
 def test_cells_are_found_by_name(w):
     assert set(w) == {"name", "config", "traffic", "chips", "why"}
-    assert w["chips"] == 1 and _line(w["why"]) and NAME.match(w["traffic"])
+    assert w["chips"] in (1, 4) and _line(w["why"])
+    assert NAME.match(w["traffic"])
     cell, cfg = harness.cell_files(w["name"])
     assert cell["config"] == w["config"] == cfg["name"]
+    assert cell["chips"] == w["chips"]
     assert cell["why"] == w["why"]
     assert set(cell["limits"]) and harness.request_kind(cell["kind"])
     assert os.path.exists(os.path.join(harness.ROOT, cfg["inputs"]))
+
+
+def test_few_cells_take_four_cards():
+    cells = BENCH["workloads"]
+    assert sum(w["chips"] == 4 for w in cells) <= max(1, len(cells) // 4)
 
 
 @pytest.mark.parametrize("c", BENCH["configs"], ids=lambda c: c["name"])
@@ -80,7 +87,10 @@ def test_configs_are_found_by_name(c):
     assert set(c) == {"name", "source", "file", "reduced", "why"}
     assert c["file"] == "perfbench/configs/%s.json" % c["name"]
     cfg = harness.load_json(harness.ROOT, c["file"])
-    assert cfg["reduced"] == c["reduced"] == [] and cfg["assumed"] == []
+    assert cfg["reduced"] == c["reduced"] and len(c["reduced"]) <= 16
+    assert all(NAME.match(k) for k in c["reduced"])
+    assert isinstance(cfg["assumed"], list)
+    assert all(_line(a) for a in cfg["assumed"])
     assert cfg["source"] == c["source"] and _line(c["why"])
 
 
