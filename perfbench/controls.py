@@ -37,7 +37,8 @@ def control_numbers(name: str, seed: int, device: str = "cuda",
     cell, cfg = harness.cell_files(name)
     cell = dict(cell, **(overrides or {}))
     ctx = SimpleNamespace(cfg=cfg, cell=cell, seed=int(seed), device=device,
-                          inputs=os.path.join(harness.ROOT, cfg["inputs"]))
+                          inputs=os.path.join(harness.ROOT, cfg["inputs"]),
+                          rank=0, world=1, group=None)
     kind = harness.request_kind(cell["kind"])
     state = kind.setup(ctx)
     kind.release(state)

@@ -15,7 +15,9 @@ or one metric is a file of its own, found by the name that
 A run loads and warms up (``setup_s``), sends requests in a closed loop
 of one client for ``seconds``, reads the device's peak memory, drops the
 program's objects and checks a sample of the requests against the plain
-reference.  It prints one JSON line last on standard output.
+reference.  It prints one JSON line last on standard output.  A traced
+run also records the program's spans and counters, from before set-up
+until the profiler stops, into ``run["program"]``.
 
 A cell whose ``chips`` is R > 1 runs as R processes, one a card
 (``ranks.py``): every rank sets up, warms up and runs the same
@@ -111,6 +113,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     cuda = device.startswith("cuda")
     sync = torch.cuda.synchronize if cuda else (lambda: None)
 
+    # with a trace, the program's recorder of spans and counters is on
+    # from before set-up until the profiler stops; untraced runs, which
+    # give the end-to-end metrics, leave it off
+    recorder = None
+    if trace:
+        from bluest_tpu_torch import profiling as recorder
+        recorder.enable_spans()
     state = kind.setup(ctx)
     kind.request(state, -1)             # warm: never kept for the check
     sync()
@@ -151,6 +160,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
             sync()
             traced_s = time.perf_counter() - w0
             prof.__exit__(None, None, None)
+            recorder.disable_spans()
             done_prof, prof = prof, None
         traced = prof is not None
         try:
@@ -168,12 +178,19 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     if prof is not None:
         traced_s = window_s
         prof.__exit__(None, None, None)
+        recorder.disable_spans()
         done_prof = prof
+    program = None
+    if trace:
+        from perfbench import program_trace
+        program = program_trace.program(recorder.spans())
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     if ranks is not None and hasattr(kind, "gather"):
+        t0 = time.perf_counter()
         gathered = ranks.gather(kind.gather(state))
         if ranks.rank == 0:
             state["gathered"] = gathered
+            print("gather: %r s" % (time.perf_counter() - t0), file=log)
 
     kind.release(state)
     gc.collect()
@@ -182,7 +199,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     others = None
     if ranks is not None:
         others = _other_ranks(ranks, peak, window_s, requests, done_prof,
-                              traced_s)
+                              traced_s, program)
         if others is None:
             return None
         peak = [peak] + [o["memory_peak_bytes"] for o in others]
@@ -190,7 +207,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
             r["ok"] = r["ok"] and all(o["requests"][j][2] for o in others)
     done = [r["rec"] for r in requests if r["ok"]]
     rng = np.random.default_rng([int(seed), 7])
+    t0 = time.perf_counter()
     checks = kind.check(state, done, rng) if done else []
+    print("check: %r s" % (time.perf_counter() - t0), file=log)
     limits = cell["limits"]           # the numbers this cell compares
     checks = [(k, v, float(limits[k])) for k, v in checks if k in limits]
     missing = set(limits) - {k for k, _, _ in checks}
@@ -214,7 +233,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                     file=log)
     run = {"cell": cell, "cell_name": name, "config": cfg,
            "setup_s": setup_s, "window_s": window_s, "requests": requests,
-           "state": state, "trace": tr, "ranks": others}
+           "state": state, "trace": tr, "program": program,
+           "ranks": others}
     metrics = {}
     for m in metrics_of(bench, name, trace):
         v = metric_reader(m["name"])(run)
@@ -240,12 +260,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     return result
 
 
-def _other_ranks(ranks, peak, window_s, requests, prof, traced_s):
+def _other_ranks(ranks, peak, window_s, requests, prof, traced_s,
+                 program):
     """Rank 0: the other ranks' numbers, in the order of their ranks from
     1: each its peak memory, window, requests' host-clock spans ``[t0,
-    t1, ok, traced]`` and, with a trace, its card's busy time and items.
-    Other ranks: send their own and return None.  Ends the process
-    group."""
+    t1, ok, traced]`` and, with a trace, its card's busy time and items
+    and its ``program`` (``program_trace.program``).  Other ranks: send
+    their own and return None.  Ends the process group."""
     mine = {"rank": ranks.rank, "memory_peak_bytes": int(peak),
             "window_s": window_s,
             "requests": [[r["t0"], r["t1"], r["ok"], r["traced"]]
@@ -254,7 +275,7 @@ def _other_ranks(ranks, peak, window_s, requests, prof, traced_s):
         from perfbench import trace
         tr = trace.read(prof, traced_s)
         mine.update(busy_s=tr["busy_s"], items=tr["items"],
-                    traced_s=tr["window_s"])
+                    traced_s=tr["window_s"], program=program)
     got = ranks.gather(mine)
     ranks.close()
     return got[1:] if ranks.rank == 0 else None

@@ -13,18 +13,22 @@ Unix-epoch nanoseconds, :func:`device_items`), and :func:`idle_report`
 charges each stretch of the card's idle time in the traced window to
 the innermost span open across it.
 
-A traced run of a cell with the recorder on (the benchmark's harness
-does not turn it on; see PERF.md's open questions):
+The harness turns the recorder on in a traced run, from before set-up
+until the profiler stops, and keeps :func:`program` of the recording as
+``run["program"]``, which per-layer metrics read.  A traced run of a
+cell with the card's idle time charged to the spans:
 
     python3 perfbench/program_trace.py --workload <cell> --seed <n> \
         --seconds <s>
 
-prints the harness's result line with a ``"program"`` entry added.
+prints the harness's result line with a ``"program"`` entry added:
+:func:`program` and :func:`idle_report`.
 """
 
 from __future__ import annotations
 
 import bisect
+import math
 import os
 import statistics
 import sys
@@ -239,12 +243,42 @@ def summary(reqs, start_ns=None) -> dict:
     return out
 
 
+def _add(table, name, count, seconds):
+    c, t = table.get(name, (0, 0.0))
+    table[name] = [c + count, t + seconds]
+
+
+def program(spans) -> dict:
+    """What a traced run keeps of the program's recording, by name, as
+    ``run["program"]``: ``requests``, the number of the window's
+    ``solve`` requests (:func:`window_requests`); ``summary``,
+    :func:`summary` of them; ``spans``, their spans' [number, seconds]
+    by name, and ``counters``, their counters, each summed over those
+    requests; ``setup``, the [number, seconds] by name of the spans of
+    the set-up's ``setup_solver`` requests (its root among them)."""
+    reqs = requests(spans)
+    window = window_requests(reqs)
+    out = {"requests": len(window), "summary": summary(reqs), "spans": {},
+           "counters": {}, "setup": {}}
+    for r in window:
+        for s in r["spans"]:
+            _add(out["spans"], s.name, 1, (s.end_ns - s.start_ns) * 1e-9)
+        for k, v in r["counters"].items():
+            out["counters"][k] = out["counters"].get(k, 0) + v
+    first = window[0]["start_ns"] if window else math.inf
+    for r in reqs:
+        if r["name"] == "setup_solver" and r["start_ns"] < first:
+            for s in r["spans"]:
+                _add(out["setup"], s.name, 1, (s.end_ns - s.start_ns) * 1e-9)
+    return out
+
+
 def traced_run(name: str, seed: int, seconds: float, device: str = "cuda",
                t_start=None, overrides=None) -> dict:
-    """A traced run of the cell with the program's recorder on from before
-    set-up: the harness's result with ``"program"``: the summary, the
-    idle attribution and the set-up's spans by name (``overrides`` as
-    ``harness.run_cell`` takes them)."""
+    """A traced run of the cell (the harness turns the program's recorder
+    on): the harness's result with ``"program"``: :func:`program` of the
+    recording and the idle attribution of :func:`idle_report`
+    (``overrides`` as ``harness.run_cell`` takes them)."""
     from bluest_tpu_torch import profiling
     from perfbench import harness, trace
 
@@ -260,30 +294,17 @@ def traced_run(name: str, seed: int, seconds: float, device: str = "cuda",
         return plain_read(prof, window_s, top)
 
     trace.read = read_and_keep
-    profiling.enable_spans()
     try:
         result = harness.run_cell(name, seed, seconds, True, device=device,
                                   t_start=t_start, overrides=overrides)
     finally:
-        profiling.disable_spans()
         trace.read = plain_read
     anchor = profiling.span_anchor()
     spans = profiling.spans()
-    reqs = requests(spans)
     lo = seen["start"] - anchor[1] + anchor[0]
     idle = idle_report(spans, busy_on_clock(seen["items"], anchor),
                        (lo, lo + int(seen["window_s"] * 1e9)))
-    setup_children = {}
-    for r in reqs:
-        if r["name"] == "setup_solver":
-            for s in r["spans"]:
-                if s.parent == r["id"]:
-                    setup_children[s.name] = setup_children.get(
-                        s.name, 0.0) + (s.end_ns - s.start_ns) * 1e-9
-    window = window_requests(reqs)
-    result["program"] = dict(
-        summary(reqs), requests=len(window), setup_children=setup_children,
-        counters=window[0]["counters"] if window else None, **idle)
+    result["program"] = dict(program(spans), **idle)
     return result
 
 

@@ -25,6 +25,17 @@ The first judges the model evaluation (K2 for the Hodgkin-Huxley
 family), the second the
 combiner's sums and the estimator; between them they cover what a
 request computes.
+
+On R > 1 cards the problem is the port's sample mesh over the job
+(``mesh="auto"``): each rank evaluates its own chunks of every call, and
+the fetch's ``all_reduce`` adds the ranks' sums.  Each kept block then
+carries the stream of its chunk; ``gather`` brings every rank's kept
+blocks to rank 0 as host arrays, and the check pairs each chunk that it
+follows with the blocks evaluated from that chunk's stream, on whichever
+rank ran them.  So the check does not depend on how the program deals
+chunks to ranks, and a chunk that no rank ran, that two ranks ran, or
+whose rank's blocks are missing reads ``inf``; a rank's sums missing
+from the ``all_reduce`` show in ``est_gap``.
 """
 
 from __future__ import annotations
@@ -37,10 +48,14 @@ import torch
 
 from perfbench.reference import blue, streams
 
+# the numbers of a request whose rows could not be followed
+UNREAD = (("est_gap", math.inf), ("row_gap", math.inf))
+
 
 def setup(ctx):
     prog = importlib.import_module("perfbench.programs." + ctx.cfg["family"])
-    problem = prog.build(ctx.cfg, ctx.inputs, ctx.seed, ctx.device)
+    problem = prog.build(ctx.cfg, ctx.inputs, ctx.seed, ctx.device,
+                         mesh="auto" if ctx.world > 1 else None)
     cell = ctx.cell
     problem.setup_solver(K=cell["K"], budget=cell["budget"])
     out = problem.MOSAP_output
@@ -86,6 +101,15 @@ def _reservoir(state, rec):
         state["kept"][j] = rec
 
 
+def gather(state):
+    """This rank's kept requests, in the reservoir's order, each (its
+    first call counter, its blocks as (stream, models, outputs) with the
+    outputs a host array); the blocks leave the card."""
+    return [(rec["counter"], [(stream, key, out.cpu().numpy())
+                              for key, out, stream in rec.pop("rows")])
+            for rec in state["kept"]]
+
+
 def release(state):
     """Drop the program's objects; keep what the check reads."""
     state.pop("problem", None)
@@ -111,6 +135,40 @@ def replay(rows):
     return produce
 
 
+def paired(blocks):
+    """produce(ls, x) that hands out the blocks, given by rank as
+    ``gather`` returns them, that were evaluated from the stream of the
+    chunk that ``follow`` draws from, in the order they were evaluated;
+    ``produce.seen(draw)`` wraps ``draw`` so that it notes the stream."""
+    by_stream = {}
+    for rank_blocks in blocks:
+        for stream, key, out in rank_blocks:
+            by_stream.setdefault(stream, []).append((key, out))
+    queues = {s: iter(v) for s, v in by_stream.items()}
+    now = [None]
+
+    def seen(draw):
+        def noted(gen, n):
+            now[0] = gen.initial_seed()
+            return draw(gen, n)
+        return noted
+
+    def produce(ls, x):
+        if now[0] not in queues:
+            raise RuntimeError("no rank evaluated the chunk of stream %r"
+                               % now[0])
+        key, out = next(queues[now[0]])
+        if key != tuple(ls) or out.shape[0] != x.shape[0]:
+            raise RuntimeError("the program's rows do not follow its "
+                               "sampling contract")
+        return torch.from_numpy(out).to(x.device)
+    produce.seen = seen
+    # blocks that no followed chunk took: a chunk that two ranks ran, or
+    # one that the request did not ask for
+    produce.left = lambda: sum(1 for q in queues.values() for _ in q)
+    return produce
+
+
 def follow(state, counter, produce, batched=False):
     """[(group, calls, sums)] of the request whose first sampling call was
     ``counter``, its outputs given by ``produce`` (``batched``: see
@@ -119,6 +177,8 @@ def follow(state, counter, produce, batched=False):
     cfg = ctx.cfg
     fam = family(cfg)
     draw = fam.sampler(cfg, ctx.device)
+    if hasattr(produce, "seen"):
+        draw = produce.seen(draw)
     out = []
     for j, (g, n) in enumerate(state["active"]):
         calls, sums = streams.follow(g, n, ctx.seed, counter + j,
@@ -183,9 +243,9 @@ def compare(state, rec, produce):
         followed = follow(state, rec["counter"], produce)
         left = produce.left()
     except (RuntimeError, StopIteration):
-        return [("est_gap", math.inf), ("row_gap", math.inf)]
+        return list(UNREAD)
     if left:
-        return [("est_gap", math.inf), ("row_gap", math.inf)]
+        return list(UNREAD)
     return judge(state, rec, followed)
 
 
@@ -200,15 +260,31 @@ def judge(state, rec, followed):
     return [(k, v if math.isfinite(v) else math.inf) for k, v in out]
 
 
+def producers(state):
+    """One produce a kept request: ``replay`` of its rows on one card;
+    on R cards ``paired`` over every rank's blocks of that request (None
+    where a rank's kept requests are not rank 0's)."""
+    gathered = state.get("gathered")
+    if gathered is None:
+        return [replay(rec["rows"]) for rec in state["kept"]]
+    out = []
+    for j, rec in enumerate(state["kept"]):
+        mine = [g[j] if j < len(g) else None for g in gathered]
+        same = all(m is not None and m[0] == rec["counter"] for m in mine)
+        out.append(paired([m[1] for m in mine]) if same else None)
+    return out
+
+
 def check(state, records, rng):
     """[(name, value)]: the worst of each number over the kept requests
     (``records`` and ``rng`` are unused: the reservoir drew them from the
     seed as the window ran)."""
     del records, rng
     worst = {}
-    for rec in state["kept"]:
-        for name, v in compare(state, rec, replay(rec["rows"])):
+    for rec, produce in zip(state["kept"], producers(state)):
+        nums = UNREAD if produce is None else compare(state, rec, produce)
+        for name, v in nums:
             worst[name] = max(worst.get(name, 0.0), v)
     if not worst:
-        return [("est_gap", math.inf), ("row_gap", math.inf)]
+        return list(UNREAD)
     return sorted(worst.items())

@@ -124,11 +124,28 @@ def test_summary_of_the_window():
     assert later["sample.draw_yield"] == pytest.approx(100 * 200 / 250)
 
 
+def test_program_of_a_recording():
+    """``run["program"]``: the window's requests (the warm one left
+    out), their summary, spans and counters summed, and the set-up's
+    spans."""
+    spans = [s for r in _program() for s in r["spans"]]
+    prog = pt.program(spans)
+    assert prog["requests"] == 3
+    assert prog["summary"] == pt.summary(pt.requests(spans))
+    assert prog["spans"]["host.sync"] == [6, pytest.approx(0.015)]
+    assert prog["spans"]["solve"] == [3, pytest.approx(0.15)]
+    assert prog["counters"] == {"rows.drawn": 360, "rows.kept": 300}
+    assert prog["setup"] == {"setup_solver": [1, pytest.approx(2.0)]}
+
+
 def test_nothing_to_read():
     """A run whose program recorded no span (a program without the
     recorder) reads None for every number."""
     assert pt.requests([]) == []
     assert set(pt.summary([]).values()) == {None}
+    prog = pt.program([])
+    assert prog["requests"] == 0 and not prog["spans"] and \
+        not prog["setup"]
 
 
 def test_a_traced_run_on_the_host_reports_every_number():
@@ -139,7 +156,13 @@ def test_a_traced_run_on_the_host_reports_every_number():
     for name in ("estimator.host_ms", "sample.host_syncs_per_estimate",
                  "sample.sync_wait_ms", "sample.draw_yield",
                  "setup.alloc_s"):
-        assert prog[name] is not None and prog[name] > 0, name
+        v = prog["summary"][name]
+        assert v is not None and v > 0, name
     assert prog["requests"] == 1
-    assert {"alloc.structure", "alloc.sdp"} <= set(prog["setup_children"])
+    assert {"setup_solver", "alloc.structure", "alloc.sdp"} <= set(
+        prog["setup"])
+    assert prog["spans"]["solve"][0] == 1
+    assert prog["spans"]["host.sync"][0] == \
+        prog["summary"]["sample.host_syncs_per_estimate"]
+    assert prog["counters"]["rows.drawn"] >= prog["counters"]["rows.kept"]
     assert prog["idle"]["in_solve_ns"] > 0

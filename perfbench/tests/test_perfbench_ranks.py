@@ -97,6 +97,9 @@ def toy_tree(tmp_path, chips, fault=None):
     shutil.copytree(harness.HERE, root / "perfbench", ignore=(
         shutil.ignore_patterns("__pycache__", "tests", "inputs")))
     (root / "perfbench" / "requests" / "toy.py").write_text(TOY)
+    (root / "perfbench" / "metrics" / "ranks_with_program.py").write_text(
+        "def read(run):\n"
+        "    return sum('program' in r for r in run['ranks'] or [])\n")
     why = "a toy request kind on %d rank(s)" % chips
     limits = dict(gathered=0, initialized=0, **(
         {"request_gap": 0} if chips > 1 else {"ranks_module": 0}))
@@ -113,20 +116,26 @@ def toy_tree(tmp_path, chips, fault=None):
                            "traffic": "run", "chips": chips, "why": why}]
     for m in bench["end_to_end"] + bench["per_layer"]:
         m.pop("workloads", None)
+    bench["per_layer"].append({
+        "name": "ranks_with_program", "unit": "ranks", "better": "higher",
+        "source": "program_span", "layer": "ranks", "moves": "setup_s"})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root
 
 
-def run_tree(root, device="cpu", trace=0, seconds=1.0, limit=120):
-    """The benchmark's command in ``root`` under the time limit ``limit``;
-    returns (return code, standard output, standard error, seconds,
-    rank 0's process id)."""
+def run_tree(root, device="cpu", trace=0, seconds=1.0, limit=120,
+             workload="toy.run", seed=SEED):
+    """The benchmark's command for ``workload`` in ``root`` under the time
+    limit ``limit``, the port found beside the real harness; returns
+    (return code, standard output, standard error, seconds, rank 0's
+    process id)."""
     t0 = time.monotonic()
     proc = subprocess.Popen(
-        [sys.executable, "perfbench/run.py", "--workload", "toy.run",
-         "--seed", str(SEED), "--seconds", str(seconds), "--trace",
+        [sys.executable, "perfbench/run.py", "--workload", workload,
+         "--seed", str(seed), "--seconds", str(seconds), "--trace",
          str(trace), "--device", device], cwd=root, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=harness.ROOT))
     try:
         out, err = proc.communicate(timeout=limit)
     finally:
@@ -177,6 +186,9 @@ def test_two_ranks_over_gloo(tmp_path, trace):
     assert len(dev["memory_peak_bytes_by_rank"]) == 2
     assert dev["memory_peak_bytes"] == max(dev["memory_peak_bytes_by_rank"])
     assert ("busy_s" in dev and "breakdown" in res) == bool(trace)
+    # a traced run's other ranks send their program's recording too
+    assert res["metrics"].get("ranks_with_program", {}).get("value") == \
+        (1 if trace else None)
     assert_no_rank_left(pid)
 
 

@@ -86,6 +86,20 @@ def test_host_clock_readers():
     assert harness.metric_reader("estimate_s")(run) is None
 
 
+def test_program_readers():
+    """The program's numbers from ``run["program"]``, which a traced run
+    alone carries; None without it or where the recording held none."""
+    names = ("sample.host_syncs_per_estimate", "estimator.host_ms",
+             "setup.alloc_s")
+    run = {"program": {"summary": dict(zip(names, (89.4, 6.6, 1.7)))}}
+    assert [harness.metric_reader(n)(run) for n in names] == [89.4, 6.6,
+                                                              1.7]
+    run["program"]["summary"] = dict.fromkeys(names)
+    assert [harness.metric_reader(n)(run) for n in names] == [None] * 3
+    run["program"] = None
+    assert [harness.metric_reader(n)(run) for n in names] == [None] * 3
+
+
 def test_least_seconds():
     hh = {"models": [[0, 0.01], [2, 0.08]]}
     t, bound = wh.least_seconds(hh, [((0, 1), 100)])
@@ -106,3 +120,7 @@ def test_a_traced_run_reports_its_per_layer_metrics():
     assert set(res["metrics"]) <= per_layer
     assert res["metrics"]["sample.device_ops_per_estimate"]["value"] == 0
     assert res["device"]["busy_s"] == 0 and "breakdown" in res
+    # the program's recorder was on: its spans are read
+    for name in ("sample.host_syncs_per_estimate", "estimator.host_ms",
+                 "setup.alloc_s"):
+        assert res["metrics"][name]["value"] > 0, name
