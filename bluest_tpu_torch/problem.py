@@ -636,20 +636,24 @@ class BLUEProblem:
             filename=samplefile,
             outputs_to_save=self.params["outputs_to_save"])
 
-    def _device_sums(self, key_ls, N, counter, first_chunk=0, sink=None):
-        """Device sums of N samples of one group, dispatched and not
-        fetched: the chunks ``first_chunk, first_chunk + 1, ...`` of call
-        ``counter``.  With a ``samplefile`` the rows also go to the
-        snapshot file (through ``sink`` when the caller owns one).  Under
-        a mesh these are this rank's partial sums, None where it holds no
-        chunk."""
-        seed = self.params["seed"]
+    def _device_sums(self, calls):
+        """Device sums of sampling calls, dispatched in order and not
+        fetched: each call ``(key_ls, N > 0, counter, first_chunk,
+        sink)`` samples N rows of group ``key_ls`` from the chunks
+        ``first_chunk, first_chunk + 1, ...`` of call ``counter`` (the
+        group engine runs the calls' chunks as one sequence).  With a
+        ``samplefile`` the rows also go to the snapshot file (through
+        ``sink`` when the caller owns one), call by call.  One sums a
+        call: under a mesh this rank's partial sums, None where it holds
+        no chunk."""
         samplefile = self.params["samplefile"]
-        if samplefile is None or N <= 0:
-            return self._sampling_engine().sample_sums(
-                key_ls, seed, counter, N, first_chunk=first_chunk)
-        return self._collect_run(key_ls, counter, N, samplefile, sink,
-                                 first_chunk)
+        if samplefile is None:
+            return self._sampling_engine().sample_calls(
+                self.params["seed"],
+                [(ls, counter, N, first) for ls, N, counter, first, _sink
+                 in calls])
+        return [self._collect_run(ls, counter, N, samplefile, sink, first)
+                for ls, N, counter, first, sink in calls]
 
     # snapshot collection holds a piece's outputs and inputs on the device
     # until its one host copy; bound that allocation by collecting a
@@ -754,16 +758,14 @@ class BLUEProblem:
             if n <= 0:
                 out.append(None)
                 continue
-            key_ls = tuple(int(l) for l in g)
-            counter = self._call_counter
+            out.append({"ls": tuple(int(l) for l in g), "N": n,
+                        "counter": self._call_counter,
+                        "chunks": math.ceil(n / batch), "sink": None})
             self._call_counter += 1
-            with (profiling.span("sample.group", models=key_ls, N=n,
-                                 counter=counter, first_chunk=0)
-                  if profiling.recording else profiling.OFF):
-                sums = self._device_sums(key_ls, n, counter)
-            out.append({"ls": key_ls, "N": n, "counter": counter,
-                        "chunks": math.ceil(n / batch), "sink": None,
-                        "sums": sums})
+        live = [d for d in out if d is not None]
+        for d, sums in zip(live, self._device_sums(
+                [(d["ls"], d["N"], d["counter"], 0, None) for d in live])):
+            d["sums"] = sums
         return out
 
     def _sums_to_host(self, flat: torch.Tensor) -> np.ndarray:
@@ -865,19 +867,17 @@ class BLUEProblem:
                              if h is not None and h[-1] > 0]
                     if not again:
                         break
+                    calls = []
                     for i in again:
                         d, deficit = disp[i], host[i][-1]
                         if samplefile is not None and d["sink"] is None:
                             d["sink"] = self._collect_sink(d["ls"], deficit,
                                                            samplefile)
-                        with (profiling.span(
-                                "sample.group", models=d["ls"], N=deficit,
-                                counter=d["counter"], first_chunk=d["chunks"])
-                              if profiling.recording else profiling.OFF):
-                            d["sums"] = self._device_sums(
-                                d["ls"], deficit, d["counter"],
-                                first_chunk=d["chunks"], sink=d["sink"])
+                        calls.append((d["ls"], deficit, d["counter"],
+                                      d["chunks"], d["sink"]))
                         d["chunks"] += math.ceil(deficit / batch)
+                    for i, sums in zip(again, self._device_sums(calls)):
+                        disp[i]["sums"] = sums
                     extra = self._batch_fetch_sums(
                         [d if i in again else None
                          for i, d in enumerate(disp)])

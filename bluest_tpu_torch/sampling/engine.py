@@ -37,7 +37,7 @@ order.
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -213,28 +213,38 @@ class SamplingEngine:
         with prof.span("sample.seed") if prof.recording else prof.OFF:
             gen = torch.Generator(device=self.device)
         acc = own_sums(acc)
-        for c in rank_chunks(math.ceil(N / self.batch), self.mesh):
-            base = c * self.batch
-            n_c = min(self.batch, N - base)
-            with (prof.span("sample.chunk", chunk=first_chunk + c, rows=n_c)
-                  if prof.recording else prof.OFF):
-                with (prof.span("sample.seed") if prof.recording
-                      else prof.OFF):
-                    gen.manual_seed(generator_seed(seed, counter,
-                                                   first_chunk + c))
-                with (prof.span("sample.inputs", rows=n_c)
-                      if prof.recording else prof.OFF):
-                    theta = self.sample_inputs(gen, n_c)
-                with (prof.span("model.evaluate", models=len(ls), rows=n_c)
-                      if prof.recording else prof.OFF):
-                    outs = torch.stack([self.evaluate_model(l, theta)
-                                        for l in ls])
-                with (prof.span("sample.combine", rows=n_c)
-                      if prof.recording else prof.OFF):
-                    acc = fold(combine, acc, outs, base, N)
-            if prof.recording:
-                prof.count("rows.drawn", n_c)
-            yield theta, outs, acc
+        with (prof.span("sample.group", models=tuple(ls), N=N,
+                        counter=counter, first_chunk=first_chunk)
+              if prof.recording else prof.OFF):
+            for c in rank_chunks(math.ceil(N / self.batch), self.mesh):
+                base = c * self.batch
+                n_c = min(self.batch, N - base)
+                with (prof.span("sample.chunk", chunk=first_chunk + c,
+                                rows=n_c) if prof.recording else prof.OFF):
+                    with (prof.span("sample.seed") if prof.recording
+                          else prof.OFF):
+                        gen.manual_seed(generator_seed(seed, counter,
+                                                       first_chunk + c))
+                    with (prof.span("sample.inputs", rows=n_c)
+                          if prof.recording else prof.OFF):
+                        theta = self.sample_inputs(gen, n_c)
+                    with (prof.span("model.evaluate", models=len(ls),
+                                    rows=n_c)
+                          if prof.recording else prof.OFF):
+                        outs = torch.stack([self.evaluate_model(l, theta)
+                                            for l in ls])
+                    with (prof.span("sample.combine", rows=n_c)
+                          if prof.recording else prof.OFF):
+                        acc = fold(combine, acc, outs, base, N)
+                if prof.recording:
+                    prof.count("rows.drawn", n_c)
+                yield theta, outs, acc
+
+    def sample_calls(self, seed: int, calls) -> List[Optional[SampleSums]]:
+        """:meth:`sample_sums` of each call ``(ls, counter, N,
+        first_chunk)``, in order."""
+        return [self.sample_sums(ls, seed, counter, N, first_chunk)
+                for ls, counter, N, first_chunk in calls]
 
     def sample_sums(self, ls: Sequence[int], seed: int, counter: int, N: int,
                     first_chunk: int = 0) -> Optional[SampleSums]:

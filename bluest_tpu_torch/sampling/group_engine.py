@@ -19,10 +19,14 @@ finite, up to ``max_resample`` rounds, from the chunk's own stream
 holds depends on no chunk before it and a rank of a mesh can take any
 block of chunks): the
 finite rows keep their inputs and outputs (the JAX engine's per-sample
-``fold_in`` resample, ``jax_engine.py:42-62``).  Each round draws,
-evaluates the whole group once (for Hodgkin-Huxley on the card, one
-kernel launch) and reads its count of finite rows back to the host: a
-fixed cost per round, whatever its row count.  So a round draws enough
+``fold_in`` resample, ``jax_engine.py:42-62``).  A chunk's count of
+finite rows reaches the host through one read: on a card the count is
+copied asynchronously into a pinned slot of the engine behind a CUDA
+event, and the host waits on that event alone.  Only a chunk whose count
+falls short reads which rows failed; each redraw round draws, evaluates
+the whole group once (for Hodgkin-Huxley on the card, one kernel launch)
+and reads which of its rows are finite: a fixed cost per round, whatever
+its row count.  So a round draws enough
 candidates that its finite ones are expected to cover the failing rows
 -- the deficit over the finite share seen so far in the chunk, with a
 margin -- and hands them, in draw order, to the failing rows in row
@@ -31,12 +35,23 @@ draws of the group's stream, as the JAX loop's are.  Rows still failing
 after the last round are masked out of the sums and counted in
 ``n_failed``.  The f64 sums come from the same combiner as the factored
 engine's (``engine.combine``: on a card K6, one launch a chunk).
+
+The calls of one dispatch run as one sequence of chunks, drawn one chunk
+ahead: chunk c + 1's inputs are drawn before the host waits for chunk
+c's count, so the card has c + 1's draw and then its evaluation queued
+while the host folds chunk c and draws c + 2.  The model sees the
+evaluations of a loop that takes one chunk at a time (``draw``): chunk
+c's, its redraws, then chunk c + 1's, and each evaluation comes after
+the ``sample_group`` call that drew its rows, with no draw between them.
+So a draw made ahead of a chunk whose predecessor needs redraws is
+dropped and drawn again from its generator seeded afresh: the same
+numbers.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,6 +75,21 @@ def _put_rows(inputs, idx, new):
     return inputs.index_copy(0, idx, new)
 
 
+def _rows(inputs) -> int:
+    return (inputs[0] if isinstance(inputs, (tuple, list))
+            else inputs).shape[0]
+
+
+class _Chunk(NamedTuple):
+    call: int       # its call's index in the sequence
+    ls: tuple
+    counter: int
+    index: int      # its chunk index in the call's streams
+    base: int       # its first row in the call
+    n: int
+    N: int          # the call's rows
+
+
 class GroupEngine:
     """Coupled sampling of groups of a coupled-group model on one device."""
 
@@ -75,6 +105,12 @@ class GroupEngine:
         self.device = check_device(device)
         self.max_resample = max(int(max_resample), 0)
         self.mesh = mesh
+        # chunk k of a sequence draws from generator k % 2, so the draw
+        # ahead of chunk k + 1 leaves chunk k's stream where its redraws
+        # go on from
+        self._gens = tuple(torch.Generator(device=self.device)
+                           for _ in range(2))
+        self._slot = None       # on a card: (pinned count, its event)
 
     def redraw_rows(self, n_bad: int, drawn: int, accepted: int) -> int:
         """Candidates to draw for ``n_bad`` failing rows when ``accepted``
@@ -85,92 +121,189 @@ class GroupEngine:
         m = math.ceil(1.25 * n_bad / share)
         return min(max(m, n_bad), max(n_bad, 4 * self.batch))
 
-    def draw(self, gen: torch.Generator, ls, n: int):
-        """n coupled samples of group ``ls``: (inputs, outputs (n, No, L[,
-        d]), ok (n,)).  Non-finite rows are redrawn: each round draws
-        ``redraw_rows`` candidates and gives its finite ones, in order, to
-        the rows still failing."""
-        inputs, outs = self._evaluate(gen, ls, n)
+    # the per-chunk primitives: draw() and the sequence are made of them
+
+    def seed(self, gen: torch.Generator, seed: int, counter: int,
+             chunk: int) -> torch.Generator:
+        """``gen`` seeded with the stream of chunk ``chunk`` of call
+        ``counter``."""
+        with prof.span("sample.seed") if prof.recording else prof.OFF:
+            gen.manual_seed(generator_seed(seed, counter, chunk))
+        return gen
+
+    def draw_inputs(self, gen: torch.Generator, ls, n: int):
+        """n fresh coupled inputs of group ``ls``."""
+        with (prof.span("sample.inputs", rows=n) if prof.recording
+              else prof.OFF):
+            return self.sample_group(gen, ls, n)
+
+    def evaluate(self, ls, inputs) -> torch.Tensor:
+        with (prof.span("model.evaluate", models=len(ls),
+                        rows=_rows(inputs)) if prof.recording else prof.OFF):
+            return self.evaluate_group(ls, inputs)
+
+    def count(self, outs: torch.Tensor):
+        """(ok, count): the (n,) mask of the finite rows of ``outs`` and
+        their number, on a card also copied, without waiting, into the
+        engine's pinned slot behind an event.  One count is in flight at
+        a time: :meth:`read_count` it before the next.  The copy and the
+        event go on the count's card, whichever card is current."""
         ok = finite_rows(outs)
+        count = ok.sum()
+        if count.is_cuda:
+            with torch.cuda.device(count.device):
+                if self._slot is None:
+                    self._slot = (torch.empty((), dtype=torch.int64,
+                                              pin_memory=True),
+                                  torch.cuda.Event())
+                held, event = self._slot
+                held.copy_(count, non_blocking=True)
+                event.record()
+        return ok, count
+
+    def read_count(self, count: torch.Tensor) -> int:
+        """The host value of a :meth:`count`: on a card a wait on its
+        event, which does not drain the stream."""
         with prof.host_sync("draw.count") if prof.recording else prof.OFF:
-            accepted = int(ok.sum())
+            if not count.is_cuda:
+                return int(count)
+            held, event = self._slot
+            event.synchronize()
+            return int(held)
+
+    def redraw(self, gen: torch.Generator, ls, inputs, outs, ok,
+               accepted: int):
+        """(inputs, outs, ok) of a chunk whose first draw gave ``accepted``
+        finite rows: each round draws ``redraw_rows`` candidates and gives
+        its finite ones, in order, to the rows still failing.  Reads which
+        rows failed once, and which candidates are finite each round."""
+        n = outs.shape[0]
         drawn = n
-        for _ in range(self.max_resample):
+        if accepted < n and self.max_resample:
             with prof.host_sync("draw.bad") if prof.recording else prof.OFF:
                 bad = torch.nonzero(~ok).flatten()
-            if bad.numel() == 0:
-                break
-            m = self.redraw_rows(bad.numel(), drawn, accepted)
-            with (prof.span("sample.redraw", failing=bad.numel(), rows=m)
-                  if prof.recording else prof.OFF):
-                new_in, new_out = self._evaluate(gen, ls, m)
-                with (prof.host_sync("draw.good") if prof.recording
-                      else prof.OFF):
-                    good = torch.nonzero(finite_rows(new_out)).flatten()
-                drawn, accepted = drawn + m, accepted + good.numel()
-                with (prof.span("sample.splice") if prof.recording
-                      else prof.OFF):
-                    good = good[:bad.numel()]
-                    take = bad[:good.numel()]
-                    outs = outs.index_copy(0, take, new_out[good])
-                    inputs = _put_rows(inputs, take,
-                                       _take_rows(new_in, good))
-                    ok = ok.index_fill(0, take, True)
+            for _ in range(self.max_resample):
+                m = self.redraw_rows(bad.numel(), drawn, accepted)
+                with (prof.span("sample.redraw", failing=bad.numel(), rows=m)
+                      if prof.recording else prof.OFF):
+                    new_in = self.draw_inputs(gen, ls, m)
+                    new_out = self.evaluate(ls, new_in)
+                    with (prof.host_sync("draw.good") if prof.recording
+                          else prof.OFF):
+                        good = torch.nonzero(finite_rows(new_out)).flatten()
+                    drawn, accepted = drawn + m, accepted + good.numel()
+                    with (prof.span("sample.splice") if prof.recording
+                          else prof.OFF):
+                        good = good[:bad.numel()]
+                        take, bad = bad[:good.numel()], bad[good.numel():]
+                        outs = outs.index_copy(0, take, new_out[good])
+                        inputs = _put_rows(inputs, take,
+                                           _take_rows(new_in, good))
+                        ok = ok.index_fill(0, take, True)
+                if bad.numel() == 0:
+                    break
         if prof.recording:
             prof.count("rows.drawn", drawn)
         return inputs, outs, ok
 
-    def _evaluate(self, gen: torch.Generator, ls, n: int):
-        """(inputs, outputs) of n fresh draws of group ``ls``."""
-        with (prof.span("sample.inputs", rows=n) if prof.recording
-              else prof.OFF):
-            inputs = self.sample_group(gen, ls, n)
-        with (prof.span("model.evaluate", models=len(ls), rows=n)
-              if prof.recording else prof.OFF):
-            outs = self.evaluate_group(ls, inputs)
-        return inputs, outs
+    def draw(self, gen: torch.Generator, ls, n: int):
+        """n coupled samples of group ``ls``, one step after another:
+        (inputs, outputs (n, No, L[, d]), ok (n,)), non-finite rows
+        redrawn (:meth:`redraw`)."""
+        inputs = self.draw_inputs(gen, ls, n)
+        outs = self.evaluate(ls, inputs)
+        ok, count = self.count(outs)
+        return self.redraw(gen, ls, inputs, outs, ok, self.read_count(count))
 
-    def _chunks(self, ls, seed: int, counter: int, N: int, first_chunk: int,
-                acc: Optional[SampleSums]):
-        """This rank's chunks of the call: chunk c draws, and redraws, from
-        the stream ``(seed, counter, first_chunk + c)``; the resample
-        rounds are local to the rank (no collective inside).  Yields each
-        chunk's inputs, outputs and finite mask and the call's running
-        sums after it, ``acc`` plus the chunks so far (``acc`` itself is
-        left as it is)."""
-        with prof.span("sample.seed") if prof.recording else prof.OFF:
-            gen = torch.Generator(device=self.device)
-        acc = own_sums(acc)
-        for c in rank_chunks(math.ceil(N / self.batch), self.mesh):
-            base = c * self.batch
-            n_c = min(self.batch, N - base)
-            with (prof.span("sample.chunk", chunk=first_chunk + c, rows=n_c)
+    def _run(self, seed: int, calls, accs, keep: bool = False):
+        """Every chunk of ``calls`` [(ls, counter, N, first_chunk)] that
+        this rank holds, as one sequence drawn one chunk ahead (the
+        module's docstring); the redraws are local to the rank (no
+        collective inside).  Returns each call's running sums, ``accs``
+        (the sums each call starts from, or None) plus its chunks, and
+        with ``keep`` each call's chunks' (inputs, outputs, ok)."""
+        todo = []
+        for j, (ls, counter, N, first_chunk) in enumerate(calls):
+            for c in rank_chunks(math.ceil(N / self.batch), self.mesh):
+                base = c * self.batch
+                todo.append(_Chunk(j, ls, counter, first_chunk + c, base,
+                                   min(self.batch, N - base), N))
+        accs = [own_sums(a) for a in accs]
+        kept = [[] for _ in calls]
+        gens = self._gens
+
+        def draw_ahead(k):
+            """Chunk k's first draw, before chunk k - 1's count is read."""
+            if k >= len(todo):
+                return None
+            if prof.recording:
+                prof.count("draw.ahead")
+            return first_draw(k)
+
+        def first_draw(k):
+            ch = todo[k]
+            gen = self.seed(gens[k % 2], seed, ch.counter, ch.index)
+            return self.draw_inputs(gen, ch.ls, ch.n)
+
+        k = 0
+        for j, (ls, counter, N, first_chunk) in enumerate(calls):
+            with (prof.span("sample.group", models=ls, N=N, counter=counter,
+                            first_chunk=first_chunk)
                   if prof.recording else prof.OFF):
-                with (prof.span("sample.seed") if prof.recording
-                      else prof.OFF):
-                    gen.manual_seed(generator_seed(seed, counter,
-                                                   first_chunk + c))
-                inputs, outs, ok = self.draw(gen, ls, n_c)
-                # combine masks non-finite rows itself; the rows are
-                # model-major
-                with (prof.span("sample.combine", rows=n_c)
-                      if prof.recording else prof.OFF):
-                    acc = fold(combine, acc, outs.movedim(2, 0), base, N)
-            yield inputs, outs, ok, acc
+                while k < len(todo) and todo[k].call == j:
+                    ch = todo[k]
+                    with (prof.span("sample.chunk", chunk=ch.index,
+                                    rows=ch.n)
+                          if prof.recording else prof.OFF):
+                        if k == 0:
+                            inputs = first_draw(0)
+                            outs = self.evaluate(ch.ls, inputs)
+                            ok, count = self.count(outs)
+                            ahead = draw_ahead(1)
+                        accepted = self.read_count(count)
+                        inputs, outs, ok = self.redraw(
+                            gens[k % 2], ch.ls, inputs, outs, ok, accepted)
+                        if (ahead is not None and accepted < ch.n
+                                and self.max_resample):
+                            # the redraws came after the draw ahead
+                            if prof.recording:
+                                prof.count("draw.ahead_dropped")
+                            ahead = first_draw(k + 1)
+                        if ahead is not None:
+                            outs_next = self.evaluate(todo[k + 1].ls, ahead)
+                        # combine masks non-finite rows itself; the rows
+                        # are model-major
+                        with (prof.span("sample.combine", rows=ch.n)
+                              if prof.recording else prof.OFF):
+                            accs[j] = fold(combine, accs[j],
+                                           outs.movedim(2, 0), ch.base, ch.N)
+                        if keep:
+                            kept[j].append((inputs, outs, ok))
+                        if ahead is not None:
+                            inputs, outs = ahead, outs_next
+                            ok, count = self.count(outs)
+                            ahead = draw_ahead(k + 2)
+                    k += 1
+        return accs, kept
+
+    def sample_calls(self, seed: int, calls) -> List[Optional[SampleSums]]:
+        """MLBLUE sums of each call ``(ls, counter, N, first_chunk)`` of a
+        dispatch: N coupled samples of group ``ls`` from the streams
+        ``(seed, counter, first_chunk + c)``, every call's chunks in one
+        sequence.  Returns device tensors, one a call: this rank's
+        partial sums under a mesh, ``None`` where it holds no chunk."""
+        calls = [(tuple(int(l) for l in ls), counter, int(N), first_chunk)
+                 for ls, counter, N, first_chunk in calls]
+        accs = [zero_sums(self.No, len(ls), self.device) if N <= 0 else None
+                for ls, _counter, N, _first in calls]
+        return self._run(seed, calls, accs)[0]
 
     def sample_sums(self, ls: Sequence[int], seed: int, counter: int, N: int,
                     first_chunk: int = 0) -> Optional[SampleSums]:
         """MLBLUE sums of group ``ls`` over N coupled samples of the
-        streams ``(seed, counter, first_chunk + c)``.  Returns device
-        tensors: this rank's partial sums under a mesh, ``None`` where it
-        holds no chunk."""
-        ls = tuple(int(l) for l in ls)
-        N = int(N)
-        acc = zero_sums(self.No, len(ls), self.device) if N <= 0 else None
-        for _inputs, _outs, _ok, acc in self._chunks(ls, seed, counter, N,
-                                                     first_chunk, acc):
-            pass
-        return acc
+        streams ``(seed, counter, first_chunk + c)``: :meth:`sample_calls`
+        of one call."""
+        return self.sample_calls(seed, [(ls, counter, N, first_chunk)])[0]
 
     def collect(self, ls: Sequence[int], seed: int, counter: int, N: int,
                 first_chunk: int = 0, acc: Optional[SampleSums] = None
@@ -184,13 +317,12 @@ class GroupEngine:
         The chunks' sums are folded onto ``acc`` (the running sums of the
         earlier pieces of one call), in chunk order."""
         ls = tuple(int(l) for l in ls)
-        N = int(N)
-        vals, inputs, valid = [], [], []
-        for inp, outs, ok, acc in self._chunks(ls, seed, counter, N,
-                                               first_chunk, acc):
-            vals.append(outs)
-            inputs.append(flat_inputs(inp))
-            valid.append(ok)
-        if not vals:
+        (acc,), (rows,) = self._run(seed, [(ls, counter, int(N),
+                                            first_chunk)], [acc], keep=True)
+        if not rows:
             return acc, None, None, None
-        return acc, torch.cat(vals), torch.cat(inputs), torch.cat(valid)
+        inputs, vals, valid = zip(*rows)
+        return (acc, torch.cat(vals), torch.cat([flat_inputs(x)
+                                                 for x in inputs]),
+                torch.cat(valid))
+

@@ -3985,13 +3985,14 @@ def counting_chunk_evals():
     need = [0, {}]
     real = BLUEProblem._device_sums
 
-    def counted(self, key_ls, N, *args, **kwargs):
-        if N > 0:
-            chunks = math.ceil(N / int(self.params["device_batch_size"]))
-            need[0] += len(key_ls) * chunks
-            for l in key_ls:
-                need[1][l] = need[1].get(l, 0) + chunks
-        return real(self, key_ls, N, *args, **kwargs)
+    def counted(self, calls):
+        for key_ls, N, *_rest in calls:
+            if N > 0:
+                chunks = math.ceil(N / int(self.params["device_batch_size"]))
+                need[0] += len(key_ls) * chunks
+                for l in key_ls:
+                    need[1][l] = need[1].get(l, 0) + chunks
+        return real(self, calls)
 
     BLUEProblem._device_sums = counted
     try:

@@ -11,7 +11,9 @@ graph loop against its eager card loop, and the span recorder's
 host-sync spans against the synchronisation debug mode and the
 profiler's device-to-host copies, and K6 (the sampling combiner) against
 its plain version and its CPU mirror, its running sums, its launch count
-and a group engine chunk's device items.
+and a group engine chunk's device items; the group engine's dispatch
+sequence against a one-by-one loop, and its count read on a card that
+is not the current one (two cards).
 
 These tests need a CUDA card and nvcc; without a card they skip.  They
 import neither jax nor the JAX package, so they also run on a machine
@@ -20,6 +22,7 @@ that has only the port's dependencies:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import math
 import re
 
 import numpy as np
@@ -1226,8 +1229,10 @@ def _span_problem(cuda):
 @pytest.mark.gpu
 def test_span_host_syncs_are_the_synchronising_calls(cuda):
     """One solve on the card: its ``host.sync`` spans are as many as the
-    synchronising calls that the synchronisation debug mode reports, and
-    the request's counters say the same."""
+    synchronising calls that the synchronisation debug mode reports and
+    the group engine's waits on its count events (``draw.count``, which
+    the debug mode does not see: they drain no stream), and the request's
+    counters say the same."""
     import os
     import warnings
     from bluest_tpu_torch import profiling
@@ -1248,10 +1253,18 @@ def test_span_host_syncs_are_the_synchronising_calls(cuda):
             sites[site] = sites.get(site, 0) + 1
     spans = profiling.spans()
     syncs = [s for s in spans if s.name == "host.sync"]
+    waits = sum(s.attrs["site"] == "draw.count" for s in syncs)
     root = next(s for s in spans if s.name == "solve")
     counted = sum(v for k, v in root.attrs["counters"].items()
                   if k.startswith("host.sync."))
-    assert len(syncs) == sum(sites.values()) == counted, (len(syncs), sites)
+    assert waits == sum(s.name == "sample.chunk" for s in spans)
+    assert len(syncs) == sum(sites.values()) + waits == counted, (
+        len(syncs), waits, sites)
+    # the engine's reads that drain the stream: which rows failed, which
+    # redrawn rows are finite
+    assert sum(v for k, v in sites.items()
+               if k.startswith("group_engine.py:")) == sum(
+        s.attrs["site"] in ("draw.bad", "draw.good") for s in syncs), sites
     assert root.attrs["counters"]["k2.launches"] == sum(
         s.name == "model.evaluate" for s in spans)
 
@@ -1261,7 +1274,9 @@ def test_span_fetch_copy_lies_inside_its_span(cuda):
     """On the profiler's clock each ``fetch`` read's device-to-host copy
     lies inside its ``host.sync`` span (50 us of slack at either end), and
     so does every other device-to-host copy of the solve inside some
-    ``host.sync`` span."""
+    ``host.sync`` span, but the group engine's count copies: those run
+    while the host works, and each ends before its ``draw.count`` wait
+    ends, after the wait before it."""
     from torch.profiler import ProfilerActivity, profile
     from bluest_tpu_torch import profiling
     p = _span_problem(cuda)
@@ -1289,10 +1304,19 @@ def test_span_fetch_copy_lies_inside_its_span(cuda):
                   if a - slack <= c[0] and c[1] <= b + slack]
         assert len(inside) == 1, (a, b, [c for c in copies
                                          if c[1] > a - 1e6 and c[0] < b + 1e6])
-    assert copies
-    for c in copies:
-        assert any(a - slack <= c[0] and c[1] <= b + slack
-                   for a, b, _ in syncs), c
+    # one stream: the card runs the copies in the order the host issued
+    # them, one a read, the count that a draw.count span waits for issued
+    # after the span before it
+    copies.sort()
+    syncs.sort()
+    assert len(copies) == len(syncs) > 0, (len(copies), len(syncs))
+    prev = -math.inf
+    for c, (a, b, site) in zip(copies, syncs):
+        if site == "draw.count":
+            assert prev - slack <= c[0] and c[1] <= b + slack, (c, a, b)
+        else:
+            assert a - slack <= c[0] and c[1] <= b + slack, (c, a, b, site)
+        prev = b
 
 
 @pytest.mark.gpu
@@ -1324,6 +1348,103 @@ def test_span_recorder_adds_no_device_work(cuda):
     for a, b in zip(mus0, mus1):
         assert np.array_equal(np.asarray(a), np.asarray(b))
     assert np.array_equal(np.asarray(errs0), np.asarray(errs1))
+
+
+@pytest.mark.gpu
+def test_group_engine_sequence_matches_one_by_one_on_card(cuda):
+    """A K=3 Hodgkin-Huxley solve on the card, whose calls run as one
+    sequence drawn one chunk ahead (the Euler model at dt 0.08 fails on
+    most draws, so most chunks redraw and drop the draw made ahead of the
+    next): every evaluation's rows and every call's sums are bit-equal to
+    a loop of the engine's per-chunk steps that runs one chunk after
+    another, and K2 launches once a ``model.evaluate`` span."""
+    from bluest_tpu_torch import profiling
+    from bluest_tpu_torch.sampling.engine import combine, fold
+    p = _span_problem(cuda)
+    rows, dispatched = [], []
+    evaluate = p.evaluate_group
+
+    def kept(ls, x):
+        out = evaluate(ls, x)
+        rows.append((tuple(ls), out))
+        return out
+    p.evaluate_group = kept
+    p._engine = None                    # the engine takes the wrapper
+    device_sums = p._device_sums
+
+    def recorded(calls):
+        sums = device_sums(calls)
+        dispatched.append((list(calls), sums))
+        return sums
+    p._device_sums = recorded
+    profiling.enable_spans()
+    try:
+        p.solve(K=3, budget=2e4)
+    finally:
+        profiling.disable_spans()
+    spans = profiling.spans()
+    counters = next(s for s in spans if s.name == "solve").attrs["counters"]
+    chunks = sum(s.name == "sample.chunk" for s in spans)
+    assert counters["k2.launches"] == len(rows) == sum(
+        s.name == "model.evaluate" for s in spans)
+    assert counters["draw.ahead"] == chunks - len(dispatched)
+    assert counters.get("draw.ahead_dropped", 0) > 0
+    seen = len(rows)
+    eng = p._sampling_engine()
+    gen = torch.Generator(device=cuda)
+    for calls, got in dispatched:
+        for (ls, N, counter, first, _sink), sums in zip(calls, got):
+            acc = None
+            for c in range(math.ceil(N / eng.batch)):
+                base = c * eng.batch
+                gen = eng.seed(gen, p.params["seed"], counter, first + c)
+                _x, outs, _ok = eng.draw(gen, ls, min(eng.batch, N - base))
+                acc = fold(combine, acc, outs.movedim(2, 0), base, N)
+            assert all(torch.equal(a, b) for a, b in zip(sums, acc)), ls
+    assert len(rows) == 2 * seen
+    for (ls_a, a), (ls_b, b) in zip(rows[:seen], rows[seen:]):
+        assert ls_a == ls_b
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_group_engine_counts_on_a_card_that_is_not_current(cuda):
+    """The group engine's count copy and its event go on the count's
+    card: a Hodgkin-Huxley problem on cuda:1 sampled while cuda:0 is
+    current reads each chunk's count as a blocking read does, and its
+    sums are bit-equal to the same problem's on cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from bluest_tpu_torch.models import hodgkin_huxley as hh
+    corr = np.array([[1.0, 0.9, 0.8], [0.9, 1.0, 0.85], [0.8, 0.85, 1.0]])
+    # the Euler model at dt 0.08 fails on most rows: counts differ chunk
+    # to chunk, so a stale count would show
+    calls = [((0, 1, 2), 0, 10000, 0), ((1, 2), 1, 9000, 0),
+             ((0,), 2, 5000, 0)]
+    got = []
+    for dev in ("cuda:0", "cuda:1"):
+        p = hh.HodgkinHuxleyProblem(models=((0, 0.04), (1, 0.04), (1, 0.08)),
+                                    C=[corr] * 5, verbose=False, device=dev,
+                                    device_batch_size=4096, seed=3)
+        eng = p._sampling_engine()
+        reads, read = [], eng.read_count
+
+        def checked(count, read=read, reads=reads):
+            n = read(count)
+            reads.append((n, int(count)))
+            return n
+        eng.read_count = checked
+        with torch.cuda.device(0):
+            sums = eng.sample_calls(p.params["seed"], calls)
+        torch.cuda.synchronize(dev)
+        assert all(t.device == torch.device(dev) for s in sums for t in s)
+        got.append(([[t.cpu() for t in s] for s in sums], reads))
+    for (_sums, reads) in got:
+        assert [n for n, _ in reads] == [want for _, want in reads], reads
+        assert any(n < 4096 for n, _ in reads)
+    assert got[0][1] == got[1][1]
+    for a, b in zip(got[0][0], got[1][0]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 # K6, the sampling combiner: models a group, output dimensions, rows (one,

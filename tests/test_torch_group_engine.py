@@ -11,18 +11,36 @@
     top-up rounds written through one sink -- over several
     ``_COLLECT_CHUNK`` chunks (a small override here), in the JAX
     package's npz layout;
-  * the coupled-group kind runs every estimator.
+  * the coupled-group kind runs every estimator;
+  * the calls of one dispatch run as one sequence drawn one chunk ahead:
+    the model's evaluations (models, inputs, outputs) are those of the
+    sampling contract's one-by-one loop (``_one_by_one``, written here
+    apart from the engine) and
+    the sums those of a loop of the engine's own per-chunk steps, bit for
+    bit, with failing rows in a chunk followed by one of its call, in a
+    call's last chunk followed by the next call and in the last chunk;
+    under two ranks of a CPU mesh each evaluation's rows come from the
+    stream of the ``sample_group`` call just before it; the counters
+    ``draw.ahead`` and ``draw.ahead_dropped``.
+
+This file is also the worker script of its two-rank case: ``python
+tests/test_torch_group_engine.py <rank> <port> <out>``.
 """
 
+import datetime
+import math
 import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from bluest_tpu_torch import BLUEProblem
+from bluest_tpu_torch import BLUEProblem, profiling
 from bluest_tpu_torch.models.analytic import TRUE_MEAN, ExpSeriesProblem
-from bluest_tpu_torch.sampling.engine import (combine, finite_rows,
+from bluest_tpu_torch.sampling.engine import (combine, finite_rows, fold,
                                               generator_seed)
 from bluest_tpu_torch.sampling.group_engine import GroupEngine
 
@@ -126,15 +144,18 @@ def test_per_row_resample_keeps_finite_rows():
 
 def test_resample_rounds_are_bounded():
     """A group that never gives a finite row stops after max_resample
-    rounds, each drawing at most 4 batches, and counts every row failed."""
+    rounds, each drawing at most 4 batches, and counts every row failed.
+    The second chunk is drawn ahead of the first one's read, and drawn
+    again after the first one's redraws."""
     p = _problem(GroupSeries)
-    sizes = []
+    sizes, evaluated = [], []
 
     def sample_group(generator, ls, n):
         sizes.append(n)
         return p.sample_group(generator, ls, n)
 
     def evaluate_group(ls, inputs):
+        evaluated.append(inputs[0].shape[0])
         return torch.full((inputs[0].shape[0], 1, len(ls)), float("nan"),
                           dtype=F64)
 
@@ -142,7 +163,8 @@ def test_resample_rounds_are_bounded():
                       max_resample=3)
     sums = eng.sample_sums((0, 1), 5, 0, 10)
     assert int(sums.n_failed) == 10
-    assert sizes == [8, 32, 32, 32, 2, 32, 32, 32]
+    assert evaluated == [8, 32, 32, 32, 2, 32, 32, 32]
+    assert sizes == [8, 2, 32, 32, 32, 2, 32, 32, 32]
     assert eng.redraw_rows(5, 10, 5) == 13           # 1.25 * 5 / 0.5
     assert eng.redraw_rows(5, 10, 10) == 7           # at least n_bad
     assert eng.redraw_rows(100, 10, 10) == 100       # never below n_bad
@@ -230,17 +252,18 @@ def test_group_collect_over_chunks(tmp_path, cls):
                                               .sum()), rel=1e-12)
 
 
-@pytest.mark.parametrize("kind", ["group", "group-flaky", "factored",
-                                  "factored-flaky"])
+@pytest.mark.parametrize("kind", ["group", "group-flaky", "group-redraw",
+                                  "factored", "factored-flaky"])
 def test_sums_with_a_samplefile_equal_sums_without(tmp_path, kind):
     """A samplefile changes no stream and no summation order: the
     collect pieces (here 2 chunks each, 4 pieces) go on through the chunk
     streams of the call and fold into one running sum, so every sum is
-    bit-equal to the same call's without a samplefile."""
+    bit-equal to the same call's without a samplefile ("group-redraw":
+    chunks with failing rows, whose draws made ahead are drawn again)."""
     out = []
     for f in (None, str(tmp_path / "s.npz")):
         if kind.startswith("group"):
-            p = _problem(FlakyGroup if "flaky" in kind else GroupSeries,
+            p = _problem(GroupSeries if kind == "group" else FlakyGroup,
                          max_resample=0 if "flaky" in kind else 2,
                          device_batch_size=8, samplefile=f, seed=4)
             p._COLLECT_CHUNK = 16
@@ -368,3 +391,284 @@ def test_unported_parameters_raise():
     p = _problem(comm=object(), sample_batch_size=4, max_resample=3,
                  host_workers=1, model_workers=1, outputs_to_save=[0])
     assert p.params["max_resample"] == 3 and p.get_comm() is None
+
+
+# ------------- the calls of a dispatch: one sequence, one chunk ahead ------------- #
+
+SEQ_SEED = 2 ** 33 + 7
+SEQ_BATCH = 16
+# (models, call counter, N): 4, 3 and 3 chunks of up to 16 rows
+SEQ_CALLS = [((0, 1), 3, 60), ((1, 2), 4, 40), ((0, 2), 5, 44)]
+# chunks (counter, index) whose rows fail where z > 0: one followed by a
+# chunk of its call, a call's last chunk followed by the next call, a
+# call's first chunk and the sequence's last chunk
+SEQ_FAILING = [(3, 1), (3, 3), (4, 0), (5, 2)]
+
+
+class Patchy:
+    """A toy coupled-group model with input tuples (z, flag): z standard
+    normal from the generator, flag 1 in the chunks whose stream is in
+    ``failing``; outputs (n, 2, L), NaN where flag is 1 and z > 0, in a
+    failing chunk's redraws too.  Keeps the stream of every
+    ``sample_group`` call and every evaluation as (models, inputs,
+    outputs, the stream of the ``sample_group`` call before it)."""
+
+    def __init__(self, failing=()):
+        self.failing = {generator_seed(SEQ_SEED, c, k) for c, k in failing}
+        self.draws, self.evaluated = [], []
+
+    def sample_group(self, generator, ls, n):
+        stream = generator.initial_seed()
+        self.draws.append(stream)
+        z = torch.randn(n, generator=generator, dtype=F64)
+        return z, torch.full((n,), float(stream in self.failing), dtype=F64)
+
+    def evaluate_group(self, ls, inputs):
+        z, flag = inputs
+        out = torch.stack([torch.stack([z * (l + 1.0), torch.cos(z + l)],
+                                       dim=1) for l in ls], dim=2)
+        out = torch.where(((flag > 0) & (z > 0))[:, None, None],
+                          torch.full_like(out, float("nan")), out)
+        self.evaluated.append((tuple(ls), inputs, out, self.draws[-1]))
+        return out
+
+
+def _seq_engine(toy, mesh=None):
+    return GroupEngine(toy.sample_group, toy.evaluate_group, 2, SEQ_BATCH,
+                       "cpu", mesh=mesh)
+
+
+def _seq_sums(eng):
+    return eng.sample_calls(SEQ_SEED, [(ls, counter, N, 0)
+                                       for ls, counter, N in SEQ_CALLS])
+
+
+def _same_outputs(a, b):
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def _stream(counter, chunk):
+    """Chunk ``chunk`` of call ``counter``'s stream by the sampling
+    contract: the two 32-bit words of ``SeedSequence([seed, counter,
+    chunk])``, high word first."""
+    s = np.random.SeedSequence([SEQ_SEED, counter, chunk]).generate_state(
+        2, dtype=np.uint32)
+    return (int(s[0]) << 32) | int(s[1])
+
+
+def _finite(o):
+    return torch.isfinite(o).flatten(1).all(dim=1)
+
+
+def _one_by_one(toy, ls, counter, N, max_resample=64):
+    """One call by the sampling contract, one chunk after another: a
+    chunk draws and evaluates from its own stream, then redraws its
+    failing rows in rounds from the same stream, each round's finite
+    rows given in order to the failing rows in order (a round draws
+    ``min(max(ceil(1.25 bad / share), bad), max(bad, 4 batch))``, share:
+    finite rows over rows drawn so far, floored at 1/64).  Returns every
+    evaluation as (inputs, outputs) and the (No, L) sums of the rows."""
+    evals, total = [], 0
+    for c in range(math.ceil(N / SEQ_BATCH)):
+        gen = torch.Generator().manual_seed(_stream(counter, c))
+        x = toy.sample_group(gen, ls, min(SEQ_BATCH, N - c * SEQ_BATCH))
+        o = toy.evaluate_group(ls, x)
+        evals.append((x, o))
+        ok = _finite(o)
+        drawn, accepted = o.shape[0], int(ok.sum())
+        for _ in range(max_resample):
+            bad = torch.nonzero(~ok).flatten()
+            if bad.numel() == 0:
+                break
+            share = max(accepted / drawn, 1.0 / 64)
+            m = min(max(math.ceil(1.25 * bad.numel() / share), bad.numel()),
+                    max(bad.numel(), 4 * SEQ_BATCH))
+            nx = toy.sample_group(gen, ls, m)
+            no = toy.evaluate_group(ls, nx)
+            evals.append((nx, no))
+            good = torch.nonzero(_finite(no)).flatten()
+            drawn, accepted = drawn + m, accepted + good.numel()
+            good = good[:bad.numel()]
+            take = bad[:good.numel()]
+            o = o.index_copy(0, take, no[good])
+            ok = ok.index_fill(0, take, True)
+        assert bool(ok.all())
+        total = total + o.sum(dim=0)
+    return evals, total
+
+
+def _rows_from_their_streams(evaluated):
+    """Each evaluation's inputs are the next draws of the stream of the
+    ``sample_group`` call just before it: replayed stream by stream."""
+    gens = {}
+    for _ls, (z, _flag), _out, stream in evaluated:
+        if stream not in gens:
+            gens[stream] = torch.Generator().manual_seed(stream)
+        assert torch.equal(z, torch.randn(z.shape[0], generator=gens[stream],
+                                          dtype=F64))
+
+
+def test_dispatch_sequence_is_the_one_by_one_loop():
+    """Three calls run as one sequence drawn one chunk ahead: the model's
+    evaluations are the sampling contract's one-by-one loop, call by
+    call (``_one_by_one``), and the sums are bit for bit those of a loop
+    of the engine's per-chunk steps, chunk after chunk."""
+    toy = Patchy(SEQ_FAILING)
+    got = _seq_sums(_seq_engine(toy))
+    ref = Patchy(SEQ_FAILING)
+    want = []
+    for (ls, counter, N), sums in zip(SEQ_CALLS, got):
+        calls, total = _one_by_one(ref, ls, counter, N)
+        want += [(ls, x, o) for x, o in calls]
+        assert int(sums.n_failed) == 0
+        assert torch.allclose(sums.sumse[..., 0], total, rtol=1e-13, atol=0)
+    assert len(toy.evaluated) == len(want) > 10     # the failing chunks redraw
+    for (ls, x, o, _stream), (ls_w, x_w, o_w) in zip(toy.evaluated, want):
+        assert ls == ls_w
+        assert all(torch.equal(a, b) for a, b in zip(x, x_w))
+        _same_outputs(o, o_w)
+    _rows_from_their_streams(toy.evaluated)
+
+    # the same chunks through the engine's steps, one after another
+    one = Patchy(SEQ_FAILING)
+    eng = _seq_engine(one)
+    gen = torch.Generator()
+    for (ls, counter, N), sums in zip(SEQ_CALLS, got):
+        acc = None
+        for c in range(math.ceil(N / SEQ_BATCH)):
+            base = c * SEQ_BATCH
+            _x, o, _ok = eng.draw(eng.seed(gen, SEQ_SEED, counter, c), ls,
+                                  min(SEQ_BATCH, N - base))
+            acc = fold(combine, acc, o.movedim(2, 0), base, N)
+        assert all(torch.equal(a, b) for a, b in zip(sums, acc))
+    assert len(one.evaluated) == len(toy.evaluated)
+    for a, b in zip(one.evaluated, toy.evaluated):
+        _same_outputs(a[2], b[2])
+
+
+def test_draw_ahead_counters():
+    """Every chunk but the sequence's first is drawn ahead of the read
+    before it; the draws ahead of the chunks after a failing one, all but
+    the last, are dropped and drawn again.  One count read a chunk, one
+    read of the failing rows a failing chunk."""
+    toy = Patchy(SEQ_FAILING)
+    eng = _seq_engine(toy)
+    profiling.enable_spans()
+    try:
+        with profiling.span("dispatch") as root:
+            _seq_sums(eng)
+    finally:
+        profiling.disable_spans()
+    counters = root.attrs["counters"]
+    chunks = sum(math.ceil(N / SEQ_BATCH) for _ls, _c, N in SEQ_CALLS)
+    assert counters["draw.ahead"] == chunks - 1
+    assert counters["draw.ahead_dropped"] == len(SEQ_FAILING) - 1
+    assert counters["host.sync.draw.count"] == chunks
+    assert counters["host.sync.draw.bad"] == len(SEQ_FAILING)
+    redraws = sum(s.name == "sample.redraw" for s in profiling.spans())
+    assert counters["host.sync.draw.good"] == redraws >= len(SEQ_FAILING)
+    assert len(toy.draws) == len(toy.evaluated) + len(SEQ_FAILING) - 1
+    # the same toy without failing chunks drops nothing
+    profiling.enable_spans()
+    try:
+        with profiling.span("dispatch") as root:
+            _seq_sums(_seq_engine(Patchy()))
+    finally:
+        profiling.disable_spans()
+    assert root.attrs["counters"]["draw.ahead"] == chunks - 1
+    assert "draw.ahead_dropped" not in root.attrs["counters"]
+
+
+def test_several_groups_with_a_samplefile_equal_sums_without(tmp_path):
+    """The problem's dispatch of several groups with redraws and top-up
+    rounds: with a samplefile each call is collected on its own, without
+    one the calls run as one sequence; the sums are bit-equal."""
+    out = []
+    for f in (None, str(tmp_path / "s.npz")):
+        p = _problem(FlakyGroup, M=4, max_resample=1, device_batch_size=8,
+                     samplefile=f, seed=6)
+        p._COLLECT_CHUNK = 16
+        out.append(p._sample_groups([(0, 1), (2,), (1, 2, 3)], [30, 17, 41]))
+    for a, b in zip(*out):
+        for x, y in zip(a, b):
+            assert np.array_equal(np.asarray(x), np.asarray(y))
+        assert a[-1] == 0
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_worker(rank, port, out):
+    """One rank of the two-rank case: the sequence under a sample mesh;
+    saves the evaluations and this rank's sums."""
+    from bluest_tpu_torch.parallel import initialize_distributed, sample_mesh
+    initialize_distributed(device="cpu",
+                           init_method="tcp://127.0.0.1:%s" % port,
+                           world_size=2, rank=rank,
+                           timeout=datetime.timedelta(seconds=60))
+    try:
+        toy = Patchy(SEQ_FAILING)
+        sums = _seq_sums(_seq_engine(toy, sample_mesh()))
+        torch.save({"evaluated": toy.evaluated,
+                    "sums": [None if s is None else list(s) for s in sums]},
+                   "%s.p%d.pt" % (out, rank))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.distributed
+def test_two_ranks_evaluate_the_rows_of_their_last_draw(tmp_path):
+    """Under a two-rank CPU mesh each rank runs its chunks of the three
+    calls as one sequence: each evaluation's rows come from the stream of
+    the ``sample_group`` call just before it, the ranks' first draws
+    cover every chunk once, and their sums add up to one process's."""
+    out = str(tmp_path / "got")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + env.get("PYTHONPATH", "").split(os.pathsep))
+    port = str(_free_port())
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               str(r), port, out], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=180)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert all(p.returncode == 0 for p in procs), "\n".join(
+        log[-3000:] for log in logs)
+    got = [torch.load("%s.p%d.pt" % (out, r)) for r in range(2)]
+    firsts = []
+    for g in got:
+        _rows_from_their_streams(g["evaluated"])
+        seen = set()
+        for _ls, _x, _o, stream in g["evaluated"]:
+            if stream not in seen:
+                seen.add(stream)
+                firsts.append(stream)
+    assert sorted(firsts) == sorted(
+        generator_seed(SEQ_SEED, counter, c) for _ls, counter, N in SEQ_CALLS
+        for c in range(math.ceil(N / SEQ_BATCH)))
+    one = _seq_sums(_seq_engine(Patchy(SEQ_FAILING)))
+    for j, want in enumerate(one):
+        parts = [g["sums"][j] for g in got if g["sums"][j] is not None]
+        for i, w in enumerate(want):
+            total = sum(p[i] for p in parts)
+            if i == len(want) - 1:
+                assert int(total) == int(w) == 0
+            else:
+                assert torch.allclose(total, w, rtol=1e-12, atol=1e-12)
+
+
+if __name__ == "__main__":
+    _mesh_worker(int(sys.argv[1]), sys.argv[2], sys.argv[3])

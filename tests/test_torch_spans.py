@@ -172,8 +172,16 @@ def test_host_syncs_are_counted_by_site(recorded):
     chunks = sum(s.name == "sample.chunk" for s in mine)
     redraws = sum(s.name == "sample.redraw" for s in mine)
     fetches = sum(s.name == "sample.fetch" for s in mine)
-    assert sites == {"draw.count": chunks, "draw.bad": chunks + redraws,
+    # one count a chunk; which rows failed is read once in each chunk
+    # whose first draw had failing rows, the chunks that redraw
+    ids = {s.id: s for s in mine}
+    failing = {s.parent for s in mine if s.name == "sample.redraw"}
+    assert all(ids[c].name == "sample.chunk" for c in failing)
+    assert sites == {"draw.count": chunks, "draw.bad": len(failing),
                      "draw.good": redraws, "fetch": fetches}
+    # every chunk but the first of each fetch round's sequence is drawn
+    # ahead of the read before it
+    assert counters["draw.ahead"] == chunks - fetches
     assert counters["k2.launches"] == 0          # the plain model on the host
     assert counters["k6.launches"] == 0          # and the plain combiner
     assert all(not any(c.parent == s.id for c in spans) for s in syncs)
