@@ -58,9 +58,8 @@ def build(source: str, flags) -> str:
     path = os.path.join(BUILD_DIR, "libbluest_%s_%s.so" % (stem, tag[:16]))
     with _locks_lock:
         lock = _locks.setdefault(path, threading.Lock())
-    with (profiling.span("kernels.load", library=os.path.basename(path),
-                         nvcc=False)
-          if profiling.recording else profiling.OFF) as sp:
+    with profiling.span("kernels.load", library=os.path.basename(path),
+                        nvcc=False) as sp:
         with lock:          # one build of a library at a time, others apart
             if os.path.exists(path):
                 return path

@@ -11,10 +11,11 @@ engine.
 
 A model is given in one of three forms, as in the JAX package:
 
-  * factored, batched torch (``sampling/engine.py``):
-    ``sample_inputs(generator, n)`` draws n shared random inputs on
-    ``self.device`` and ``evaluate_model(l, inputs)`` returns model l's
-    ``(n, n_outputs)`` outputs;
+  * factored, batched torch (``sampling/group_engine.py``'s
+    ``factored_hooks``, with no redraw): ``sample_inputs(generator, n)``
+    draws n shared random inputs on ``self.device`` and
+    ``evaluate_model(l, inputs)`` returns model l's ``(n, n_outputs)``
+    outputs;
   * coupled group, batched torch (``sampling/group_engine.py``):
     ``sample_group(generator, ls, n)`` draws n coupled inputs for the
     models ``ls`` and ``evaluate_group(ls, inputs)`` returns
@@ -78,8 +79,8 @@ from .linalg.spd import (mark_uncorrelated, project_covariance_full,
 from .parallel.mesh import Mesh, sample_mesh
 from . import profiling
 from .sampling import host_engine, snapshots
-from .sampling.engine import F64, SamplingEngine, zero_sums
-from .sampling.group_engine import GroupEngine
+from .sampling.engine import F64, zero_sums
+from .sampling.group_engine import GroupEngine, factored_hooks
 
 spg_default_params = {
     "maxit": 10000,
@@ -559,20 +560,20 @@ class BLUEProblem:
         self.MOSAP_output = None
 
     def _sampling_engine(self):
-        """The device engine of a torch model: SamplingEngine for a
-        factored model, GroupEngine for a coupled-group one."""
+        """The device engine of a torch model: the group engine over a
+        coupled-group model's hooks, or over a factored model's with no
+        redraw."""
         if self._engine is None:
-            batch = int(self.params["device_batch_size"])
             if self._has_factored_model():
-                self._engine = SamplingEngine(
-                    self.sample_inputs, self.evaluate_model, self.n_outputs,
-                    batch, self.device, mesh=self.mesh)
+                hooks = factored_hooks(self.sample_inputs,
+                                       self.evaluate_model)
+                max_resample = 0
             else:
-                self._engine = GroupEngine(
-                    self.sample_group, self.evaluate_group, self.n_outputs,
-                    batch, self.device,
-                    max_resample=int(self.params["max_resample"]),
-                    mesh=self.mesh)
+                hooks = (self.sample_group, self.evaluate_group)
+                max_resample = int(self.params["max_resample"])
+            self._engine = GroupEngine(
+                *hooks, self.n_outputs, int(self.params["device_batch_size"]),
+                self.device, max_resample=max_resample, mesh=self.mesh)
         return self._engine
 
     def blue_fn(self, ls, N, verbose=True, compute_mlmc_differences=False):
@@ -716,24 +717,19 @@ class BLUEProblem:
                     first_chunk=first_chunk + base // engine.batch,
                     acc=total)
                 if vals is not None:
-                    with (profiling.host_sync("collect")
-                          if profiling.recording else profiling.OFF):
+                    with profiling.host_sync("collect"):
                         vals = vals[valid]
-                    with (profiling.host_sync("collect")
-                          if profiling.recording else profiling.OFF):
+                    with profiling.host_sync("collect"):
                         inputs = inputs[valid]
                 if self.mesh is not None:
-                    with (profiling.host_sync("collect")
-                          if profiling.recording else profiling.OFF):
+                    with profiling.host_sync("collect"):
                         vals, inputs = (self.mesh.fetch_rows(t)
                                         for t in (vals, inputs))
-                with (profiling.host_sync("collect")
-                      if profiling.recording else profiling.OFF):
+                with profiling.host_sync("collect"):
                     vals = vals.cpu().numpy()
                 if vals.ndim == 4 and vals.shape[-1] == 1:
                     vals = vals[..., 0]
-                with (profiling.host_sync("collect")
-                      if profiling.recording else profiling.OFF):
+                with profiling.host_sync("collect"):
                     inputs = inputs.cpu().numpy()
                 sink.add(vals, inputs, n_c)
             if own:
@@ -781,19 +777,16 @@ class BLUEProblem:
         live = [d for d in dispatched if d is not None]
         if not live:
             return [None] * len(dispatched)
-        with (profiling.span("sample.fetch", groups=len(live))
-              if profiling.recording else profiling.OFF) as sp:
+        with profiling.span("sample.fetch", groups=len(live)) as sp:
             if self.mesh is not None and self._output_dim is None:
                 # a rank that held no chunk yet has not seen the model's
                 # output dimension, which sizes its zeros: agree on it once
                 d = max([x["sums"].sumse.shape[-1] for x in live
                          if x["sums"] is not None], default=0)
-                with (profiling.host_sync("fetch") if profiling.recording
-                      else profiling.OFF):
+                with profiling.host_sync("fetch"):
                     self._output_dim = int(self.mesh.all_reduce_samples(
                         torch.tensor([d], device=self.device), op="max")[0])
-            with (profiling.span("sample.pack") if profiling.recording
-                  else profiling.OFF):
+            with profiling.span("sample.pack"):
                 sums = [x["sums"] if x["sums"] is not None
                         else zero_sums(self.n_outputs, len(x["ls"]),
                                        self.device, self._output_dim)
@@ -804,11 +797,9 @@ class BLUEProblem:
                     flat = self.mesh.all_reduce_samples(flat)
             if sp is not None:
                 sp.attrs["bytes"] = flat.numel() * flat.element_size()
-            with (profiling.host_sync("fetch") if profiling.recording
-                  else profiling.OFF):
+            with profiling.host_sync("fetch"):
                 flat = self._sums_to_host(flat)
-            with (profiling.span("sample.unpack") if profiling.recording
-                  else profiling.OFF):
+            with profiling.span("sample.unpack"):
                 fetched, off = [], 0
                 for s in sums:
                     parts = []
@@ -848,19 +839,16 @@ class BLUEProblem:
         snapshot file too, through one sink per group for all rounds.
         Under a mesh every rank holds the same sums after a fetch and so
         takes the same decisions."""
-        with (profiling.span("sample",
-                             groups=sum(int(n) > 0 for n in n_list))
-              if profiling.recording else profiling.OFF) as sp:
+        with profiling.span("sample",
+                            groups=sum(int(n) > 0 for n in n_list)) as sp:
             t0 = time()
             samplefile = self.params["samplefile"]
             batch = int(self.params["device_batch_size"])
             disp = self._dispatch_all(group_list, n_list)
             host = self._batch_fetch_sums(disp)
             rounds = 1
-            if profiling.recording:
-                profiling.count("rows.kept", sum(
-                    d["N"] - h[-1] for d, h in zip(disp, host)
-                    if d is not None))
+            profiling.count("rows.kept", sum(
+                d["N"] - h[-1] for d, h in zip(disp, host) if d is not None))
             try:
                 for _ in range(4):
                     again = [i for i, h in enumerate(host)
@@ -882,9 +870,8 @@ class BLUEProblem:
                         [d if i in again else None
                          for i, d in enumerate(disp)])
                     rounds += 1
-                    if profiling.recording:
-                        profiling.count("rows.kept", sum(
-                            host[i][-1] - extra[i][-1] for i in again))
+                    profiling.count("rows.kept", sum(
+                        host[i][-1] - extra[i][-1] for i in again))
                     for i in again:
                         host[i] = [a + b for a, b in zip(host[i][:-1],
                                                          extra[i][:-1])] \
@@ -913,8 +900,7 @@ class BLUEProblem:
             return [self.blue_fn(g, int(n))[0] if n > 0 else None
                     for g, n in zip(group_list, n_list)]
         host = self._sample_groups(group_list, n_list)
-        with (profiling.span("estimate.sums") if profiling.recording
-              else profiling.OFF):
+        with profiling.span("estimate.sums"):
             return [None if h is None
                     else self._reference_layout(g, h, None)[0]
                     for g, h in zip(group_list, host)]
@@ -1031,9 +1017,8 @@ class BLUEProblem:
         if groups is not None and multi_groups is None:
             multi_groups = [groups for _ in range(self.n_outputs)]
 
-        with (profiling.span("setup_solver", K=K, budget=budget, eps=eps,
-                             solver=solver)
-              if profiling.recording else profiling.OFF):
+        with profiling.span("setup_solver", K=K, budget=budget, eps=eps,
+                            solver=solver):
             self._ensure_mosap(K, multi_groups)
             self.MOSAP.solve(budget=budget, eps=eps, solver=solver,
                              continuous_relaxation=continuous_relaxation,
@@ -1101,8 +1086,7 @@ class BLUEProblem:
         if own:
             profiling.enable_spans()
         try:
-            with (profiling.span("solve", K=K, budget=budget, eps=eps)
-                  if profiling.recording else profiling.OFF) as sp:
+            with profiling.span("solve", K=K, budget=budget, eps=eps) as sp:
                 return self._solve(
                     sp, trace_dir, K, budget, eps, groups, multi_groups,
                     solver, verbose, continuous_relaxation,
@@ -1156,8 +1140,8 @@ class BLUEProblem:
                           if pipelined else None)
             # the pipelined path laid out every group's sums: gather them
             # for the estimator (black-box models sample in this loop)
-            with (profiling.span("estimate.sums")
-                  if profiling.recording and pipelined else profiling.OFF):
+            with (profiling.span("estimate.sums") if pipelined
+                  else profiling.OFF):
                 for gi, (ls, N) in enumerate(zip(flattened_groups,
                                                  sample_list)):
                     if N == 0:

@@ -9,12 +9,15 @@ Chrome trace file.
 The recorder is off until :func:`enable_spans`.  The program opens a span
 at each layer boundary of ``solve`` and ``setup_solver``, written
 
-    with (profiling.span("sample.chunk", chunk=c, rows=n)
-          if profiling.recording else profiling.OFF):
+    with profiling.span("sample.chunk", chunk=c, rows=n) as sp:
 
-so that with the recorder off a site costs one read of the module flag
-``recording``: it allocates nothing and touches no tensor.  With it on, a
-span appends one :class:`Span` to a list in memory when it closes.  The
+and this module alone decides whether it records: with the recorder off
+:func:`span` and :func:`host_sync` return the shared no-op context
+:data:`OFF` (``sp`` is then None) and :func:`count` returns at once, so a
+site costs one Python call and touches no tensor.  A site's attributes
+are host values (shapes, lengths); one that needs the device is set in
+``sp.attrs`` behind ``if sp is not None``.  With the recorder on, a span
+appends one :class:`Span` to a list in memory when it closes.  The
 recorder never launches device work, records a CUDA event or
 synchronises, so the card runs the same items with it on or off.
 
@@ -45,7 +48,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-recording = False               # read at every span site; see the docstring
+recording = False               # whether span(), host_sync() and count() record
 OFF = contextlib.nullcontext()  # what a site enters with the recorder off
 
 # the Chrome trace track of the program's spans (pid: the process)
@@ -136,15 +139,31 @@ def unix_ns(t_ns: int) -> int:
     return t_ns - _anchor[0] + _anchor[1]
 
 
-class span:
+def span(name: str, **attrs):
     """``with span(name, **attrs) as s``: one span of the program; ``s``
     is the open span (``s.attrs`` may take attributes known only at its
-    end).  Enter it only while :data:`recording`."""
+    end), or :data:`OFF`'s None while the recorder is off."""
+    if not recording:
+        return OFF
+    return _Span(name, attrs)
+
+
+def host_sync(site: str):
+    """``span("host.sync", site=site)`` around one blocking device-to-host
+    read, counted on the request as ``host.sync.<site>``; :data:`OFF`
+    while the recorder is off."""
+    if not recording:
+        return OFF
+    return _HostSync("host.sync", {"site": site})
+
+
+class _Span:
+    """An open span of :func:`span`: it records itself when it closes."""
 
     __slots__ = ("name", "attrs", "id", "parent", "root", "start_ns",
                  "launches")
 
-    def __init__(self, name: str, **attrs):
+    def __init__(self, name: str, attrs: dict):
         self.name = name
         self.attrs = attrs
 
@@ -185,25 +204,22 @@ class span:
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to counter ``name`` of the current request (nothing
-    outside a span).  Call it only while :data:`recording`."""
+    outside a span, nothing while the recorder is off)."""
+    if not recording:
+        return
     stack = _stack()
     if stack:
         counters = stack[-1].root.attrs["counters"]
         counters[name] = counters.get(name, 0) + n
 
 
-class host_sync(span):
-    """``span("host.sync", site=site)`` around one blocking device-to-host
-    read, counted on the request as ``host.sync.<site>``."""
+class _HostSync(_Span):
+    """An open :func:`host_sync`: it counts itself on its request."""
 
     __slots__ = ()
 
-    def __init__(self, site: str):
-        self.name = "host.sync"
-        self.attrs = {"site": site}
-
     def __enter__(self):
-        span.__enter__(self)
+        _Span.__enter__(self)
         counters = self.root.attrs["counters"]
         key = "host.sync." + self.attrs["site"]
         counters[key] = counters.get(key, 0) + 1
@@ -219,7 +235,7 @@ def traced(name: str, after=None, **attrs):
         def run(*args, **kwargs):
             if not recording:
                 return fn(*args, **kwargs)
-            with span(name, **attrs) as s:
+            with _Span(name, dict(attrs)) as s:
                 out = fn(*args, **kwargs)
                 if after is not None:
                     s.attrs.update(after(out, *args, **kwargs))

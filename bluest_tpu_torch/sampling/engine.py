@@ -1,4 +1,5 @@
-"""Factored-model sampling engine: per-chunk draws + the masked f64 combiner.
+"""What every sampling engine shares: the per-chunk streams, the deal of
+chunks to ranks and the masked f64 combiner.
 
 Port of ``bluest_tpu/sampling/kernel_engine.py`` (the per-model sweep and
 its combiner) and of ``SampleSums`` (``jax_engine.py:34``).  For a group
@@ -20,29 +21,29 @@ samples
     of K6 (``ops/combine.py``) a chunk, which adds the chunk's sums into
     the call's running sums; on the host ``combine_plain``'s einsums.
 
-The sums stay on the device; the caller copies the sums of all its
-groups to the host in one piece.  Under a mesh of R sample ranks
-(``parallel/mesh.py``) rank r takes a contiguous block of whole chunks of
-the call and returns its partial sums -- ``None`` when it holds no chunk;
-the caller adds the ranks' sums with one ``all_reduce``.  ``collect``
-(snapshot collection, the counterpart of
-``KernelEngineV2.sample_sums(collect=True, on_chunk=...)``) also returns
-the rows of this rank's chunks -- outputs, flattened inputs and the mask
-of the finite rows, which are exactly the samples the sums cover -- on
-the device; the caller collects a call in bounded pieces of whole chunks
-and under a mesh gathers each piece's rows in rank order, which is chunk
-order.
+The loop over the chunks is ``group_engine.GroupEngine``'s;
+``SamplingEngine`` (importable from here) is that loop over a factored
+model's hooks, with no redraw.  The sums stay on the device; the caller
+copies the sums of all its groups to the host in one piece.  Under a mesh
+of R sample ranks (``parallel/mesh.py``) rank r takes a contiguous block
+of whole chunks of the call (:func:`rank_chunks`) and returns its partial
+sums -- ``None`` when it holds no chunk; the caller adds the ranks' sums
+with one ``all_reduce``.  ``collect`` (snapshot collection, the
+counterpart of ``KernelEngineV2.sample_sums(collect=True,
+on_chunk=...)``) also returns the rows of this rank's chunks -- outputs,
+flattened inputs and the mask of the finite rows, which are exactly the
+samples the sums cover -- on the device; the caller collects a call in
+bounded pieces of whole chunks and under a mesh gathers each piece's
+rows in rank order, which is chunk order.
 """
 
 from __future__ import annotations
 
-import math
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .. import profiling as prof
 from ..ops.combine import combine_sums
 
 F64 = torch.float64
@@ -186,100 +187,10 @@ def check_device(device) -> torch.device:
     return device
 
 
-class SamplingEngine:
-    """Coupled sampling of groups of a factored model on one device.
-
-    ``sample_inputs(generator, n)`` draws n shared inputs (a tensor with
-    leading dimension n) and ``evaluate_model(l, inputs)`` returns model
-    ``l``'s outputs, shape (n, No) or (n, No, d)."""
-
-    def __init__(self, sample_inputs: Callable, evaluate_model: Callable,
-                 No: int, batch_size: int, device, mesh=None):
-        if int(batch_size) < 1:
-            raise ValueError("batch_size must be >= 1, got %s" % batch_size)
-        self.sample_inputs = sample_inputs
-        self.evaluate_model = evaluate_model
-        self.No = int(No)
-        self.batch = int(batch_size)
-        self.device = check_device(device)
-        self.mesh = mesh
-
-    def _chunks(self, ls, seed: int, counter: int, N: int, first_chunk: int,
-                acc: Optional[SampleSums]):
-        """This rank's chunks of the call: chunk c draws from the stream
-        ``(seed, counter, first_chunk + c)``.  Yields each chunk's inputs,
-        outputs and the call's running sums after it, ``acc`` plus the
-        chunks so far (``acc`` itself is left as it is)."""
-        with prof.span("sample.seed") if prof.recording else prof.OFF:
-            gen = torch.Generator(device=self.device)
-        acc = own_sums(acc)
-        with (prof.span("sample.group", models=tuple(ls), N=N,
-                        counter=counter, first_chunk=first_chunk)
-              if prof.recording else prof.OFF):
-            for c in rank_chunks(math.ceil(N / self.batch), self.mesh):
-                base = c * self.batch
-                n_c = min(self.batch, N - base)
-                with (prof.span("sample.chunk", chunk=first_chunk + c,
-                                rows=n_c) if prof.recording else prof.OFF):
-                    with (prof.span("sample.seed") if prof.recording
-                          else prof.OFF):
-                        gen.manual_seed(generator_seed(seed, counter,
-                                                       first_chunk + c))
-                    with (prof.span("sample.inputs", rows=n_c)
-                          if prof.recording else prof.OFF):
-                        theta = self.sample_inputs(gen, n_c)
-                    with (prof.span("model.evaluate", models=len(ls),
-                                    rows=n_c)
-                          if prof.recording else prof.OFF):
-                        outs = torch.stack([self.evaluate_model(l, theta)
-                                            for l in ls])
-                    with (prof.span("sample.combine", rows=n_c)
-                          if prof.recording else prof.OFF):
-                        acc = fold(combine, acc, outs, base, N)
-                if prof.recording:
-                    prof.count("rows.drawn", n_c)
-                yield theta, outs, acc
-
-    def sample_calls(self, seed: int, calls) -> List[Optional[SampleSums]]:
-        """:meth:`sample_sums` of each call ``(ls, counter, N,
-        first_chunk)``, in order."""
-        return [self.sample_sums(ls, seed, counter, N, first_chunk)
-                for ls, counter, N, first_chunk in calls]
-
-    def sample_sums(self, ls: Sequence[int], seed: int, counter: int, N: int,
-                    first_chunk: int = 0) -> Optional[SampleSums]:
-        """MLBLUE sums of group ``ls`` over N coupled samples; chunk c
-        draws from the stream ``(seed, counter, first_chunk + c)``.
-        Returns device tensors: this rank's partial sums under a mesh,
-        ``None`` where it holds no chunk."""
-        ls = [int(l) for l in ls]
-        N = int(N)
-        acc = zero_sums(self.No, len(ls), self.device) if N <= 0 else None
-        for _theta, _outs, acc in self._chunks(ls, seed, counter, N,
-                                               first_chunk, acc):
-            pass
-        return acc
-
-    def collect(self, ls: Sequence[int], seed: int, counter: int, N: int,
-                first_chunk: int = 0, acc: Optional[SampleSums] = None
-                ) -> Tuple[Optional[SampleSums], Optional[torch.Tensor],
-                           Optional[torch.Tensor], Optional[torch.Tensor]]:
-        """``sample_sums`` that also returns every row's outputs ``vals``
-        (N, No, k[, d]), flattened inputs (N, q) and the (N,) mask of the
-        finite rows -- the combiner masks the others out of the sums and
-        the problem's top-up resamples the deficit, so the finite rows
-        equal the samples the sums cover -- all on the device.  Under a
-        mesh these are this rank's rows, ``None`` where it holds no
-        chunk.  The chunks' sums are folded onto ``acc`` (the running sums
-        of the earlier pieces of one call), in chunk order."""
-        ls = [int(l) for l in ls]
-        N = int(N)
-        vals, inputs = [], []
-        for theta, outs, acc in self._chunks(ls, seed, counter, N,
-                                             first_chunk, acc):
-            vals.append(outs.movedim(0, 2))
-            inputs.append(flat_inputs(theta))
-        if not vals:
-            return acc, None, None, None
-        vals = torch.cat(vals)
-        return acc, vals, torch.cat(inputs), finite_rows(vals)
+def __getattr__(name):
+    # SamplingEngine is the group engine's loop over a factored model's
+    # hooks, defined beside that loop, whose module imports this one
+    if name == "SamplingEngine":
+        from .group_engine import SamplingEngine
+        return SamplingEngine
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -1,4 +1,4 @@
-"""Coupled-group sampling engine: models that are sampled group by group.
+"""The port's sampling engine: the one loop over a call's chunks.
 
 Port of ``bluest_tpu/sampling/jax_engine.py`` (``build_group_engine``
 and ``build_group_collect_engine``) for models that do not factor into
@@ -33,8 +33,14 @@ margin -- and hands them, in draw order, to the failing rows in row
 order; the accepted draws are finite
 draws of the group's stream, as the JAX loop's are.  Rows still failing
 after the last round are masked out of the sums and counted in
-``n_failed``.  The f64 sums come from the same combiner as the factored
-engine's (``engine.combine``: on a card K6, one launch a chunk).
+``n_failed``.  The f64 sums come from ``engine.combine`` (on a card K6,
+one launch a chunk).
+
+A factored model (one shared input, one call a model) is a group model
+whose draw ignores ``ls`` and whose evaluation stacks the per-model calls
+(:func:`factored_hooks`), with no redraw: :class:`SamplingEngine`.  With
+``max_resample == 0`` no chunk reads the card: non-finite rows are masked
+and counted, and the problem's fetch rounds top them up.
 
 The calls of one dispatch run as one sequence of chunks, drawn one chunk
 ahead: chunk c + 1's inputs are drawn before the host waits for chunk
@@ -90,6 +96,22 @@ class _Chunk(NamedTuple):
     N: int          # the call's rows
 
 
+def factored_hooks(sample_inputs: Callable, evaluate_model: Callable):
+    """(sample_group, evaluate_group) of a factored model:
+    ``sample_inputs(generator, n)`` draws n inputs that every model of a
+    group shares and ``evaluate_model(l, inputs)`` returns model ``l``'s
+    outputs, (n, No) or (n, No, d).  The evaluation is the model-major
+    stack viewed row-major, so the combiner's ``movedim`` gives K6 the
+    stack as it lies in memory."""
+    def sample_group(gen, ls, n):
+        return sample_inputs(gen, n)
+
+    def evaluate_group(ls, inputs):
+        return torch.stack([evaluate_model(l, inputs)
+                            for l in ls]).movedim(0, 2)
+    return sample_group, evaluate_group
+
+
 class GroupEngine:
     """Coupled sampling of groups of a coupled-group model on one device."""
 
@@ -127,19 +149,17 @@ class GroupEngine:
              chunk: int) -> torch.Generator:
         """``gen`` seeded with the stream of chunk ``chunk`` of call
         ``counter``."""
-        with prof.span("sample.seed") if prof.recording else prof.OFF:
+        with prof.span("sample.seed"):
             gen.manual_seed(generator_seed(seed, counter, chunk))
         return gen
 
     def draw_inputs(self, gen: torch.Generator, ls, n: int):
         """n fresh coupled inputs of group ``ls``."""
-        with (prof.span("sample.inputs", rows=n) if prof.recording
-              else prof.OFF):
+        with prof.span("sample.inputs", rows=n):
             return self.sample_group(gen, ls, n)
 
     def evaluate(self, ls, inputs) -> torch.Tensor:
-        with (prof.span("model.evaluate", models=len(ls),
-                        rows=_rows(inputs)) if prof.recording else prof.OFF):
+        with prof.span("model.evaluate", models=len(ls), rows=_rows(inputs)):
             return self.evaluate_group(ls, inputs)
 
     def count(self, outs: torch.Tensor):
@@ -164,7 +184,7 @@ class GroupEngine:
     def read_count(self, count: torch.Tensor) -> int:
         """The host value of a :meth:`count`: on a card a wait on its
         event, which does not drain the stream."""
-        with prof.host_sync("draw.count") if prof.recording else prof.OFF:
+        with prof.host_sync("draw.count"):
             if not count.is_cuda:
                 return int(count)
             held, event = self._slot
@@ -180,20 +200,17 @@ class GroupEngine:
         n = outs.shape[0]
         drawn = n
         if accepted < n and self.max_resample:
-            with prof.host_sync("draw.bad") if prof.recording else prof.OFF:
+            with prof.host_sync("draw.bad"):
                 bad = torch.nonzero(~ok).flatten()
             for _ in range(self.max_resample):
                 m = self.redraw_rows(bad.numel(), drawn, accepted)
-                with (prof.span("sample.redraw", failing=bad.numel(), rows=m)
-                      if prof.recording else prof.OFF):
+                with prof.span("sample.redraw", failing=bad.numel(), rows=m):
                     new_in = self.draw_inputs(gen, ls, m)
                     new_out = self.evaluate(ls, new_in)
-                    with (prof.host_sync("draw.good") if prof.recording
-                          else prof.OFF):
+                    with prof.host_sync("draw.good"):
                         good = torch.nonzero(finite_rows(new_out)).flatten()
                     drawn, accepted = drawn + m, accepted + good.numel()
-                    with (prof.span("sample.splice") if prof.recording
-                          else prof.OFF):
+                    with prof.span("sample.splice"):
                         good = good[:bad.numel()]
                         take, bad = bad[:good.numel()], bad[good.numel():]
                         outs = outs.index_copy(0, take, new_out[good])
@@ -202,8 +219,7 @@ class GroupEngine:
                         ok = ok.index_fill(0, take, True)
                 if bad.numel() == 0:
                     break
-        if prof.recording:
-            prof.count("rows.drawn", drawn)
+        prof.count("rows.drawn", drawn)
         return inputs, outs, ok
 
     def draw(self, gen: torch.Generator, ls, n: int):
@@ -231,13 +247,13 @@ class GroupEngine:
         accs = [own_sums(a) for a in accs]
         kept = [[] for _ in calls]
         gens = self._gens
+        redraws = self.max_resample > 0
 
         def draw_ahead(k):
             """Chunk k's first draw, before chunk k - 1's count is read."""
             if k >= len(todo):
                 return None
-            if prof.recording:
-                prof.count("draw.ahead")
+            prof.count("draw.ahead")
             return first_draw(k)
 
         def first_draw(k):
@@ -245,43 +261,48 @@ class GroupEngine:
             gen = self.seed(gens[k % 2], seed, ch.counter, ch.index)
             return self.draw_inputs(gen, ch.ls, ch.n)
 
+        def check(outs):
+            """A chunk's first evaluation's (ok, count) on its way to the
+            host; nothing without redraws, where the combiner masks the
+            non-finite rows and no chunk reads the card."""
+            return self.count(outs) if redraws else (None, None)
+
         k = 0
         for j, (ls, counter, N, first_chunk) in enumerate(calls):
-            with (prof.span("sample.group", models=ls, N=N, counter=counter,
-                            first_chunk=first_chunk)
-                  if prof.recording else prof.OFF):
+            with prof.span("sample.group", models=ls, N=N, counter=counter,
+                           first_chunk=first_chunk):
                 while k < len(todo) and todo[k].call == j:
                     ch = todo[k]
-                    with (prof.span("sample.chunk", chunk=ch.index,
-                                    rows=ch.n)
-                          if prof.recording else prof.OFF):
+                    with prof.span("sample.chunk", chunk=ch.index, rows=ch.n):
                         if k == 0:
                             inputs = first_draw(0)
                             outs = self.evaluate(ch.ls, inputs)
-                            ok, count = self.count(outs)
+                            ok, count = check(outs)
                             ahead = draw_ahead(1)
-                        accepted = self.read_count(count)
-                        inputs, outs, ok = self.redraw(
-                            gens[k % 2], ch.ls, inputs, outs, ok, accepted)
-                        if (ahead is not None and accepted < ch.n
-                                and self.max_resample):
-                            # the redraws came after the draw ahead
-                            if prof.recording:
+                        if redraws:
+                            accepted = self.read_count(count)
+                            inputs, outs, ok = self.redraw(
+                                gens[k % 2], ch.ls, inputs, outs, ok,
+                                accepted)
+                            if ahead is not None and accepted < ch.n:
+                                # the redraws came after the draw ahead
                                 prof.count("draw.ahead_dropped")
-                            ahead = first_draw(k + 1)
+                                ahead = first_draw(k + 1)
+                        else:
+                            prof.count("rows.drawn", ch.n)
                         if ahead is not None:
                             outs_next = self.evaluate(todo[k + 1].ls, ahead)
                         # combine masks non-finite rows itself; the rows
                         # are model-major
-                        with (prof.span("sample.combine", rows=ch.n)
-                              if prof.recording else prof.OFF):
+                        with prof.span("sample.combine", rows=ch.n):
                             accs[j] = fold(combine, accs[j],
                                            outs.movedim(2, 0), ch.base, ch.N)
                         if keep:
-                            kept[j].append((inputs, outs, ok))
+                            kept[j].append((inputs, outs, finite_rows(outs)
+                                            if ok is None else ok))
                         if ahead is not None:
                             inputs, outs = ahead, outs_next
-                            ok, count = self.count(outs)
+                            ok, count = check(outs)
                             ahead = draw_ahead(k + 2)
                     k += 1
         return accs, kept
@@ -326,3 +347,18 @@ class GroupEngine:
                                                  for x in inputs]),
                 torch.cat(valid))
 
+
+
+class SamplingEngine(GroupEngine):
+    """Coupled sampling of groups of a factored model on one device: the
+    group loop over :func:`factored_hooks` with no redraw.
+
+    ``sample_inputs(generator, n)`` draws n shared inputs (a tensor, or a
+    tuple or list of tensors, with leading dimension n) and
+    ``evaluate_model(l, inputs)`` returns model ``l``'s outputs, shape
+    (n, No) or (n, No, d).  ``collect``'s ``vals`` are (N, No, k[, d])."""
+
+    def __init__(self, sample_inputs: Callable, evaluate_model: Callable,
+                 No: int, batch_size: int, device, mesh=None):
+        super().__init__(*factored_hooks(sample_inputs, evaluate_model), No,
+                         batch_size, device, max_resample=0, mesh=mesh)

@@ -6,14 +6,20 @@ the port's ``combine``.  se, sc, d1, d2 must agree to 1e-12 relative and
 n_failed exactly.
 """
 
+import math
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
 
 from bluest_tpu.sampling.kernel_engine import KernelEngineV2
+from bluest_tpu_torch import profiling
 from bluest_tpu_torch.sampling.engine import (SamplingEngine, add_sums,
-                                              combine, generator_seed)
+                                              combine, combine_plain,
+                                              finite_rows, generator_seed)
+from bluest_tpu_torch.sampling.group_engine import (GroupEngine,
+                                                    factored_hooks)
 
 torch.set_num_threads(1)
 
@@ -142,3 +148,74 @@ def test_rank_chunks_partition_every_call():
                 n_sample=R, sample_rank=r))) for r in range(R)]
             assert sum(got, []) == list(range(n_chunks))
             assert max(len(g) for g in got) == -(-n_chunks // R)
+
+
+def _factored_draw(gen, n):
+    return torch.randn((n, 3), generator=gen, dtype=torch.float64)
+
+
+def _factored_model(l, x):
+    """(n, 2) outputs; model 2 fails on the rows whose third input is
+    above 1."""
+    out = x[:, :2] * (l + 1.0) + x[:, 2:] ** 2
+    bad = (x[:, 2:] > 1.0) & (l == 2)
+    return torch.where(bad, torch.full_like(out, float("nan")), out)
+
+
+@pytest.mark.parametrize("kind", ["SamplingEngine", "GroupEngine"])
+@pytest.mark.parametrize("N,first", [(1, 0), (63, 3), (65, 0), (150, 3)])
+def test_factored_hooks_run_the_one_loop_without_a_read(kind, N, first):
+    """A factored model's engine, and the group engine with no redraw over
+    the same hooks: one draw a chunk and one call a model a chunk, no
+    read of a count (no ``host.sync`` span), every row counted drawn, and
+    sums, ``collect``'s rows and mask bit-equal to a loop written out
+    chunk by chunk (seed, draw, stack, ``combine_plain``, add)."""
+    seen = {"draws": 0, "evals": 0}
+
+    def draw(gen, n):
+        seen["draws"] += 1
+        return _factored_draw(gen, n)
+
+    def model(l, x):
+        seen["evals"] += 1
+        return _factored_model(l, x)
+
+    batch, ls, seed, counter = 64, (0, 2, 3), 7, 5
+    if kind == "SamplingEngine":
+        eng = SamplingEngine(draw, model, 2, batch, "cpu")
+    else:
+        eng = GroupEngine(*factored_hooks(draw, model), 2, batch, "cpu",
+                          max_resample=0)
+    chunks = math.ceil(N / batch)
+    profiling.enable_spans()
+    try:
+        with profiling.span("request") as root:
+            sums = eng.sample_sums(ls, seed, counter, N, first_chunk=first)
+    finally:
+        profiling.disable_spans()
+    assert not [s for s in profiling.spans() if s.name == "host.sync"]
+    assert root.attrs["counters"]["rows.drawn"] == N
+    assert seen == {"draws": chunks, "evals": len(ls) * chunks}
+
+    gen, want, vals, inputs = torch.Generator(), None, [], []
+    for c in range(chunks):
+        n = min(batch, N - c * batch)
+        x = _factored_draw(gen.manual_seed(
+            generator_seed(seed, counter, first + c)), n)
+        outs = torch.stack([_factored_model(l, x) for l in ls])
+        want = add_sums(want, combine_plain(outs, c * batch, N))
+        vals.append(outs.movedim(0, 2))
+        inputs.append(x)
+    vals, inputs = torch.cat(vals), torch.cat(inputs)
+    assert int(want.n_failed) > 0 or N == 1
+    exact = dict(rtol=0, atol=0, equal_nan=True)
+    total, got_vals, got_inputs, mask = eng.collect(ls, seed, counter, N,
+                                                    first_chunk=first)
+    first_call = eng.sample_calls(seed, [(ls, counter, N, first),
+                                         ((1,), counter + 1, 40, 0)])[0]
+    for got in (sums, total, first_call):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    torch.testing.assert_close(got_vals, vals, **exact)
+    assert torch.equal(got_inputs, inputs)
+    assert torch.equal(mask, finite_rows(vals))

@@ -224,6 +224,26 @@ def test_nothing_recorded_while_off():
     assert not profiling.recording
 
 
+def test_off_sites_record_nothing():
+    """With the recorder off every site gets the shared no-op, ``count``
+    adds nothing to an open request, and a solve records no span."""
+    assert profiling.span("sample.chunk", chunk=0, rows=8) is profiling.OFF
+    assert profiling.host_sync("fetch") is profiling.OFF
+    profiling.enable_spans()
+    with profiling.span("request") as root:
+        profiling.disable_spans()
+        profiling.count("rows.drawn", 5)
+        with profiling.host_sync("fetch") as sp:
+            assert sp is None
+    assert set(root.attrs["counters"]) == {"k2.launches", "k6.launches"}
+    profiling.enable_spans()
+    profiling.disable_spans()
+    p = _Series(M=3, C=np.eye(3) * 0.5 + 0.5, costs=np.array([4., 2., 1.]),
+                verbose=False, device="cpu", device_batch_size=256)
+    p.solve(K=2, budget=400.0)
+    assert profiling.spans() == []
+
+
 class _Series(BLUEProblem):
     """A fast coupled-group model: partial exponential series of one
     normal draw; rows with z > 1.5 give NaN."""

@@ -53,7 +53,8 @@ def main(argv=None):
     cell, cfg = harness.cell_files(args.workload)
     ctx = SimpleNamespace(cfg=cfg, cell=cell, seed=args.seed,
                           device=args.device,
-                          inputs=os.path.join(ROOT, cfg["inputs"]))
+                          inputs=os.path.join(ROOT, cfg["inputs"]),
+                          rank=0, world=1, group=None)
     cuda = args.device.startswith("cuda")
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     kind = harness.request_kind(cell["kind"])
