@@ -19,6 +19,7 @@ pins them to its allocation device.
 
 from __future__ import annotations
 
+from itertools import chain
 from typing import Optional, Sequence
 
 import numpy as np
@@ -134,6 +135,17 @@ def validated_nlp_point(r, feasible):
 def _f64(m, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(m, dtype=float), dtype=torch.float64,
                            device=device)
+
+
+def _stack_sums(flat) -> np.ndarray:
+    """Model sums as one f64 array, ``(n,)`` or ``(n, *shape)``; a scalar
+    among arrays (an unsampled group's 0) is broadcast to their shape."""
+    try:
+        return np.asarray(flat, dtype=float)
+    except ValueError:
+        shape = np.broadcast_shapes(*(np.shape(v) for v in flat))
+        return np.stack([np.broadcast_to(np.asarray(v, dtype=float), shape)
+                         for v in flat])
 
 
 class SAP:
@@ -714,23 +726,35 @@ class SAP:
 
     def compute_BLUE_estimator(self, sums, samples=None):
         """(mu, var) from per-group sample sums (reference sap.py:99-119).
-        ``sums[g]`` is the length-|group g| list of model sums."""
+        ``sums[g]`` is the length-|group g| list of model sums: scalars,
+        or arrays of one shape (vector-valued outputs) beside the scalar
+        0s of unsampled groups.  ``y = sum_g R_g^T C_g^-1 S_g`` is built
+        by array operations that make the reference loop's products and
+        sums in its order, so it is bit-equal to the loop's."""
         if samples is None:
             samples = self.samples
         samples = np.asarray(samples, dtype=float)
 
-        y = [0.0 for _ in range(self.N)]
-        gidx = 0
-        for k in range(1, self.K + 1):
-            groups_k = self.gs.groups[k - 1]
-            ics = self.gs.invcovs[k - 1]
-            for i in range(groups_k.shape[0]):
-                s = sums[gidx]
-                for j in range(k):
-                    acc = 0.0
-                    for l in range(k):
-                        acc = acc + ics[i, j, l] * s[l]
-                    y[groups_k[i, j]] = y[groups_k[i, j]] + acc
-                gidx += 1
+        s = _stack_sums(list(chain.from_iterable(sums[:self.L])))
+        if s.shape[0] != self.gs.members.size:
+            raise ValueError("sums hold %d model sums, the groups %d"
+                             % (s.shape[0], self.gs.members.size))
+        tail = s.shape[1:]
+        accs = []
+        off = 0
+        for ics in self.gs.invcovs:
+            Lk, k = ics.shape[:2]
+            S = s[off:off + Lk * k].reshape((Lk, k) + tail)
+            off += Lk * k
+            ics = ics.reshape(ics.shape + (1,) * len(tail))
+            # acc[i, j] = sum_l ics[i, j, l] * S[i, l], left to right
+            acc = 0.0
+            for l in range(k):
+                acc = acc + ics[:, :, l] * S[:, None, l]
+            accs.append(acc.reshape((Lk * k,) + tail))
+        # unbuffered, in index order: each model's additions in the
+        # loop's (group, slot) order
+        y = np.zeros((self.N,) + tail)
+        np.add.at(y, self.gs.members, np.concatenate(accs))
 
         return psimod.host_estimator(self.gs, self.psi, samples, y)

@@ -52,6 +52,10 @@ class GroupStructure:
         self.sizes = sizes
         self.cumsizes = np.cumsum(sizes)
         self.L = int(self.cumsizes[-1])
+        # the model of every (group, slot) pair in flat-group order: the
+        # scatter index of the estimator's right-hand side
+        self.members = np.array([i for g in self.flat_groups for i in g],
+                                dtype=np.int64)
 
         # Model-membership indicator rows: ES[i][g] = 1 iff model i in group g
         # (reference sap.py:89-95).  e = ES[0] marks groups containing the
