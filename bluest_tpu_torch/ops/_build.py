@@ -3,13 +3,18 @@
 Each source under ``bluest_tpu_torch/csrc/`` is compiled at first use for
 ``sm_90a`` into ``build/bluest_tpu_torch/`` next to the package, once per
 hash of its text and its flags, and loaded with ctypes by its wrapper
-module (``ops.diffusion``, ``ops.hodgkin_huxley``).  The compile writes a
-temporary file that is renamed into place, so processes that build the
-same library at once agree on it.
+module (``ops.diffusion``, ``ops.hodgkin_huxley``).  A build holds a
+lock on ``<library>.lock`` beside the library (``fcntl.flock``, which the
+kernel drops when its process ends), so of the processes that need the
+same library at once, as the ranks of a job on a checkout's first run
+do, one runs nvcc and the others wait for it and load its library.  The
+compile writes a temporary file that is renamed into place, so a reader
+never sees half a library.
 """
 
 from __future__ import annotations
 
+import fcntl
 import hashlib
 import os
 import shutil
@@ -60,26 +65,36 @@ def build(source: str, flags) -> str:
         lock = _locks.setdefault(path, threading.Lock())
     with profiling.span("kernels.load", library=os.path.basename(path),
                         nvcc=False) as sp:
-        with lock:          # one build of a library at a time, others apart
+        # one build of a library at a time, in this process (threads) and
+        # across processes (the lock file), others apart
+        with lock:
             if os.path.exists(path):
                 return path
-            nvcc = find_nvcc()
-            if sp is not None:
-                sp.attrs["nvcc"] = True
             os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run([nvcc] + flags + ["-o", tmp, source],
-                                      capture_output=True, text=True,
-                                      timeout=600)
-                log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError("nvcc failed to build %s:\n%s"
-                                       % (source, log))
-                os.replace(tmp, path)     # atomic: concurrent builds agree
-                build_logs[path] = log
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
+            with open(path + ".lock", "a") as held:
+                fcntl.flock(held, fcntl.LOCK_EX)
+                if not os.path.exists(path):
+                    _compile(source, flags, path, sp)
     return path
+
+
+def _compile(source: str, flags, path: str, sp) -> None:
+    """nvcc ``source`` with ``flags`` into ``path``, through a temporary
+    file renamed into place."""
+    nvcc = find_nvcc()
+    if sp is not None:
+        sp.attrs["nvcc"] = True
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc] + flags + ["-o", tmp, source],
+                              capture_output=True, text=True, timeout=600)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed to build %s:\n%s"
+                               % (source, log))
+        os.replace(tmp, path)             # atomic: no reader sees half
+        build_logs[path] = log
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)

@@ -5,7 +5,7 @@ Carlo sampling with mpi4py (blue_fn.py:9, 106-110, 179-187); the JAX
 package does so with a ``jax.sharding.Mesh``.  Here a mesh is a small
 object over the ranks of an initialised ``torch.distributed`` job: the
 sample axis replaces the MPI rank split (each sample rank evaluates a
-block of whole chunks of every call), one ``all_reduce(SUM)`` over the
+block of whole chunks of every dispatch), one ``all_reduce(SUM)`` over the
 sample group replaces ``allreduce``/``psum``, and a second 'model' axis
 serves models that are themselves distributed (the nested-communicator
 pattern of the reference, blue_models.py:121-130).
@@ -26,6 +26,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from .. import profiling
 
 SAMPLE_AXIS = "samples"
 MODEL_AXIS = "model"
@@ -84,10 +86,14 @@ class Mesh:
         """Sum (or ``op="max"``) of ``x`` over the sample ranks, in a new
         tensor where the backend reduces: on the rank's card for
         ``nccl``; a backend that reduces host memory (``gloo``) gets the
-        host copy of a card tensor, and the result stays on the host."""
+        host copy of a card tensor, and the result stays on the host.
+        Counted on the request as ``mesh.all_reduce`` and
+        ``mesh.all_reduce_bytes``."""
         y = x.to(_comm_device(self.sample_group))
         if y is x:
             y = x.clone()
+        profiling.count("mesh.all_reduce")
+        profiling.count("mesh.all_reduce_bytes", y.numel() * y.element_size())
         dist.all_reduce(y, group=self.sample_group,
                         op=dist.ReduceOp.MAX if op == "max"
                         else dist.ReduceOp.SUM)

@@ -50,8 +50,9 @@ host in one copy per fetch round (a second round only tops up groups
 whose model returned non-finite rows).  With ``mesh=`` (a
 ``parallel/mesh.py`` mesh over an initialised ``torch.distributed`` job;
 ``"auto"`` = a sample mesh over the world, ``None`` for a world of one)
-each sample rank evaluates a block of the chunks of every call and that
-one copy is preceded by one ``all_reduce`` over the sample group; the
+each sample rank evaluates a block of the chunks of every dispatch (the
+calls of a fetch round, dealt as one list) and that one copy is
+preceded by one ``all_reduce`` over the sample group; the
 allocation runs redundantly on every rank and rank 0's is broadcast, and
 only rank 0 prints and writes snapshot files.  ``profile_dir`` writes a
 ``torch.profiler`` trace of the sampling and the estimate of each
@@ -773,7 +774,12 @@ class BLUEProblem:
         tensor (counts below 2^53 are exact in f64), under a mesh one
         ``all_reduce`` of it over the sample ranks, one copy to the host.
         Returns host sums [se, sc, d1, d2, n_failed] aligned with
-        ``dispatched`` (None entries preserved)."""
+        ``dispatched`` (None entries preserved).  Takes this rank's rows
+        that stayed non-finite off the counter ``rows.kept``, to which
+        the engine added the rows of this rank's chunks: under a mesh the
+        copy also carries this rank's own count of them.  Under a mesh
+        the span ``mesh.fetch`` holds the ``all_reduce`` and the copy
+        that waits for it, hence for the slowest rank."""
         live = [d for d in dispatched if d is not None]
         if not live:
             return [None] * len(dispatched)
@@ -793,12 +799,20 @@ class BLUEProblem:
                         for x in live]
                 flat = torch.cat([t.reshape(-1).to(F64)
                                   for s in sums for t in s])
-                if self.mesh is not None:
+            own_failed = None   # this rank's non-finite rows, under a mesh
+            if self.mesh is None:
+                with profiling.host_sync("fetch"):
+                    flat = self._sums_to_host(flat)
+            else:
+                with profiling.span("mesh.fetch"):
+                    own = torch.stack([s.n_failed for s in sums]).sum()
                     flat = self.mesh.all_reduce_samples(flat)
+                    flat = torch.cat([flat, own.to(flat).reshape(1)])
+                    with profiling.host_sync("fetch"):
+                        flat = self._sums_to_host(flat)
+                own_failed, flat = int(flat[-1]), flat[:-1]
             if sp is not None:
-                sp.attrs["bytes"] = flat.numel() * flat.element_size()
-            with profiling.host_sync("fetch"):
-                flat = self._sums_to_host(flat)
+                sp.attrs["bytes"] = flat.nbytes
             with profiling.span("sample.unpack"):
                 fetched, off = [], 0
                 for s in sums:
@@ -809,6 +823,9 @@ class BLUEProblem:
                         off += t.numel()
                     parts[-1] = int(parts[-1])
                     fetched.append(parts)
+            profiling.count("rows.kept", -(sum(f[-1] for f in fetched)
+                                           if own_failed is None
+                                           else own_failed))
         fetched = iter(fetched)
         return [None if d is None else next(fetched) for d in dispatched]
 
@@ -847,8 +864,6 @@ class BLUEProblem:
             disp = self._dispatch_all(group_list, n_list)
             host = self._batch_fetch_sums(disp)
             rounds = 1
-            profiling.count("rows.kept", sum(
-                d["N"] - h[-1] for d, h in zip(disp, host) if d is not None))
             try:
                 for _ in range(4):
                     again = [i for i, h in enumerate(host)
@@ -870,8 +885,6 @@ class BLUEProblem:
                         [d if i in again else None
                          for i, d in enumerate(disp)])
                     rounds += 1
-                    profiling.count("rows.kept", sum(
-                        host[i][-1] - extra[i][-1] for i in again))
                     for i in again:
                         host[i] = [a + b for a, b in zip(host[i][:-1],
                                                          extra[i][:-1])] \

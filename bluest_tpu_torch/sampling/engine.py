@@ -25,10 +25,12 @@ The loop over the chunks is ``group_engine.GroupEngine``'s;
 ``SamplingEngine`` (importable from here) is that loop over a factored
 model's hooks, with no redraw.  The sums stay on the device; the caller
 copies the sums of all its groups to the host in one piece.  Under a mesh
-of R sample ranks (``parallel/mesh.py``) rank r takes a contiguous block
-of whole chunks of the call (:func:`rank_chunks`) and returns its partial
-sums -- ``None`` when it holds no chunk; the caller adds the ranks' sums
-with one ``all_reduce``.  ``collect`` (snapshot collection, the
+of R sample ranks (``parallel/mesh.py``) the chunks of every call of a
+dispatch, in the dispatch's order, are dealt as one list: rank r takes a
+contiguous block of it (:func:`rank_chunks`), within one chunk of every
+other rank's share, and returns its partial sums of each call --
+``None`` where it holds no chunk of the call; the caller adds the
+ranks' sums with one ``all_reduce``.  ``collect`` (snapshot collection, the
 counterpart of ``KernelEngineV2.sample_sums(collect=True,
 on_chunk=...)``) also returns the rows of this rank's chunks -- outputs,
 flattened inputs and the mask of the finite rows, which are exactly the
@@ -68,15 +70,17 @@ def generator_seed(seed: int, counter: int, chunk_index: int = 0) -> int:
 
 
 def rank_chunks(n_chunks: int, mesh=None) -> range:
-    """The chunks of a call that this rank evaluates: all of them without
-    a mesh, else the contiguous block ``[r per, (r + 1) per)`` of sample
-    rank r, ``per = ceil(n_chunks / R)`` (empty for a rank past the
-    end)."""
+    """The positions, of ``n_chunks`` chunks in order, that this rank
+    evaluates: all of them without a mesh, else the contiguous block of
+    sample rank r, ``floor(n_chunks / R)`` positions and one more for
+    each of the first ``n_chunks mod R`` ranks (empty for a rank past
+    the end), so that no two ranks differ by more than one chunk."""
     if mesh is None:
         return range(n_chunks)
-    per = -(-n_chunks // mesh.n_sample)
-    lo = min(mesh.sample_rank * per, n_chunks)
-    return range(lo, min(lo + per, n_chunks))
+    per, extra = divmod(n_chunks, mesh.n_sample)
+    r = mesh.sample_rank
+    lo = r * per + min(r, extra)
+    return range(lo, lo + per + (r < extra))
 
 
 def combine_plain(outs: torch.Tensor, base: int, N: int) -> SampleSums:

@@ -235,15 +235,24 @@ class GroupEngine:
         """Every chunk of ``calls`` [(ls, counter, N, first_chunk)] that
         this rank holds, as one sequence drawn one chunk ahead (the
         module's docstring); the redraws are local to the rank (no
-        collective inside).  Returns each call's running sums, ``accs``
-        (the sums each call starts from, or None) plus its chunks, and
-        with ``keep`` each call's chunks' (inputs, outputs, ok)."""
+        collective inside).  Under a mesh the chunks of all the calls, in
+        order, are dealt as one list (``rank_chunks`` of its length), so
+        every rank holds as many chunks of the dispatch as any other, or
+        one fewer.  Returns each call's running sums, ``accs`` (the sums
+        each call starts from, or None) plus its chunks, and with
+        ``keep`` each call's chunks' (inputs, outputs, ok)."""
         todo = []
         for j, (ls, counter, N, first_chunk) in enumerate(calls):
-            for c in rank_chunks(math.ceil(N / self.batch), self.mesh):
+            for c in range(math.ceil(N / self.batch)):
                 base = c * self.batch
                 todo.append(_Chunk(j, ls, counter, first_chunk + c, base,
                                    min(self.batch, N - base), N))
+        if self.mesh is not None:
+            todo = [todo[k] for k in rank_chunks(len(todo), self.mesh)]
+            prof.count("mesh.chunks", len(todo))
+        # the rows of this rank's chunks; the fetch takes off those that
+        # stay non-finite
+        prof.count("rows.kept", sum(ch.n for ch in todo))
         accs = [own_sums(a) for a in accs]
         kept = [[] for _ in calls]
         gens = self._gens

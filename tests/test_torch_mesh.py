@@ -286,7 +286,102 @@ def case_e2e(mesh, out, rank=None):
     return _save(out, rank, res)
 
 
-CASES = {"engines": case_engines, "meshes": case_meshes, "e2e": case_e2e}
+# a dispatch of five calls, (models, counter, N), in chunks of DEAL_BATCH
+# rows: 17 chunks, three calls of one chunk, the last chunk of two calls
+# short; model 1 is non-finite on ~7% of the draws
+DEAL_BATCH = 200
+DEAL_CALLS = [((0, 1, 2), 0, 1000), ((0,), 1, 150), ((1, 2), 2, 650),
+              ((2,), 3, 90), ((0, 1), 4, 1150)]
+
+
+def _deal_model(ls, z):
+    out = _grp_model(ls, z)
+    bad = (z > 1.5)[:, None, None] & (torch.tensor(ls) == 1)
+    return torch.where(bad, torch.nan, out)
+
+
+class Seeded(GroupEngine):
+    """The group engine that notes (counter, chunk) of each stream it
+    seeds, in order: the chunks this rank evaluated."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.seeded = []
+
+    def seed(self, gen, seed, counter, chunk):
+        self.seeded.append((counter, chunk))
+        return super().seed(gen, seed, counter, chunk)
+
+
+class FlakyGroups(BLUEProblem):
+    """Coupled-group model of one output whose model 1 is non-finite on
+    ~7% of draws."""
+
+    def sample_group(self, generator, ls, n):
+        return torch.randn(n, generator=generator, dtype=F64)
+
+    def evaluate_group(self, ls, z):
+        return _deal_model(ls, z)[:, :1]
+
+
+def _recorded(fn):
+    """(fn's result, the counters of its request, its spans), with the
+    recorder on and fn run inside one root span."""
+    from bluest_tpu_torch import profiling
+    profiling.enable_spans()
+    try:
+        with profiling.span("solve") as root:
+            got = fn()
+    finally:
+        profiling.disable_spans()
+    return got, dict(root.attrs["counters"]), profiling.spans()
+
+
+def case_deal(mesh, out=None, rank=None):
+    """The deal of one dispatch's chunks to the ranks, on four ranks:
+    which chunks each rank seeded, its counters and sums, with redraws
+    and with the non-finite rows dropped; then the problem's fetch
+    rounds and their spans.  ``mesh`` None: the one-process values."""
+    res = {}
+    calls = [(ls, c, N, 0) for ls, c, N in DEAL_CALLS]
+    for name, max_resample in (("redraw", 64), ("drop", 0)):
+        eng = Seeded(_grp_inputs, _deal_model, 2, DEAL_BATCH, "cpu",
+                     max_resample=max_resample, mesh=mesh)
+        sums, counters, _ = _recorded(lambda: eng.sample_calls(7, calls))
+        for j, (ls, s) in enumerate(zip([c[0] for c in calls], sums)):
+            res["%s_%d" % (name, j)] = _flat(s, 2, len(ls), mesh)
+            if mesh is None:        # each call alone, through its own run
+                res["%s_alone_%d" % (name, j)] = _flat(
+                    eng.sample_sums(ls, 7, calls[j][1], calls[j][2]), 2,
+                    len(ls), None)
+        res[name + "_seeded"] = np.array(list(dict.fromkeys(eng.seeded)))
+        res[name + "_mesh_chunks"] = np.array(counters.get("mesh.chunks",
+                                                           -1))
+    # through the problem: redraws in the engine, or none and the
+    # non-finite rows topped up in further fetch rounds
+    for name, max_resample in (("redraw", 64), ("topup", 0)):
+        p = FlakyGroups(3, mesh=mesh, device_batch_size=DEAL_BATCH,
+                        max_resample=max_resample, **_known(3))
+        host, counters, spans = _recorded(lambda: p._sample_groups(
+            [c[0] for c in DEAL_CALLS], [c[2] for c in DEAL_CALLS]))
+        key = "problem_%s_" % name
+        res[key + "sums"] = np.concatenate(
+            [np.concatenate([np.ravel(x) for x in h]) for h in host])
+        for k in ("rows.kept", "rows.drawn", "mesh.all_reduce",
+                  "mesh.all_reduce_bytes", "host.sync.fetch"):
+            res[key + k] = np.array(counters.get(k, -1))
+        fetch = {s.id for s in spans if s.name == "mesh.fetch"}
+        res[key + "mesh_fetch_spans"] = np.array(len(fetch))
+        res[key + "syncs_in_mesh_fetch"] = np.array(sum(
+            s.name == "host.sync" and s.attrs["site"] == "fetch"
+            and s.parent in fetch for s in spans))
+        res[key + "rounds"] = np.array([s.attrs["fetch_rounds"]
+                                        for s in spans if s.name == "sample"])
+    return _save(out, rank, res)
+
+
+CASES = {"engines": case_engines, "meshes": case_meshes, "e2e": case_e2e,
+         "deal": case_deal}
 
 
 def worker(rank, nproc, port, out, case):
@@ -367,6 +462,107 @@ def e2e(tmp_path_factory):
     d = tmp_path_factory.mktemp("e2e")
     ref = case_e2e(None, str(d / "ref"))
     return _run_workers(str(d / "got"), "e2e"), ref, str(d)
+
+
+@pytest.fixture(scope="module")
+def deal(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("deal") / "got")
+    return _run_workers(out, "deal", nproc=4), case_deal(None)
+
+
+def _deal_chunks():
+    return [(c, k) for _ls, c, N in DEAL_CALLS
+            for k in range(-(-N // DEAL_BATCH))]
+
+
+@pytest.mark.parametrize("engine", ["redraw", "drop"])
+def test_four_ranks_evaluate_each_chunk_of_a_dispatch_once(deal, engine):
+    """Every chunk of the dispatch is seeded on exactly one of the four
+    ranks, each rank's chunks a contiguous block of the dispatch's
+    sequence, in rank order."""
+    got, _ref = deal
+    seeded = [[tuple(x) for x in g[engine + "_seeded"]] for g in got]
+    assert sum(seeded, []) == _deal_chunks()
+
+
+@pytest.mark.parametrize("engine", ["redraw", "drop"])
+def test_four_ranks_hold_an_even_share_of_a_dispatch(deal, engine):
+    """``mesh.chunks``: each rank's chunks of the dispatch, within one of
+    17 / 4, though three of the five calls are a chunk or less (dealt
+    call by call, rank 0 would hold 7 and rank 3 one)."""
+    got, ref = deal
+    total = len(_deal_chunks())
+    counts = [int(g[engine + "_mesh_chunks"]) for g in got]
+    assert counts == [len(g[engine + "_seeded"]) for g in got]
+    assert sum(counts) == total
+    assert all(abs(n - total / 4) <= 1 for n in counts)
+    assert int(ref[engine + "_mesh_chunks"]) == -1      # no mesh: none
+
+
+@pytest.mark.parametrize("engine", ["redraw", "drop"])
+@pytest.mark.parametrize("call", range(len(DEAL_CALLS)))
+def test_four_rank_dispatch_sums_match_one_process(deal, engine, call):
+    got, ref = deal
+    key = "%s_%d" % (engine, call)
+    for g in got:
+        _sums_close(g[key], ref[key])
+    if engine == "redraw":
+        assert ref[key][-1] == 0
+    elif 1 in DEAL_CALLS[call][0]:
+        assert ref[key][-1] > 0                 # dropped and counted
+
+
+@pytest.mark.parametrize("engine", ["redraw", "drop"])
+def test_one_process_runs_a_dispatch_in_call_order(deal, engine):
+    """Without a mesh the dispatch is every call's chunks in order, and
+    each call's sums are bit-equal to the call run alone."""
+    _got, ref = deal
+    assert [tuple(x) for x in ref[engine + "_seeded"]] == _deal_chunks()
+    for j in range(len(DEAL_CALLS)):
+        assert np.array_equal(ref["%s_%d" % (engine, j)],
+                              ref["%s_alone_%d" % (engine, j)])
+
+
+@pytest.mark.parametrize("engine", ["redraw", "topup"])
+def test_mesh_fetch_is_recorded_under_a_mesh_only(deal, engine):
+    """One ``mesh.fetch`` span a fetch round on every rank, each holding
+    the round's ``host.sync`` of the copy; one ``all_reduce`` a round
+    and one to agree on the output dimension; none of it without a
+    mesh."""
+    got, ref = deal
+    key = "problem_%s_" % engine
+    rounds = int(ref[key + "rounds"][0])
+    assert rounds == (1 if engine == "redraw" else 3)
+    for g in got:
+        assert int(g[key + "rounds"][0]) == rounds
+        assert int(g[key + "mesh_fetch_spans"]) == rounds
+        assert int(g[key + "syncs_in_mesh_fetch"]) == rounds
+        assert int(g[key + "host.sync.fetch"]) == rounds + 1
+        assert int(g[key + "mesh.all_reduce"]) == rounds + 1
+        assert int(g[key + "mesh.all_reduce_bytes"]) > 0
+    assert int(ref[key + "mesh_fetch_spans"]) == 0
+    assert int(ref[key + "host.sync.fetch"]) == rounds
+    assert int(ref[key + "mesh.all_reduce"]) == -1
+
+
+@pytest.mark.parametrize("engine", ["redraw", "topup"])
+def test_rows_kept_are_each_ranks_own(deal, engine):
+    """Under a mesh a rank counts its own rows kept against its own rows
+    drawn; over the ranks they add up to one process's counts, which
+    are the requested rows less those still non-finite; the sums match
+    one process's."""
+    got, ref = deal
+    key = "problem_%s_" % engine
+    kept = [int(g[key + "rows.kept"]) for g in got]
+    drawn = [int(g[key + "rows.drawn"]) for g in got]
+    assert all(0 < k < d for k, d in zip(kept, drawn))
+    assert sum(kept) == int(ref[key + "rows.kept"])
+    assert sum(drawn) == int(ref[key + "rows.drawn"])
+    assert int(ref[key + "rows.kept"]) == sum(N for _ls, _c, N in DEAL_CALLS)
+    scale = np.abs(ref[key + "sums"]).max()
+    for g in got:
+        assert np.abs(g[key + "sums"] - ref[key + "sums"]).max() \
+            <= 1e-12 * scale
 
 
 def _sums_close(got, ref):
